@@ -1,0 +1,193 @@
+"""Synthetic scenario generator for the L7 HTTP config (1k path/header
+regex rules × 10k flows) — a copy of the reference's
+``ingest/synth.py`` ``synth_http_scenario`` / ``scenario_by_name`` /
+``realize_scenario``, restricted to the ``http`` scenario of this slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import random
+from typing import Dict, List, Optional, Tuple
+
+from cilium_tpu_torch.core.flow import (
+    Flow,
+    HTTPInfo,
+    L7Type,
+    Protocol,
+    TrafficDirection,
+)
+from cilium_tpu_torch.policy.api import (
+    EndpointSelector,
+    IngressRule,
+    L7Rules,
+    PortProtocol,
+    PortRule,
+    PortRuleHTTP,
+    Rule,
+)
+
+ING = TrafficDirection.INGRESS
+EG = TrafficDirection.EGRESS
+
+
+@dataclasses.dataclass
+class SynthScenario:
+    name: str
+    rules: List[Rule]
+    endpoints: Dict[str, Dict[str, str]]   # name → label dict
+    flows: List[Flow]
+    # filled by the harness after identity allocation:
+    ids: Optional[Dict[str, int]] = None
+
+
+def _sel(**kv) -> EndpointSelector:
+    return EndpointSelector.from_labels(**kv)
+
+
+# ------------------------------------------------------- config 1: HTTP --
+def synth_http_scenario(n_rules: int = 1000, n_flows: int = 10000,
+                        seed: int = 0) -> SynthScenario:
+    rng = random.Random(seed)
+    http_rules = []
+    for i in range(n_rules):
+        kind = i % 5
+        if kind == 0:
+            http_rules.append(PortRuleHTTP(
+                method="GET", path=f"/api/v{i % 9}/svc{i}/[a-z0-9]+"))
+        elif kind == 1:
+            http_rules.append(PortRuleHTTP(
+                method="POST", path=f"/api/v1/items/{i}(/.*)?"))
+        elif kind == 2:
+            http_rules.append(PortRuleHTTP(
+                path=f"/public/{i}/.*", host=f"svc{i % 50}[.]local"))
+        elif kind == 3:
+            http_rules.append(PortRuleHTTP(
+                method="GET|HEAD", path=f"/static/{i}/[0-9]+/[a-f0-9]+"))
+        else:
+            http_rules.append(PortRuleHTTP(
+                method="PUT", path=f"/admin/{i}/config",
+                headers=(f"X-Role: admin{i % 10}",)))
+    rule = Rule(
+        endpoint_selector=_sel(app="server"),
+        ingress=(IngressRule(
+            from_endpoints=(_sel(app="client"),),
+            to_ports=(PortRule(
+                ports=(PortProtocol(80, Protocol.TCP),),
+                rules=L7Rules(http=tuple(http_rules)),
+            ),),
+        ),),
+        labels=("synth=http",),
+    )
+    flows = []
+    for _ in range(n_flows):
+        i = rng.randrange(n_rules)
+        hit = rng.random() < 0.5
+        kind = i % 5
+        if kind == 0:
+            path = f"/api/v{i % 9}/svc{i}/x9y" if hit else f"/api/v{i % 9}/svc{i}/"
+            method = "GET"
+            headers: Tuple = ()
+        elif kind == 1:
+            path = f"/api/v1/items/{i}/sub" if hit else f"/api/v1/items/{i}x"
+            method = "POST"
+            headers = ()
+        elif kind == 2:
+            path = f"/public/{i}/a/b" if hit else f"/private/{i}/a"
+            method = "GET"
+            headers = ()
+        elif kind == 3:
+            path = (f"/static/{i}/123/abc9" if hit
+                    else f"/static/{i}/123/XYZ")
+            method = "HEAD"
+            headers = ()
+        else:
+            path = f"/admin/{i}/config"
+            method = "PUT"
+            headers = ((("X-Role", f"admin{i % 10}"),) if hit
+                       else (("X-Role", "nobody"),))
+        flows.append(Flow(
+            src_identity=0, dst_identity=0, dport=80, protocol=Protocol.TCP,
+            direction=ING, l7=L7Type.HTTP,
+            http=HTTPInfo(method=method, path=path,
+                          host=f"svc{i % 50}.local", headers=headers),
+        ))
+    return SynthScenario(
+        name="http", rules=[rule],
+        endpoints={"server": {"app": "server"},
+                   "client": {"app": "client"}},
+        flows=flows,
+    )
+
+
+# ----------------------------------------------------------- harness ----
+def scenario_by_name(name: str, n_rules: int, n_flows: int,
+                     seed: int = 0) -> "SynthScenario":
+    """Scenario dispatch. Only ``http`` is ported; the reference's other
+    scenarios (fqdn, kafka, generic, protocols) belong to later slices."""
+    if n_rules < 1:
+        raise ValueError("n_rules must be >= 1")
+    if name == "http":
+        return synth_http_scenario(n_rules=n_rules, n_flows=n_flows,
+                                   seed=seed)
+    raise NotImplementedError(
+        f"scenario {name!r} is not ported yet (only 'http' is)")
+
+
+def realize_scenario(scenario: SynthScenario, resolve: bool = True):
+    """Allocate identities, resolve policies, fix up flow identities.
+    Returns (per_identity_mapstates, scenario with ids filled);
+    ``resolve=False`` skips policy resolution (capture writers only
+    need the identity fixup) and returns ``None`` for the mapstates."""
+    from cilium_tpu_torch.core.identity import IdentityAllocator
+    from cilium_tpu_torch.core.labels import LabelSet
+    from cilium_tpu_torch.policy.mapstate import PolicyResolver
+    from cilium_tpu_torch.policy.repository import Repository
+    from cilium_tpu_torch.policy.selectorcache import SelectorCache
+
+    alloc = IdentityAllocator()
+    ids: Dict[str, int] = {}
+    labelsets: Dict[str, "LabelSet"] = {}
+    for name, lbls in scenario.endpoints.items():
+        ls = LabelSet.from_dict(lbls)
+        ids[name] = alloc.allocate(ls)
+        labelsets[name] = ls
+    per_identity = None
+    if resolve:
+        cache = SelectorCache(alloc)
+        repo = Repository()
+        repo.add(scenario.rules, sanitize=False)  # well-formed by synth
+        resolver = PolicyResolver(repo, cache)
+        per_identity = {ids[n]: resolver.resolve(labelsets[n])
+                        for n in scenario.endpoints}
+    scenario.ids = ids
+    # default src/dst for scenarios that use symbolic names
+    for f in scenario.flows:
+        src = getattr(f, "_src_name", None)
+        dst = getattr(f, "_dst_name", None)
+        if src is not None:
+            f.src_identity = ids[src]
+        if dst is not None:
+            f.dst_identity = ids[dst]
+    # single-policy scenarios: default identities
+    if scenario.name == "http":
+        for f in scenario.flows:
+            f.src_identity = ids["client"]
+            f.dst_identity = ids["server"]
+    elif scenario.name == "kafka":
+        for f in scenario.flows:
+            f.src_identity = ids["producer"]
+            f.dst_identity = ids["kafka"]
+    elif scenario.name == "generic":
+        for f in scenario.flows:
+            f.src_identity = ids["droid"]
+            f.dst_identity = ids["r2d2"]
+    elif scenario.name == "protocols":
+        for f in scenario.flows:
+            f.src_identity = ids["client"]
+            f.dst_identity = ids["polysvc"]
+    elif scenario.name == "fqdn":
+        for f in scenario.flows:
+            f.src_identity = ids["crawler"]
+            f.dst_identity = ids["peer"]
+    return per_identity, scenario
