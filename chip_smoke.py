@@ -6,11 +6,18 @@ Phases, in order (any failure exits non-zero before the result line):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the hand-written kernels (KD, K1, K2) from
-   ``cilium_tpu_torch/engine/csrc`` — one nvcc per source, in parallel;
+   ``cilium_tpu_torch/engine/csrc`` — one nvcc per source, in parallel —
+   and check in their SASS (``cuobjdump``) that every instantiation of
+   K1 and K2 issues tensor-core instructions (HMMA, HGMMA);
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, exactly, on random banks (0/1/128 positions, 128 states,
-   zero-length rows, batches that are not a multiple of the block) and
-   on the http-1000 policy's own banks;
+   zero-length rows, batches that are not a multiple of the block), on
+   the tile edges of the tensor-core kernels K1 and K2 (with random,
+   all-zero and all-full lengths) and on the http-1000 policy's own
+   banks; then K2 and K1 timed at the http-1000 host shape on random
+   bytes and on one repeated byte at full length: their times must
+   agree within 1.25x (the data-oblivious property of the reference
+   kernels);
 4. main path: the http scenario at 1000 rules x 10000 flows, bank size
    128, batches of 8192, under ``auto``, ``nfa-bitset`` and the
    oblivious DFA. Each configuration is verdicted once with every
@@ -46,6 +53,20 @@ TIMED_BATCHES, WARMUP = 25, 3
 #: 32-bit integer/bit ops at
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
+#: and the dense int8 tensor-core peak, the lowest tensor-core bound of
+#: the one-hot products K1 and K2 compute (their operands are exact in
+#: int8)
+TENSOR_INT8_OPS_PER_S = 1979e12
+#: input-independence: the largest ratio allowed between K1's or K2's
+#: times on two batches of one shape
+TIMING_RATIO_MAX = 1.25
+#: what the operation count of each kernel's bound counts
+BOUND_OPS = {
+    "KD": "2 per live byte and bank (one transition), non-tensor peak",
+    "K1": "2*NB*B*(L-1)*P*P (D . Follow), int8 tensor-core peak",
+    "K2": "2*NB*B*L*S*(K+1) (onehot(state) . table), int8 tensor-core "
+          "peak",
+}
 #: configuration → (kernel_impl, CILIUM_TPU_DFA_IMPL, kernels its path
 #: launches)
 CONFIGS = {
@@ -86,6 +107,22 @@ def time_launch(fn, reps: int = 20, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def launch_ms(fn) -> float:
+    """Device ms of one call, by CUDA events. A spin kernel keeps the
+    stream busy while the host enqueues the call between the two events,
+    so the wrapper's host time is not counted."""
+    import torch
+
+    torch.cuda._sleep(1_000_000)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1)
+
+
 def profile_kernels(fn, reps: int):
     """Run ``fn`` ``reps`` times under torch.profiler → {kernel name:
     (launches, device ms)} over the device-side kernel events. Empty
@@ -109,22 +146,24 @@ def profile_kernels(fn, reps: int):
     return out
 
 
-def kernel_device_ms(fn, symbol: str, reps: int = 20):
+def kernel_device_ms(fn, symbol: str, reps: int = 20, tries: int = 3):
     """Device time of one launch of the kernel whose symbol contains
-    ``symbol`` (profiler); None when the profiler saw no such kernel."""
-    hits = [(n, ms) for k, (n, ms) in profile_kernels(fn, reps).items()
-            if symbol in k]
-    if not hits:
-        return None
-    n = sum(h[0] for h in hits)
-    return sum(h[1] for h in hits) / n
+    ``symbol`` (profiler); None when the profiler saw no such kernel in
+    any of ``tries`` traces (a trace now and then comes back without
+    the kernel's events)."""
+    for _ in range(tries):
+        hits = [(n, ms) for k, (n, ms) in profile_kernels(fn, reps).items()
+                if symbol in k]
+        if hits:
+            return sum(h[1] for h in hits) / sum(h[0] for h in hits)
+    return None
 
 
-def bound(n_bytes: float, ops: float):
+def bound(n_bytes: float, ops: float, ops_per_s: float = NON_TENSOR_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and ops
-    over the non-tensor-core peak."""
+    over the given peak (default: outside the tensor cores)."""
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    to = ops / NON_TENSOR_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -142,6 +181,14 @@ def flow_bytes(data, lens) -> int:
 
 
 # ---------------------------------------------------------- kernel phase
+#: (NB, S, K, B, L) and (NB, P, K, B, L) tile-edge cases of K2 and K1
+K2_EDGES = [(1, 1, 1, 1, 1), (2, 16, 255, 15, 33), (1, 17, 256, 17, 1),
+            (3, 128, 256, 65, 33), (1, 128, 255, 8193, 33),
+            (2, 16, 1, 8193, 1), (1, 40, 7, 100, 300)]
+K1_EDGES = [(1, 1, 1, 1, 1), (2, 16, 256, 15, 33), (1, 17, 1, 17, 33),
+            (3, 128, 256, 65, 1), (1, 128, 1, 8193, 33),
+            (2, 17, 256, 8193, 1), (1, 40, 7, 100, 300)]
+
 def max_err(a, b) -> float:
     """Largest absolute difference; the kernels are exact, so 0."""
     import torch
@@ -217,6 +264,38 @@ def kernel_phase(errs, field_inputs):
         record("K1", f"random NB={nb} P={p} K={k} B={b} L={l}",
                nfa_cuda.nfa_finals_cuda(*args),
                nfa_cuda.nfa_finals_plain(*args))
+    # the tile edges of the tensor-core kernels: S or P off and on the
+    # 16-row k-step, K + 1 off the 8-column n-tile, B below one warp's
+    # 16 flows and past a CTA's 64, L = 1, 33 and past the 256-byte
+    # staging chunk; random, all-zero and all-full lengths
+    def length_cases(b, l):
+        return [("random", T(rng.integers(0, l + 1, (b,)).astype(np.int32))),
+                ("zero", T(np.zeros(b, np.int32))),
+                ("full", T(np.full(b, l, np.int32)))]
+
+    for nb, s, k, b, l in K2_EDGES:
+        tables = (T(rng.integers(0, s, (nb, s, k)).astype(np.int32)),
+                  T(rng.integers(0, k, (nb, 256)).astype(np.int32)),
+                  T(rng.integers(0, s, (nb,)).astype(np.int32)))
+        data = T(rng.integers(0, 256, (b, l)).astype(np.uint8))
+        for name, lens in length_cases(b, l):
+            args = (*tables, data, lens)
+            record("K2", f"edge NB={nb} S={s} K={k} B={b} L={l} {name} "
+                         f"lengths",
+                   dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*args),
+                   dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
+    for nb, p, k, b, l in K1_EDGES:
+        tables = (T((rng.random((nb, p, p)) < 0.1).astype(np.float32)),
+                  T((rng.random((nb, p, k)) < 0.5).astype(np.float32)),
+                  T(rng.integers(0, k, (nb, 256)).astype(np.int32)),
+                  T((rng.random((nb, p)) < 0.3).astype(np.float32)))
+        data = T(rng.integers(0, 256, (b, l)).astype(np.uint8))
+        for name, lens in length_cases(b, l):
+            args = (*tables, data, lens)
+            record("K1", f"edge NB={nb} P={p} K={k} B={b} L={l} {name} "
+                         f"lengths",
+                   nfa_cuda.nfa_finals_cuda(*args),
+                   nfa_cuda.nfa_finals_plain(*args))
     # a 0-position bank: nothing to scan, the wrapper launches nothing
     z = nfa_cuda.nfa_finals_cuda(
         T(np.zeros((1, 0, 0), np.float32)), T(np.zeros((1, 0, 1),
@@ -243,6 +322,82 @@ def kernel_phase(errs, field_inputs):
                  ("follow", "acc_cls", "byteclass", "start")] + [data, lens]
             record("K1", f"http-1000 {prefix} P={n[0].shape[1]}",
                    nfa_cuda.nfa_finals_cuda(*n), nfa_cuda.nfa_finals_plain(*n))
+
+
+def sass_tensor_ops():
+    """K1 and K2 run on the tensor cores: every instantiation of their
+    kernels in the built libraries holds tensor-core instructions, HMMA
+    (mma.sync) or HGMMA (wgmma), by cuobjdump of the toolkit that built
+    them. Returns {kernel id: {"HMMA": n, "HGMMA": n}}."""
+    from cilium_tpu_torch.engine import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    counts = {}
+    for kid, sym in (("K1", "nfa_scan_kernel"), ("K2", "dfa_oblivious_kernel")):
+        out = subprocess.run(
+            [cuobjdump, "-sass", _build.KERNELS[kid].library_path()],
+            capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump {kid}: {out.stderr[-500:]}")
+        funcs = [f for f in out.stdout.split("Function : ")[1:]
+                 if sym in f.splitlines()[0]]
+        per = [(f.count("HMMA"), f.count("HGMMA")) for f in funcs]
+        check(bool(per) and min(h + g for h, g in per) > 0,
+              f"{kid}: an instantiation of {sym} issues no tensor-core "
+              f"instruction ({per})")
+        counts[kid] = {"HMMA": sum(h for h, _ in per),
+                       "HGMMA": sum(g for _, g in per)}
+        log(f"  {kid}: tensor-core instructions in all {len(per)} "
+            f"instantiations of {sym}: {counts[kid]}")
+    return counts
+
+
+def timing_independence(dense_fields, nfa_fields, card):
+    """K2 and K1 at the http-1000 host shape on two batches of that
+    shape: random bytes with random lengths, and one byte value repeated
+    at full length. The median of 20 launches of each (CUDA events, in
+    turns) must agree within TIMING_RATIO_MAX. Returns {kernel id:
+    (random ms, repeated ms, ratio)}."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import dfa_oblivious_cuda, nfa_cuda
+
+    arr, data, _ = dense_fields["host"]
+    B, L = data.shape
+    rng = np.random.default_rng(1)
+    batches = {
+        "random": (torch.from_numpy(rng.integers(0, 256, (B, L))
+                                    .astype(np.uint8)).cuda(),
+                   torch.from_numpy(rng.integers(0, L + 1, (B,))
+                                    .astype(np.int32)).cuda()),
+        "repeated": (torch.full((B, L), ord("a"), dtype=torch.uint8,
+                                device="cuda"),
+                     torch.full((B,), L, dtype=torch.int32, device="cuda")),
+    }
+    narr = nfa_fields["host"][0]
+    kernels = {
+        "K2": (dfa_oblivious_cuda.dfa_finals_oblivious_cuda,
+               [arr[f"host_{k}"] for k in ("trans", "byteclass", "start")]),
+        "K1": (nfa_cuda.nfa_finals_cuda,
+               [narr[f"host_nfa_{k}"] for k in
+                ("follow", "acc_cls", "byteclass", "start")]),
+    }
+    out = {}
+    for kid, (fn, tables) in kernels.items():
+        times = {name: [] for name in batches}
+        for _ in range(20):
+            for name, (d, ln) in batches.items():
+                times[name].append(launch_ms(lambda: fn(*tables, d, ln)))
+        med = {name: statistics.median(v) for name, v in times.items()}
+        ratio = max(med.values()) / min(med.values())
+        out[kid] = (med["random"], med["repeated"], ratio)
+        log(f"  {kid} host B={B} L={L}: random bytes {med['random']:.5f} ms,"
+            f" one repeated byte {med['repeated']:.5f} ms, ratio "
+            f"{ratio:.4f} (limit {TIMING_RATIO_MAX}) on {card}")
+        check(ratio <= TIMING_RATIO_MAX,
+              f"{kid}: time depends on the input (ratio {ratio:.4f})")
+    return out
 
 
 # ------------------------------------------------------------- main path
@@ -406,7 +561,10 @@ def kernel_times(fields_dense, fields_nfa, card):
     """One launch of each kernel at the shape of every field it scans
     on the main path: its device time (profiler), its wall time per
     call from Python (CUDA events, wrapper included), the plain
-    version's wall time per call, and the bound."""
+    version's wall time per call, and the bound. The bound's operations
+    are KD's transitions over live bytes at the non-tensor peak, and
+    the one-hot products of K2 (2·NB·B·L·S·(K+1)) and K1
+    (2·NB·B·(L−1)·P²) at the int8 tensor-core peak."""
     import torch
 
     from cilium_tpu_torch.engine import (
@@ -447,16 +605,21 @@ def kernel_times(fields_dense, fields_nfa, card):
                                time_launch(lambda: dfa_oblivious_cuda
                                            .dfa_finals_oblivious_plain(*a),
                                            reps=3),
-                               *bound(tables + nbytes(fin), 2 * steps)))
+                               # the one-hot product over every byte:
+                               # the trip count is fixed by the shape
+                               *bound(tables + nbytes(fin),
+                                      2 * NB * data.numel()
+                                      * a[0].shape[1] * (a[0].shape[2] + 1),
+                                      TENSOR_INT8_OPS_PER_S)))
     for prefix, (arr, data, lens) in fields_nfa.items():
         if f"{prefix}_nfa_follow" not in arr:
             continue
         n = [arr[f"{prefix}_nfa_{k}"] for k in
              ("follow", "acc_cls", "byteclass", "start")] + [data, lens]
         NB, P, _ = n[1].shape
-        nw = -(-P // 32)
-        live = (lens.clamp(0, data.shape[1]) - 1).clamp(min=0)
-        ops = NB * int(live.sum()) * (2 * P * nw + 2 * nw)
+        # D . Follow over every byte after the first (the trip count is
+        # fixed by the shape)
+        ops = 2 * NB * data.shape[0] * max(data.shape[1] - 1, 0) * P * P
         def k1():
             return nfa_cuda.nfa_finals_cuda(*n)
         fin = k1()
@@ -466,7 +629,8 @@ def kernel_times(fields_dense, fields_nfa, card):
                            time_launch(lambda: nfa_cuda.nfa_finals_plain(*n),
                                        reps=3),
                            *bound(nbytes(*n[:4], fin)
-                                  + flow_bytes(data, lens), ops)))
+                                  + flow_bytes(data, lens), ops,
+                                  TENSOR_INT8_OPS_PER_S)))
     for kid, rs in rows.items():
         for prefix, shape, dev_ms, ms, plain_ms, bms, by in rs:
             check(dev_ms is not None, f"{kid} {prefix}: the profiler saw "
@@ -501,6 +665,7 @@ def main() -> int:
     secs = _build.build()
     log(f"  built {len(_build.KERNELS)} kernels in {secs:.1f}s "
         f"(nvcc in parallel)")
+    tensor_ops = sass_tensor_ops()
 
     log("set-up: the http-1000 policy, staged under each configuration")
     per_identity, scenario, cfg = build_policy()
@@ -516,6 +681,8 @@ def main() -> int:
     kernel_phase(errs, {**dense_fields,
                         **{p: v for p, v in nfa_fields.items()
                            if f"{p}_nfa_follow" in v[0]}})
+    log("phase 3: K2 and K1 timing against the input (data-oblivious)")
+    oblivious = timing_independence(dense_fields, nfa_fields, card)
 
     reports = {}
     for name in CONFIGS:
@@ -543,6 +710,9 @@ def main() -> int:
             "ms": row[2],
             "call_ms": row[3], "plain_ms": row[4], "bound_ms": row[5],
             "bound_by": row[6], "library_ms": None,
+            "bound_ops": BOUND_OPS[kid],
+            "sass_tensor_ops": tensor_ops.get(kid),
+            "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             "shape": f"{pick[kid]} {row[1]} B={BATCH}",
             "batch_ms": {n: r["batch_ms"] for n, r in reports.items()},
             "device_busy_share": {n: r["busy_share"]

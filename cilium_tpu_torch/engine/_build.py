@@ -8,8 +8,9 @@ stream it is given and returns ``cudaGetLastError()``; :meth:`Kernel.
 launch` raises on anything but 0. A build failure raises too: there is
 no fallback to the plain versions on a CUDA tensor.
 
-The library name carries a hash of its source, so an edited kernel is
-rebuilt and a stale library is never loaded. Nothing here runs at
+The library name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale
+library is never loaded. Nothing here runs at
 import time: the CPU tests import every module of the port.
 """
 
@@ -31,6 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def _headers() -> List[str]:
+    """The shared headers under ``csrc`` (part of every library's hash)."""
+    return sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC)
+                  if n.endswith(".cuh"))
 
 
 def nvcc_path() -> str:
@@ -65,8 +72,11 @@ class Kernel:
         return os.path.join(CSRC, self.source)
 
     def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        h = hashlib.sha256()
+        for path in [self.source_path, *_headers()]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:12]
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
 

@@ -6,8 +6,9 @@ The reference's kernel steps every flow with a one-hot matmul so that
 its time never depends on the payload or the rule set. The plain
 version below keeps that arithmetic (one-hot state times the table,
 then a class column select, exact in float32 since every state id is
-below 128); the CUDA kernel sweeps the whole table per byte with
-selects instead (see the notes in the source).
+below 128); the CUDA kernel computes the same product on the tensor
+cores, 16 flows per warp, with the table in fp16 (see the notes in the
+source).
 
 :func:`dfa_finals_oblivious` dispatches on where the tensors lie.
 """
@@ -21,7 +22,7 @@ from cilium_tpu_torch.engine import _build
 KERNEL = _build.KERNELS["K2"]
 
 #: state budget per bank (the reference's ``pallas_dfa.MAX_STATES``):
-#: state ids must fit the kernel's byte-wide shared-memory table
+#: at most 8 k-steps of 16 states in the kernel's one-hot operand
 MAX_STATES = 128
 
 

@@ -21,8 +21,8 @@ from cilium_tpu_torch.engine import _build
 
 KERNEL = _build.KERNELS["K1"]
 
-#: position budget per bank (the reference's ``MAX_POSITIONS``): four
-#: 32-bit words of live set per thread
+#: position budget per bank (the reference's ``MAX_POSITIONS``): at
+#: most 8 k-steps of 16 positions in the kernel's register-held set
 MAX_POSITIONS = 128
 
 

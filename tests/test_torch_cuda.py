@@ -7,7 +7,8 @@ one). Run on a machine with an H100, from the repo root:
 machine with the card has no JAX; this file imports none.)
 
 Each kernel is held exactly against its plain version on the same CUDA
-tensors, and the fused step on the card against the same step on the
+tensors (random, all-zero and all-full lengths; the tile edges of the
+tensor-core kernels), and the fused step on the card against the same step on the
 CPU (the plain versions), at a small size.
 """
 
@@ -40,41 +41,61 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
+def _length_cases(rng, b, l):
+    """Random lengths, then an all-zero-length and an all-full batch."""
+    return [rng.integers(0, l + 1, (b,)).astype(np.int32),
+            np.zeros(b, np.int32), np.full(b, l, np.int32)]
+
+
+#: tile edges of the tensor-core kernels: S or P off and on the 16-row
+#: k-step, K + 1 off the 8-column n-tile (K = 255, 256), B below one
+#: warp's 16 flows and past a CTA's 64, L = 1, L = 33, and L past the
+#: 256-byte staging chunk
+K2_EDGES = [(1, 1, 1, 1, 1), (2, 16, 255, 15, 33), (1, 17, 256, 17, 1),
+            (3, 128, 256, 65, 33), (1, 128, 255, 8193, 33),
+            (2, 16, 1, 8193, 1), (1, 40, 7, 100, 300)]
+K1_EDGES = [(1, 1, 1, 1, 1), (2, 16, 256, 15, 33), (1, 17, 1, 17, 33),
+            (3, 128, 256, 65, 1), (1, 128, 1, 8193, 33),
+            (2, 17, 256, 8193, 1), (1, 40, 7, 100, 300)]
+
+
 @pytest.mark.parametrize("nb,s,k,b,l", [(1, 2, 1, 7, 4), (3, 17, 5, 50, 12),
                                         (2, 128, 31, 300, 9),
-                                        (4, 500, 20, 129, 32)])
+                                        (4, 500, 20, 129, 32), *K2_EDGES])
 def test_kd_and_k2_equal_plain(cuda, nb, s, k, b, l):
     rng = np.random.default_rng(s)
-    args = [_t(x, cuda) for x in (
+    tables = [_t(x, cuda) for x in (
         rng.integers(0, s, (nb, s, k)).astype(np.int32),
         rng.integers(0, k, (nb, 256)).astype(np.int32),
-        rng.integers(0, s, (nb,)).astype(np.int32),
-        rng.integers(0, 256, (b, l)).astype(np.uint8),
-        rng.integers(0, l + 1, (b,)).astype(np.int32))]
+        rng.integers(0, s, (nb,)).astype(np.int32))]
+    data = _t(rng.integers(0, 256, (b, l)).astype(np.uint8), cuda)
     acc = _t(rng.integers(-2 ** 31, 2 ** 31 - 1, (nb, s, 2),
                           dtype=np.int64).astype(np.int32), cuda)
-    got = dfa_dense_cuda.dense_scan_cuda(*args, accept=acc, extra=acc)
-    want = dfa_dense_cuda.dense_scan_plain(*args, accept=acc, extra=acc)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
-    if s <= 128:
-        assert torch.equal(
-            dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*args),
-            dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
+    for lens in _length_cases(rng, b, l):
+        args = [*tables, data, _t(lens, cuda)]
+        got = dfa_dense_cuda.dense_scan_cuda(*args, accept=acc, extra=acc)
+        want = dfa_dense_cuda.dense_scan_plain(*args, accept=acc, extra=acc)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        if s <= 128:
+            assert torch.equal(
+                dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*args),
+                dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
 
 
 @pytest.mark.parametrize("nb,p,k,b,l", [(1, 1, 1, 7, 4), (2, 33, 4, 129, 1),
-                                        (3, 128, 13, 300, 9)])
+                                        (3, 128, 13, 300, 9), *K1_EDGES])
 def test_k1_equals_plain(cuda, nb, p, k, b, l):
     rng = np.random.default_rng(p)
-    args = [_t(x, cuda) for x in (
+    tables = [_t(x, cuda) for x in (
         (rng.random((nb, p, p)) < 0.1).astype(np.float32),
         (rng.random((nb, p, k)) < 0.5).astype(np.float32),
         rng.integers(0, k, (nb, 256)).astype(np.int32),
-        (rng.random((nb, p)) < 0.3).astype(np.float32),
-        rng.integers(0, 256, (b, l)).astype(np.uint8),
-        rng.integers(0, l + 1, (b,)).astype(np.int32))]
-    assert torch.equal(nfa_cuda.nfa_finals_cuda(*args),
-                       nfa_cuda.nfa_finals_plain(*args))
+        (rng.random((nb, p)) < 0.3).astype(np.float32))]
+    data = _t(rng.integers(0, 256, (b, l)).astype(np.uint8), cuda)
+    for lens in _length_cases(rng, b, l):
+        args = [*tables, data, _t(lens, cuda)]
+        assert torch.equal(nfa_cuda.nfa_finals_cuda(*args),
+                           nfa_cuda.nfa_finals_plain(*args))
 
 
 @pytest.mark.parametrize("mode,dfa_impl,kernel", [

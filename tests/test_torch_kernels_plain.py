@@ -255,6 +255,53 @@ def test_k1_group_plane_words():
     np.testing.assert_array_equal(as_u32(got_g), np.asarray(want_g))
 
 
+# ------------------------------------------- the padding the kernels use
+@pytest.mark.parametrize("s,k,p", [(1, 1, 1), (17, 13, 17), (78, 256, 108),
+                                   (78, 13, 1), (1, 256, 17)])
+def test_plain_versions_ignore_tile_padding(s, k, p):
+    """The tensor-core kernels pad K2's table to SP = 16·⌈S/16⌉ states
+    and KP = 8·⌈(K+1)/8⌉ columns, and K1's tables to PP = 16·⌈P/16⌉
+    positions and KC = 16·⌈K/16⌉ classes, all with zeros. The plain
+    versions on the padded tables give the unpadded answer: padded
+    states are unreachable, padded classes never selected, padded
+    positions never set."""
+    rng = np.random.default_rng(s * 1000 + k + p)
+    nb, b, l = 2, 40, 9
+    data = T(rng.integers(0, 256, (b, l)).astype(np.uint8))
+    lens = rng.integers(0, l + 1, (b,)).astype(np.int32)
+    lens[:2] = 0
+    lens[2:4] = l
+    lens = T(lens)
+    # K2: columns 0..K-1, the identity at K, zeros up to KP - 1
+    sp, kp = -(-s // 16) * 16, -(-(k + 1) // 8) * 8
+    trans = rng.integers(0, s, (nb, s, k)).astype(np.int32)
+    bc = T(rng.integers(0, k, (nb, 256)).astype(np.int32))
+    start = T(rng.integers(0, s, (nb,)).astype(np.int32))
+    padded = np.zeros((nb, sp, kp - 1), np.int32)
+    padded[:, :s, :k] = trans
+    if k < kp - 1:
+        padded[:, :s, k] = np.arange(s)
+    want = dfa_finals_oblivious_plain(T(trans), bc, start, data, lens)
+    got = dfa_finals_oblivious_plain(T(padded), bc, start, data, lens)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # K1: follow, acc and start zero-padded to PP (acc's classes to KC)
+    pp, kc = -(-p // 16) * 16, -(-k // 16) * 16
+    st = _random_stack(rng, nb, p, k)
+    fol = np.zeros((nb, pp, pp), np.float32)
+    fol[:, :p, :p] = st["nfa_follow"]
+    acc = np.zeros((nb, pp, kc), np.float32)
+    acc[:, :p, :k] = st["nfa_acc_cls"]
+    sta = np.zeros((nb, pp), np.float32)
+    sta[:, :p] = st["nfa_start"]
+    nbc = T(st["nfa_byteclass"])
+    want = nfa_cuda.nfa_finals_plain(T(st["nfa_follow"]),
+                                     T(st["nfa_acc_cls"]), nbc,
+                                     T(st["nfa_start"]), data, lens)
+    got = nfa_cuda.nfa_finals_plain(T(fol), T(acc), nbc, T(sta), data, lens)
+    np.testing.assert_array_equal(got[:, :, :p].numpy(), want.numpy())
+    assert not got[:, :, p:].any()
+
+
 # ------------------------------------------------------ int32 bit helpers
 def _rand_words(rng, b, w, density):
     words = rng.integers(0, 2 ** 32, (b, w), dtype=np.uint64) \
