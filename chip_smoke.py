@@ -28,8 +28,33 @@ Phases, in order (any failure exits non-zero before the result line):
    plausible allow/deny split; then the median batch time over 25
    timed batches after warm-up, and each kernel's time for one launch
    at the shapes of every field it scans;
-5. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+5. capture replay: the scenario's 10000 flows repeated to a
+   200000-record v2 capture, written with the port's writer into a
+   temporary directory and read back with its reader; under the gather
+   arm (KD) and the oblivious arm (K2, the path table on KD with the
+   reference's warning), three routes — the device verdict memo
+   (``stage_rows``, ``stage_unique``, ``stage_unique_device``,
+   ``stage_verdict_memo``, chunks of 65536 by ``verdict_idx``), the id
+   stream without the memo, and the row stream — all ten lanes equal
+   to each other and to the fused step on the same flows in capture
+   order, the memo's fill equal to the plain path's on the unique
+   rows; launch counts zeroed before and read after each arm; the
+   staging split, unique rows, median chunk latency with forced
+   completion and rows/s of each route (median of 5 windows). Then the
+   same records made unique (the high-cardinality capture): the dedup
+   declines, KD scans a ~200k-row path table, the rows stream, and an
+   8192-row sample equals the plain path;
+6. legacy step: ``kernel_impl="legacy"``, a policy whose resolve plan
+   degenerated (``GROUP_CAP`` = 1) and ``verdict_flows_blob`` on the
+   http-1000 batches against the fused step; the legacy step's batch
+   median and device kernels per batch beside the fused step's;
+7. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
+
+The kernel phase (3) also holds KD and K2 at the capture tables'
+shapes (each field's largest table over the two captures, at the
+capture's widths) and on a synthetic L = 1024 batch, and the per-kernel
+times cover those shapes.
 
 It imports nothing of JAX. Run it from the root of a checkout: it
 imports ``cilium_tpu_torch`` from the directory it lives in.
@@ -67,6 +92,18 @@ BOUND_OPS = {
     "K2": "2*NB*B*L*S*(K+1) (onehot(state) . table), int8 tensor-core "
           "peak",
 }
+#: phase 5: capture size and replay chunk (the reference benchmark's
+#: ``--capture-flows`` and ``--replay-chunk`` defaults)
+CAPTURE_RECORDS, REPLAY_CHUNK = 200_000, 65_536
+#: phase 5: chunk-latency samples, target seconds of one throughput
+#: window, and the high-cardinality pass's sample checked on the CPU
+LATENCY_SAMPLES, WINDOW_S, HC_SAMPLE = 20, 0.25, 8192
+#: the capture-staging phases of ``cilium_tpu_capture_stage_seconds``
+STAGE_PHASES = ("tables", "featurize", "dedup", "table-h2d", "memo-fill")
+#: capture arm → (phase-4 configuration it replays on, kernels it must
+#: launch)
+CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
+                "oblivious": ("oblivious-dfa", ("KD", "K2"))}
 #: configuration → (kernel_impl, CILIUM_TPU_DFA_IMPL, kernels its path
 #: launches)
 CONFIGS = {
@@ -203,7 +240,7 @@ def max_err(a, b) -> float:
         if not a.is_floating_point() else float((a - b).abs().max())
 
 
-def kernel_phase(errs, field_inputs):
+def kernel_phase(errs, field_inputs, capture_inputs):
     """Every kernel against its plain version on the card, exactly."""
     import numpy as np
     import torch
@@ -322,6 +359,23 @@ def kernel_phase(errs, field_inputs):
                  ("follow", "acc_cls", "byteclass", "start")] + [data, lens]
             record("K1", f"http-1000 {prefix} P={n[0].shape[1]}",
                    nfa_cuda.nfa_finals_cuda(*n), nfa_cuda.nfa_finals_plain(*n))
+
+    # the capture tables of phase 5 (the largest B of each field's
+    # table, at the capture's widths) and a synthetic L = 1024 batch
+    for label, (prefix, arrays, data, lens) in capture_inputs.items():
+        a = (arrays[f"{prefix}_trans"], arrays[f"{prefix}_byteclass"],
+             arrays[f"{prefix}_start"], data, lens)
+        extra = arrays.get("rp_path_gaccept") if prefix == "path" else None
+        acc = arrays[f"{prefix}_accept"]
+        what = f"{label} {tuple(a[0].shape)} B={data.shape[0]} " \
+               f"L={data.shape[1]}"
+        record("KD", what,
+               dfa_dense_cuda.dense_scan_cuda(*a, accept=acc, extra=extra),
+               dfa_dense_cuda.dense_scan_plain(*a, accept=acc, extra=extra))
+        if a[0].shape[1] <= 128:
+            record("K2", what,
+                   dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a),
+                   dfa_oblivious_cuda.dfa_finals_oblivious_plain(*a))
 
 
 def sass_tensor_ops():
@@ -455,7 +509,8 @@ def setup_config(name, per_identity, scenario, base_cfg):
     batches = [batch_to_device(h, DEVICE) for h in host]
     torch.cuda.synchronize()
     return {"engine": engine, "plain": plain, "host": host,
-            "batches": batches, "full": batches[0]}
+            "batches": batches, "full": batches[0],
+            "host_cpu": [batch_to_device(h, "cpu") for h in host]}
 
 
 def drive_config(name, setup, n_flows, card):
@@ -464,7 +519,6 @@ def drive_config(name, setup, n_flows, card):
     import torch
 
     from cilium_tpu_torch.engine import _build
-    from cilium_tpu_torch.engine.verdict import OUTPUT_LANES, batch_to_device
 
     _, dfa_impl, path_kernels = CONFIGS[name]
     engine, plain = setup["engine"], setup["plain"]
@@ -475,8 +529,7 @@ def drive_config(name, setup, n_flows, card):
         outs = [engine.verdict_batch_arrays(b) for b in setup["batches"]]
         torch.cuda.synchronize()
         launches = {k: v.launches for k, v in _build.KERNELS.items()}
-        want = [plain.verdict_batch_arrays(batch_to_device(h, "cpu"))
-                for h in setup["host"]]
+        want = [plain.verdict_batch_arrays(b) for b in setup["host_cpu"]]
     log(f"[{name}] impl_plan {json.dumps(engine.impl_plan, sort_keys=True)}"
         f" CILIUM_TPU_DFA_IMPL={dfa_impl} launches {launches}")
     for kid in path_kernels:
@@ -486,60 +539,20 @@ def drive_config(name, setup, n_flows, card):
         check(any("constant-time guarantee" in str(w.message)
                   for w in caught),
               f"[{name}] the >128-state path stack must warn on fallback")
-    for lane in OUTPUT_LANES:
-        got = np.concatenate([o[lane].cpu().numpy() for o in outs])
-        ref = np.concatenate([o[lane].numpy() for o in want])
-        check(got.shape == (n_flows,) and got.dtype == ref.dtype,
-              f"[{name}] lane {lane}: shape {got.shape} dtype {got.dtype}")
-        check(np.array_equal(got, ref),
-              f"[{name}] lane {lane} differs from the plain-version path "
-              f"in {int((got != ref).sum())} flows")
-    verdicts = np.concatenate([o["verdict"].cpu().numpy() for o in outs])
-    mix = np.bincount(verdicts, minlength=6).tolist()
+    got = {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+           for k in outs[0]}
+    check(got["verdict"].shape == (n_flows,),
+          f"[{name}] {got['verdict'].shape} verdicts for {n_flows} flows")
+    assert_lanes(f"[{name}] vs the plain-version path", got,
+                 {k: np.concatenate([o[k].numpy() for o in want])
+                  for k in want[0]})
+    mix = np.bincount(got["verdict"], minlength=6).tolist()
     log(f"[{name}] all 10 lanes equal to the plain path on "
-        f"{len(verdicts)} flows; verdict mix [code 0..5] {mix}")
+        f"{n_flows} flows; verdict mix [code 0..5] {mix}")
     check(mix[5] > 0.2 * n_flows and mix[2] > 0.2 * n_flows,
           f"[{name}] implausible verdict mix {mix} (identity wiring?)")
 
-    full = setup["full"]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)
-        for _ in range(WARMUP):
-            engine.verdict_batch_arrays(full)
-        torch.cuda.synchronize()
-        samples = []
-        for _ in range(TIMED_BATCHES):
-            t0 = time.perf_counter()
-            engine.verdict_batch_arrays(full)
-            torch.cuda.synchronize()
-            samples.append((time.perf_counter() - t0) * 1e3)
-    med = statistics.median(samples)
-    log(f"[{name}] batch {BATCH}: median {med:.4f} ms over "
-        f"{TIMED_BATCHES} batches (min {min(samples):.4f}, max "
-        f"{max(samples):.4f}) = {BATCH / med * 1e3:.0f} verdicts/s "
-        f"on {card}")
-    # a separate traced run: device kernel time and launches per batch
-    reps = 5
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", RuntimeWarning)
-        kern = profile_kernels(lambda: engine.verdict_batch_arrays(full),
-                               reps)
-    busy = None
-    if kern:
-        dev_ms = sum(ms for _, ms in kern.values()) / reps
-        n_launch = sum(n for n, _ in kern.values()) / reps
-        ours = {sym: round(sum(ms for k, (_, ms) in kern.items()
-                               if sym in k) / reps, 5)
-                for sym in ("dfa_dense_kernel", "nfa_scan_kernel",
-                            "dfa_oblivious_kernel")}
-        busy = dev_ms / med
-        log(f"[{name}] traced: {n_launch:.0f} device kernels per batch, "
-            f"{dev_ms:.4f} ms of device time per batch (busy share "
-            f"{busy:.3f} of the untraced median); hand-written kernels "
-            f"ms/batch {ours}")
-    else:
-        log(f"[{name}] traced: the profiler saw no device time "
-            f"(device busy share not measured)")
+    med, busy, _ = batch_timing(engine, setup["full"], name, card)
     return {"launches": launches, "batch_ms": med, "mix": mix,
             "busy_share": busy}
 
@@ -557,7 +570,7 @@ def field_inputs_of(engine, batch):
     return out
 
 
-def kernel_times(fields_dense, fields_nfa, card):
+def kernel_times(fields_dense, fields_nfa, capture_inputs, card):
     """One launch of each kernel at the shape of every field it scans
     on the main path: its device time (profiler), its wall time per
     call from Python (CUDA events, wrapper included), the plain
@@ -574,7 +587,9 @@ def kernel_times(fields_dense, fields_nfa, card):
     )
 
     rows = {"KD": [], "K1": [], "K2": []}
-    for prefix, (arr, data, lens) in fields_dense.items():
+    dense = [(p, (p, *v)) for p, v in fields_dense.items()]
+    for label, (prefix, arr, data, lens) in dense + list(
+            capture_inputs.items()):
         live = lens.clamp(0, data.shape[1]).to(torch.int64)
         a = (arr[f"{prefix}_trans"], arr[f"{prefix}_byteclass"],
              arr[f"{prefix}_start"], data, lens)
@@ -589,7 +604,7 @@ def kernel_times(fields_dense, fields_nfa, card):
         def kd():
             return dfa_dense_cuda.dense_scan_cuda(*a, accept=acc,
                                                   extra=extra)
-        rows["KD"].append((prefix, tuple(a[0].shape),
+        rows["KD"].append((label, tuple(a[0].shape) + tuple(data.shape),
                            kernel_device_ms(kd, "dfa_dense_kernel"),
                            time_launch(kd),
                            time_launch(lambda: dfa_dense_cuda.dense_scan_plain(
@@ -599,7 +614,8 @@ def kernel_times(fields_dense, fields_nfa, card):
             def k2():
                 return dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a)
             fin = k2()
-            rows["K2"].append((prefix, tuple(a[0].shape),
+            rows["K2"].append((label,
+                               tuple(a[0].shape) + tuple(data.shape),
                                kernel_device_ms(k2, "dfa_oblivious_kernel"),
                                time_launch(k2),
                                time_launch(lambda: dfa_oblivious_cuda
@@ -623,7 +639,7 @@ def kernel_times(fields_dense, fields_nfa, card):
         def k1():
             return nfa_cuda.nfa_finals_cuda(*n)
         fin = k1()
-        rows["K1"].append((prefix, (NB, P, n[1].shape[2]),
+        rows["K1"].append((prefix, (NB, P, n[1].shape[2]) + tuple(data.shape),
                            kernel_device_ms(k1, "nfa_scan_kernel"),
                            time_launch(k1),
                            time_launch(lambda: nfa_cuda.nfa_finals_plain(*n),
@@ -635,11 +651,493 @@ def kernel_times(fields_dense, fields_nfa, card):
         for prefix, shape, dev_ms, ms, plain_ms, bms, by in rs:
             check(dev_ms is not None, f"{kid} {prefix}: the profiler saw "
                                       f"no launch of the kernel")
-            log(f"  {kid} {prefix:6s} {str(shape):16s} device "
+            log(f"  {kid} {prefix:12s} {str(shape):30s} device "
                 f"{dev_ms:.5f} ms, "
                 f"call {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-                f"{bms:.6f} ms by {by}) B={BATCH} on {card}")
+                f"{bms:.6f} ms by {by}) on {card}")
     return rows
+
+
+# ------------------------------------------------------ capture replay
+def uniquify_flows(flows):
+    """Clone flows so every record carries a unique string (query-
+    suffixed http path, instance-suffixed kafka client, qname-left
+    label): the high-cardinality capture of the reference benchmark's
+    ``--capture-cardinality high`` (``bench.py`` ``_uniquify_flows``)."""
+    import dataclasses
+
+    for i, f in enumerate(flows):
+        if f.http is not None:
+            f = dataclasses.replace(f, http=dataclasses.replace(
+                f.http, path=f"{f.http.path}?u={i}"))
+        elif f.kafka is not None:
+            f = dataclasses.replace(f, kafka=dataclasses.replace(
+                f.kafka, client_id=f"{f.kafka.client_id}-u{i}"))
+        elif f.dns is not None and f.dns.query:
+            f = dataclasses.replace(f, dns=dataclasses.replace(
+                f.dns, query=f"u{i}.{f.dns.query}"))
+        yield f
+
+
+def write_captures(scenario, policy, cfg, n_records):
+    """The scenario's flows repeated to ``n_records``, as written by
+    the reference benchmark's capture lane, and the same records made
+    unique: each written with the port's writer into a temporary
+    directory (never the repo), read back with the port's reader, and
+    featurized (host only, no launch)."""
+    import tempfile
+
+    import numpy as np
+
+    from cilium_tpu_torch.engine.compiled import CaptureFeaturizer
+    from cilium_tpu_torch.ingest import binary
+
+    flows = scenario.flows
+    reps = -(-n_records // len(flows))
+    low = (flows * reps)[:n_records]
+    caps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, fl in (("low", low), ("high", list(uniquify_flows(low)))):
+            path = os.path.join(tmp, f"{kind}.bin")
+            t0 = time.perf_counter()
+            n = binary.write_capture_l7(path, fl)
+            write_s = time.perf_counter() - t0
+            check(n == n_records and binary.capture_version(path) == 2
+                  and binary.read_gen_sidecar(path) is None,
+                  f"{kind} capture: {n} records, v"
+                  f"{binary.capture_version(path)}")
+            rec = np.array(binary.map_capture(path))
+            l7, offsets, blob = binary.read_l7_sidecar(path)
+            feat = CaptureFeaturizer(l7, offsets, blob,
+                                     policy.kafka_interns, cfg)
+            caps[kind] = {"flows": fl, "sections": (rec, l7, offsets, blob),
+                          "feat": feat, "bytes": os.path.getsize(path)}
+            log(f"  {kind}-cardinality capture: {n} records, "
+                f"{caps[kind]['bytes']} bytes, {len(offsets) - 1} strings, "
+                f"written in {write_s:.2f}s; table rows "
+                f"{ {f: t[0].shape for f, t in feat.tables.items()} }")
+    return caps
+
+
+def capture_inputs_of(arrays, caps):
+    """label → (prefix, staged arrays, data, lengths) on the card: each
+    field's capture table at its largest B over the two captures, and a
+    synthetic L = 1024 batch through the header and path banks."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine.verdict import _TABLE_FIELDS
+
+    out = {}
+    for field, prefix in _TABLE_FIELDS:
+        data, lens, _ = max((c["feat"].tables[field] for c in caps.values()),
+                            key=lambda t: t[0].shape[0])
+        out[f"capture-{prefix}"] = (
+            prefix, arrays, torch.from_numpy(data).cuda(),
+            torch.from_numpy(lens).cuda())
+    rng = np.random.default_rng(2)
+    data = rng.integers(0, 256, (4096, 1024)).astype(np.uint8)
+    lens = rng.integers(0, 1025, (4096,)).astype(np.int32)
+    lens[:64] = 1024
+    for prefix in ("hdr", "path"):
+        out[f"L1024-{prefix}"] = (prefix, arrays,
+                                  torch.from_numpy(data).cuda(),
+                                  torch.from_numpy(lens).cuda())
+    return out
+
+
+def stage_marks():
+    from cilium_tpu_torch.runtime.metrics import (
+        CAPTURE_STAGE_SECONDS,
+        METRICS,
+    )
+
+    return {ph: METRICS.histo_sum(CAPTURE_STAGE_SECONDS, {"phase": ph})
+            for ph in STAGE_PHASES}
+
+
+def force(out) -> None:
+    """Forced completion: a two-element read back of the verdict lane
+    (the stream is in order, so everything before it has run)."""
+    out["verdict"][:2].cpu()
+
+
+def replay_all(replay, rec, l7):
+    """Every chunk of the capture through ``verdict_chunk`` →
+    {lane: numpy array} in capture order."""
+    import numpy as np
+
+    outs = [replay.verdict_chunk(rec[s:s + REPLAY_CHUNK],
+                                 l7[s:s + REPLAY_CHUNK], start=s)
+            for s in range(0, len(rec), REPLAY_CHUNK)]
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def assert_lanes(label, got, want, lanes=None):
+    import numpy as np
+
+    from cilium_tpu_torch.engine.verdict import OUTPUT_LANES
+
+    for lane in lanes or OUTPUT_LANES:
+        a, b = np.asarray(got[lane]), np.asarray(want[lane])
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{label} lane {lane}: {a.shape}/{a.dtype} vs "
+              f"{b.shape}/{b.dtype}")
+        check(np.array_equal(a, b),
+              f"{label} lane {lane} differs in {int((a != b).sum())} rows")
+
+
+def route_rate(chunk_fn, n_chunks, rows_per_chunk):
+    """(median chunk latency ms with forced completion, rows/s): the
+    reference benchmark's method — per-chunk latency over
+    LATENCY_SAMPLES chunks, then the median of 5 windows that each
+    replay the file R× with one forced completion at the end."""
+    force(chunk_fn(0))
+    lat = []
+    for i in range(LATENCY_SAMPLES):
+        t0 = time.perf_counter()
+        force(chunk_fn(i % n_chunks))
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    out = None
+    for c in range(n_chunks):
+        out = chunk_fn(c)
+    force(out)
+    reps = max(1, int(WINDOW_S / max(time.perf_counter() - t0, 1e-4)))
+    windows = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for c in range(n_chunks):
+                out = chunk_fn(c)
+        force(out)
+        windows.append(time.perf_counter() - t0)
+    return (statistics.median(lat),
+            reps * n_chunks * rows_per_chunk / statistics.median(windows))
+
+
+def trace_route(fn, label, card, reps=3):
+    """Device kernels and device ms of one replay chunk (profiler), and
+    the device's busy share of the chunk's forced wall time."""
+    kern = profile_kernels(lambda: force(fn(0)), reps)
+    t0 = time.perf_counter()
+    force(fn(0))
+    wall = (time.perf_counter() - t0) * 1e3
+    if not kern:
+        log(f"{label} traced: the profiler saw no device time")
+        return {}
+    dev = sum(ms for _, ms in kern.values()) / reps
+    n = sum(c for c, _ in kern.values()) / reps
+    log(f"{label} traced: {n:.0f} device kernels, {dev:.4f} ms of device "
+        f"time per chunk (busy share {dev / wall:.3f} of a {wall:.4f} ms "
+        f"forced chunk) on {card}")
+    return {"device_ms": dev, "kernels": n, "busy_share": dev / wall}
+
+
+def capture_phase(arm, setups, caps, cfg, card):
+    """One arm of phase 5 on the low-cardinality capture: the memo, id
+    and row routes, each staged as a user stages it; lanes against each
+    other, the fused step and (for the memo fill) the plain path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.replay import CaptureReplay
+
+    setup = setups[CAPTURE_ARMS[arm][0]]
+    engine, plain = setup["engine"], setup["plain"]
+    rec, l7, offsets, blob = caps["low"]["sections"]
+    N = len(rec)
+    no_memo = dataclasses.replace(cfg, verdict_memo=False)
+    drop = cfg.stage_unique_drop_ratio
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always", RuntimeWarning)
+        # the arm's run: counts to 0 just before, read just after
+        _build.reset_launches()
+        marks = stage_marks()
+        t0 = time.perf_counter()
+        memo_r = CaptureReplay(engine, l7, offsets, blob, cfg)
+        torch.cuda.synchronize()
+        tables_forced_ms = (time.perf_counter() - t0) * 1e3
+        memo_r.stage_rows(rec, l7)
+        ratio = memo_r.stage_unique(drop)
+        check(memo_r.row_idx is not None and
+              memo_r.row_idx.dtype == np.uint16,
+              f"[{arm}] the low-cardinality capture must dedup "
+              f"(ratio {ratio})")
+        memo_r.stage_unique_device()
+        t0 = time.perf_counter()
+        m = memo_r.stage_verdict_memo()
+        m.table[:2].cpu()
+        memo_fill_ms = (time.perf_counter() - t0) * 1e3
+        split = {ph: (v - marks[ph]) * 1e3
+                 for ph, v in stage_marks().items()}
+        lanes = {"memo": replay_all(memo_r, rec, l7)}
+        id_r = CaptureReplay(engine, l7, offsets, blob, no_memo)
+        id_r.stage_rows(rec, l7)
+        id_r.stage_unique(drop)
+        lanes["id"] = replay_all(id_r, rec, l7)
+        row_r = CaptureReplay(engine, l7, offsets, blob, cfg)
+        row_r.stage_rows(rec, l7)
+        row_r.stage_unique(drop_if_ratio_at_least=0.0)
+        lanes["row"] = replay_all(row_r, rec, l7)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    log(f"[capture {arm}] launches {launches}")
+    for kid in CAPTURE_ARMS[arm][1]:
+        check(launches[kid] > 0,
+              f"[capture {arm}] kernel {kid} never launched")
+    if arm == "oblivious":
+        check(any("constant-time guarantee" in str(w.message)
+                  for w in caught),
+              "[capture oblivious] the path table must warn on fallback")
+    check(m.misses == memo_r.n_unique and id_r.memo is None
+          and row_r.row_idx is None, f"[capture {arm}] route set-up")
+    # the fused step on the same flows in capture order: the capture
+    # is the scenario's flows repeated, so its lanes repeat too
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        fused = [engine.verdict_batch_arrays(b) for b in setup["batches"]]
+    reps = -(-N // sum(len(o["verdict"]) for o in fused))
+    want = {k: np.tile(np.concatenate([o[k].cpu().numpy() for o in fused]),
+                       reps)[:N] for k in fused[0]}
+    for route, got in lanes.items():
+        assert_lanes(f"[capture {arm}] {route} route", got, want)
+    # the memo's fill over the unique rows against the plain path
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        plain_r = CaptureReplay(plain, l7, offsets, blob, cfg)
+        plain_r.stage_rows(rec, l7)
+        plain_r.stage_unique(drop)
+        plain_m = plain_r.stage_verdict_memo()
+    check(np.array_equal(plain_r._uniq_host, memo_r._uniq_host)
+          and np.array_equal(plain_r.row_idx, memo_r.row_idx),
+          f"[capture {arm}] dedup differs from the plain path's")
+    check(torch.equal(m.table.cpu(), plain_m.table),
+          f"[capture {arm}] memo fill differs from the plain path's")
+    log(f"[capture {arm}] all 10 lanes equal across the memo, id and row "
+        f"routes and to the fused step on {N} records; memo fill equal "
+        f"to the plain path's on {memo_r.n_unique} unique rows")
+    log(f"[capture {arm}] staging split ms "
+        f"{ {k: round(v, 3) for k, v in split.items()} } (tables with "
+        f"forced completion {tables_forced_ms:.3f} ms, memo fill with "
+        f"forced completion {memo_fill_ms:.3f} ms); unique rows "
+        f"{memo_r.n_unique}/{N} ({ratio:.5f}) on {card}")
+    ids = memo_r.row_idx
+    rows_all = row_r.rows_all
+    n_chunks = N // REPLAY_CHUNK
+    chunk = {
+        "memo": lambda c: memo_r.verdict_idx(
+            ids[c * REPLAY_CHUNK:(c + 1) * REPLAY_CHUNK]),
+        "id": lambda c: id_r.verdict_idx(
+            ids[c * REPLAY_CHUNK:(c + 1) * REPLAY_CHUNK]),
+        "row": lambda c: row_r.verdict_rows(
+            rows_all[c * REPLAY_CHUNK:(c + 1) * REPLAY_CHUNK]),
+    }
+    rates = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for route, fn in chunk.items():
+            lat, rate = route_rate(fn, n_chunks, REPLAY_CHUNK)
+            rates[route] = {"chunk_ms": lat, "rows_per_s": rate}
+            log(f"[capture {arm}] {route} route: chunk {REPLAY_CHUNK} "
+                f"median {lat:.4f} ms forced, {rate:.0f} rows/s (median "
+                f"of 5 windows) on {card}")
+            rates[route].update(trace_route(
+                fn, f"[capture {arm}] {route} route", card))
+    return {"launches": launches, "split_ms": split, "rates": rates,
+            "unique": memo_r.n_unique, "records": N,
+            "tables_forced_ms": tables_forced_ms,
+            "memo_fill_ms": memo_fill_ms}
+
+
+def high_cardinality_phase(setups, caps, cfg, card):
+    """Phase 5's high-cardinality pass (gather arm): every record
+    unique, so ``stage_unique`` declines at the default ratio and the
+    rows stream; lanes on a sample against the plain path."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.replay import CaptureReplay
+
+    setup = setups["auto"]
+    engine, plain = setup["engine"], setup["plain"]
+    cap = caps["high"]
+    rec, l7, offsets, blob = cap["sections"]
+    N = len(rec)
+    _build.reset_launches()
+    marks = stage_marks()
+    r = CaptureReplay(engine, l7, offsets, blob, cfg)
+    r.stage_rows(rec, l7)
+    ratio = r.stage_unique(cfg.stage_unique_drop_ratio)
+    split = {ph: (v - marks[ph]) * 1e3 for ph, v in stage_marks().items()}
+    got = replay_all(r, rec, l7)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    path_rows = r.feat.tables["path"][0].shape
+    log(f"[capture high-cardinality] launches {launches}; path table "
+        f"{path_rows}; unique rows {r.n_unique}/{N} ({ratio:.5f})")
+    check(launches["KD"] > 0, "[capture high-cardinality] KD never launched")
+    check(r.row_idx is None, "[capture high-cardinality] stage_unique "
+                             "must decline at the default drop ratio")
+    sample = np.sort(np.random.default_rng(3).choice(N, HC_SAMPLE,
+                                                     replace=False))
+    want = plain.verdict_flows([cap["flows"][i] for i in sample])
+    assert_lanes("[capture high-cardinality] sample",
+                 {k: v[sample] for k, v in got.items()}, want)
+    log(f"[capture high-cardinality] all 10 lanes equal to the plain path "
+        f"on a {HC_SAMPLE}-row sample; staging split ms "
+        f"{ {k: round(v, 3) for k, v in split.items()} } on {card}")
+    rows_all = r.rows_all
+
+    def chunk(c):
+        return r.verdict_rows(rows_all[c * REPLAY_CHUNK:
+                                       (c + 1) * REPLAY_CHUNK])
+
+    lat, rate = route_rate(chunk, N // REPLAY_CHUNK, REPLAY_CHUNK)
+    log(f"[capture high-cardinality] row route: chunk {REPLAY_CHUNK} "
+        f"median {lat:.4f} ms forced, {rate:.0f} rows/s (median of 5 "
+        f"windows) on {card}")
+    row = {"chunk_ms": lat, "rows_per_s": rate,
+           **trace_route(chunk, "[capture high-cardinality] row route",
+                         card)}
+    return {"launches": launches, "split_ms": split, "unique": r.n_unique,
+            "records": N, "path_table": list(path_rows),
+            "rates": {"row": row}}
+
+
+# ----------------------------------------------------------- legacy step
+def batch_timing(engine, full, label, card):
+    """The median of TIMED_BATCHES staged batches after WARMUP (host
+    clock around the step and a synchronize), then a separate traced
+    run of 5: device kernels and device ms per batch, the busy share
+    of the untraced median, and the hand-written kernels' ms per batch.
+    Returns (median ms, busy share or None, device kernels per batch or
+    None)."""
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        for _ in range(WARMUP):
+            engine.verdict_batch_arrays(full)
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(TIMED_BATCHES):
+            t0 = time.perf_counter()
+            engine.verdict_batch_arrays(full)
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        reps = 5
+        kern = profile_kernels(lambda: engine.verdict_batch_arrays(full),
+                               reps)
+    med = statistics.median(samples)
+    log(f"[{label}] batch {BATCH}: median {med:.4f} ms over "
+        f"{TIMED_BATCHES} batches (min {min(samples):.4f}, max "
+        f"{max(samples):.4f}) = {BATCH / med * 1e3:.0f} verdicts/s "
+        f"on {card}")
+    if not kern:
+        log(f"[{label}] traced: the profiler saw no device time "
+            f"(device busy share not measured)")
+        return med, None, None
+    dev_ms = sum(ms for _, ms in kern.values()) / reps
+    n_launch = sum(n for n, _ in kern.values()) / reps
+    ours = {sym: round(sum(ms for k, (_, ms) in kern.items()
+                           if sym in k) / reps, 5)
+            for sym in ("dfa_dense_kernel", "nfa_scan_kernel",
+                        "dfa_oblivious_kernel")}
+    log(f"[{label}] traced: {n_launch:.0f} device kernels per batch, "
+        f"{dev_ms:.4f} ms of device time per batch (busy share "
+        f"{dev_ms / med:.3f} of the untraced median); hand-written "
+        f"kernels ms/batch {ours}")
+    return med, dev_ms / med, n_launch
+
+
+def legacy_phase(per_identity, base_cfg, setups, scenario, card):
+    """Phase 6: the legacy step, a degenerate plan and the blob
+    transport against the fused step on the http-1000 batches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine import megakernel as mk
+    from cilium_tpu_torch.engine.compiled import CompiledPolicy
+    from cilium_tpu_torch.engine.verdict import (
+        OUTPUT_LANES,
+        TorchVerdictEngine,
+    )
+
+    fused = setups["auto"]
+    os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+
+    def run(engine):
+        outs = [engine.verdict_batch_arrays(b) for b in fused["batches"]]
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in outs[0]}
+
+    want = run(fused["engine"])
+    launches = {}
+    cfg_l = dataclasses.replace(base_cfg, kernel_impl="legacy")
+    legacy = TorchVerdictEngine(CompiledPolicy.build(per_identity, cfg_l),
+                                device=DEVICE, cfg=cfg_l)
+    check(legacy.impl_plan == {}, "legacy engine staged a plan")
+    _build.reset_launches()
+    got = run(legacy)
+    launches["legacy"] = {k: v.launches for k, v in _build.KERNELS.items()}
+    assert_lanes("[legacy] kernel_impl=legacy", got, want)
+
+    cap = mk.GROUP_CAP
+    mk.GROUP_CAP = 1
+    try:
+        pol_d = CompiledPolicy.build(per_identity, base_cfg)
+    finally:
+        mk.GROUP_CAP = cap
+    check(pol_d.resolve_meta is None and "rp_g_method" not in pol_d.arrays,
+          "GROUP_CAP=1 left a resolve plan")
+    degen = TorchVerdictEngine(pol_d, device=DEVICE, cfg=base_cfg)
+    _build.reset_launches()
+    got_d = run(degen)
+    launches["degenerate-plan"] = {k: v.launches
+                                   for k, v in _build.KERNELS.items()}
+    want_d = [TorchVerdictEngine(pol_d, device="cpu", cfg=base_cfg)
+              .verdict_batch_arrays(b) for b in fused["host_cpu"]]
+    assert_lanes("[legacy] degenerate plan vs its plain path", got_d,
+                 {k: np.concatenate([o[k].numpy() for o in want_d])
+                  for k in want_d[0]})
+    # l7_match names a rule here (no rule → group map staged) and a
+    # group under the plan; every other lane equals the fused step's
+    assert_lanes("[legacy] degenerate plan vs fused", got_d, want,
+                 [k for k in OUTPUT_LANES if k != "l7_match"])
+
+    _build.reset_launches()
+    flows = scenario.flows
+    got_b = {}
+    for lo in range(0, len(flows), BATCH):
+        o = fused["engine"].verdict_flows_blob(flows[lo:lo + BATCH])
+        for k, v in o.items():
+            got_b.setdefault(k, []).append(v)
+    torch.cuda.synchronize()
+    launches["blob"] = {k: v.launches for k, v in _build.KERNELS.items()}
+    assert_lanes("[legacy] verdict_flows_blob",
+                 {k: np.concatenate(v) for k, v in got_b.items()}, want)
+    for name, ln in launches.items():
+        check(ln["KD"] > 0, f"[legacy] {name}: KD never launched")
+    log(f"[legacy] all 10 lanes equal to the fused step for "
+        f"kernel_impl=legacy and verdict_flows_blob, and to the plain "
+        f"path for the degenerate plan (its other 9 lanes equal the "
+        f"fused step's) on {len(want['verdict'])} flows; launches "
+        f"{launches}")
+    full = fused["full"]
+    timing = {"legacy": batch_timing(legacy, full, "legacy step", card),
+              "fused": batch_timing(fused["engine"], full, "fused step",
+                                    card),
+              "degenerate-plan": batch_timing(degen, full,
+                                              "degenerate plan", card)}
+    return {"launches": launches, "timing": timing}
 
 
 def main() -> int:
@@ -672,15 +1170,20 @@ def main() -> int:
     setups = {name: setup_config(name, per_identity, scenario, cfg)
               for name in CONFIGS}
 
+    log(f"set-up: phase 5's {CAPTURE_RECORDS}-record captures")
+    auto_engine = setups["auto"]["engine"]
+    caps = write_captures(scenario, auto_engine.policy, cfg,
+                          CAPTURE_RECORDS)
+    capture_inputs = capture_inputs_of(auto_engine._arrays, caps)
+
     log("phase 3: kernels against their plain versions (exact)")
     errs = {}
-    dense_fields = field_inputs_of(setups["auto"]["engine"],
-                                   setups["auto"]["full"])
+    dense_fields = field_inputs_of(auto_engine, setups["auto"]["full"])
     nfa_fields = field_inputs_of(setups["nfa-bitset"]["engine"],
                                  setups["nfa-bitset"]["full"])
     kernel_phase(errs, {**dense_fields,
                         **{p: v for p, v in nfa_fields.items()
-                           if f"{p}_nfa_follow" in v[0]}})
+                           if f"{p}_nfa_follow" in v[0]}}, capture_inputs)
     log("phase 3: K2 and K1 timing against the input (data-oblivious)")
     oblivious = timing_independence(dense_fields, nfa_fields, card)
 
@@ -690,8 +1193,23 @@ def main() -> int:
         reports[name] = drive_config(name, setups[name],
                                      len(scenario.flows), card)
 
-    log("phase 4: one launch per kernel at the http-1000 shapes")
-    rows = kernel_times(dense_fields, nfa_fields, card)
+    log("phase 4: one launch per kernel at the http-1000 shapes and the "
+        "capture shapes")
+    rows = kernel_times(dense_fields, nfa_fields, capture_inputs, card)
+
+    captures = {}
+    for arm in CAPTURE_ARMS:
+        log(f"phase 5: capture replay [{arm}]")
+        captures[arm] = capture_phase(arm, setups, caps, cfg, card)
+    log("phase 5: capture replay [high cardinality]")
+    captures["high-cardinality"] = high_cardinality_phase(setups, caps, cfg,
+                                                          card)
+    log("phase 6: legacy step")
+    legacy = legacy_phase(per_identity, cfg, setups, scenario, card)
+    phase_launches = {n: r["launches"] for n, r in reports.items()}
+    phase_launches.update({f"capture-{arm}": r["launches"]
+                           for arm, r in captures.items()})
+    phase_launches.update(legacy["launches"])
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -701,9 +1219,9 @@ def main() -> int:
             "name": f"{kid}:{k.name}", "route": "cuda",
             "source": f"cilium_tpu_torch/engine/csrc/{k.source}",
             "replaces": k.replaces,
-            "launches": sum(r["launches"][kid] for r in reports.values()),
-            "phases": {n: r["launches"][kid] for n, r in reports.items()
-                       if r["launches"][kid]},
+            "launches": sum(ln[kid] for ln in phase_launches.values()),
+            "phases": {n: ln[kid] for n, ln in phase_launches.items()
+                       if ln[kid]},
             "max_abs_err": errs[kid],
             # ms: device time of one launch (profiler); call_ms: wall
             # time per call from Python, wrapper included
@@ -713,11 +1231,19 @@ def main() -> int:
             "bound_ops": BOUND_OPS[kid],
             "sass_tensor_ops": tensor_ops.get(kid),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
-            "shape": f"{pick[kid]} {row[1]} B={BATCH}",
+            # (NB, S or P, K, B, L) of the launch the times are from
+            "shape": f"{pick[kid]} {row[1]}",
             "batch_ms": {n: r["batch_ms"] for n, r in reports.items()},
             "device_busy_share": {n: r["busy_share"]
                                   for n, r in reports.items()},
+            # each row: (label, (NB, S|P, K, B, L), device ms, call ms,
+            # plain ms, bound ms, bound by), capture shapes included
+            "shapes": [list(r) for r in rows[kid]],
         })
+    log("replay: " + json.dumps({
+        "captures": {a: {k: v for k, v in r.items() if k != "launches"}
+                     for a, r in captures.items()},
+        "legacy_timing": legacy["timing"], "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

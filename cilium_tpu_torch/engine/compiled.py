@@ -4,14 +4,18 @@ and featurize flows → numpy batches.
 A copy of the numpy half of the reference's ``engine/verdict.py``
 (``encode_strings`` … ``CompiledPolicy.build`` … ``encode_flows``,
 ``pack_batch``, ``flowbatch_to_host_dict``) on the positional
-``compile_patterns`` path. Its arrays are byte-equal to the
-reference's for the same resolved policy (``tests/test_torch_compile.py``);
-``weights.arrays_from_reference`` stages either package's arrays.
+``compile_patterns`` path, plus the capture featurizers
+(``encode_records``, ``encode_l7_records``, ``CaptureFeaturizer``)
+and the single-blob transport's host half (``pack_blob_host``). Its
+arrays are byte-equal to the reference's for the same resolved policy
+(``tests/test_torch_compile.py``); ``weights.arrays_from_reference``
+stages either package's arrays.
 
-Not in this slice: ``l7proto`` rules (generic pairs and protocol
-frontends) and generic flow records raise ``NotImplementedError``; the
-empty ``gen_*`` arrays are still built exactly as the reference builds
-them, so the staged shapes match.
+Not ported yet (queue 1, Q5): ``l7proto`` rules (generic pairs and
+protocol frontends), generic flow records and the GENERIC section of
+a v3 capture raise ``NotImplementedError``; the empty ``gen_*`` arrays
+are still built exactly as the reference builds them, so the staged
+shapes match.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 
 from cilium_tpu_torch.core.config import EngineConfig
 from cilium_tpu_torch.core.flow import Flow, TrafficDirection
+from cilium_tpu_torch.ingest.binary import capture_field_widths
 from cilium_tpu_torch.policy.api.l7 import (
     L7Rules,
     PortRuleDNS,
@@ -43,7 +48,8 @@ from cilium_tpu_torch.engine.mapstate_kernel import (
 
 #: the slice that will port l7proto rules and generic records
 _L7PROTO_SLICE = ("l7proto/frontend rules are not ported yet; they "
-                  "arrive with the frontends/l7proto slice")
+                  "arrive with the frontends/l7proto slice (queue 1, "
+                  "Q5)")
 
 
 # --------------------------------------------------------------- helpers --
@@ -617,3 +623,259 @@ def flowbatch_to_host_dict(fb: FlowBatch) -> Dict[str, np.ndarray]:
         d[f"{name}_len"] = lengths
         d[f"{name}_valid"] = valid
     return pack_batch(d)
+
+
+# ---------------------------------------------------------- blob transport --
+#: transfer order of the single-blob transport (:func:`pack_blob_host`,
+#: ``verdict.unpack_blob``): every per-batch array, one host→device copy
+_BLOB_KEYS = ("scalars", "path_data", "method_data", "host_data",
+              "headers_data", "qname_data", "l7g_data", "gen_pairs")
+
+
+def pack_blob_host(host: Dict[str, np.ndarray]):
+    """Packed layout → ONE contiguous u8 blob ([B, W]) plus a static
+    layout tuple of (key, "i32" | "u8", columns) for ``unpack_blob``."""
+    parts, layout = [], []
+    for k in _BLOB_KEYS:
+        a = host[k]
+        if a.dtype == np.int32:
+            u8 = np.ascontiguousarray(a).view(np.uint8).reshape(
+                len(a), -1)
+            layout.append((k, "i32", int(a.shape[1])))
+        else:
+            u8 = np.ascontiguousarray(a, dtype=np.uint8)
+            layout.append((k, "u8", int(a.shape[1])))
+        parts.append(u8)
+    return np.concatenate(parts, axis=1), tuple(layout)
+
+
+# -------------------------------------------------------- capture records --
+def encode_records(rec, cfg: Optional[EngineConfig] = None,
+                   fmax: int = 4) -> FlowBatch:
+    """FlowBatch straight from binary base records: L3/L4 tuples by
+    format, so every string field encodes empty (one 32-byte pad
+    block, the width an all-empty batch gets from encode_strings)."""
+    cfg = cfg or EngineConfig()
+    B = len(rec)
+    ingress = rec["direction"] == int(TrafficDirection.INGRESS)
+    ep = np.where(ingress, rec["dst_identity"],
+                  rec["src_identity"]).astype(np.int32)
+    peer = np.where(ingress, rec["src_identity"],
+                    rec["dst_identity"]).astype(np.int32)
+
+    def empty_field(width: int):
+        width = min(width, 32)
+        return (np.zeros((B, width), dtype=np.uint8),
+                np.zeros(B, dtype=np.int32),
+                np.ones(B, dtype=bool))
+
+    return FlowBatch(
+        ep_ids=ep, peer_ids=peer,
+        dports=rec["dport"].astype(np.int32),
+        protos=rec["proto"].astype(np.int32),
+        directions=rec["direction"].astype(np.int32),
+        l7_types=rec["l7_type"].astype(np.int32),
+        path=empty_field(max(cfg.http_path_buckets)),
+        method=empty_field(cfg.http_method_len),
+        host=empty_field(cfg.http_host_len),
+        headers=empty_field(1024),
+        qname=empty_field(cfg.dns_name_len),
+        kafka_api_key=np.zeros(B, dtype=np.int32),
+        kafka_api_version=np.zeros(B, dtype=np.int32),
+        kafka_client=np.full(B, -2, dtype=np.int32),
+        kafka_topic=np.full(B, -2, dtype=np.int32),
+        gen_proto=np.full(B, -2, dtype=np.int32),
+        gen_pairs=np.full((B, fmax), -2, dtype=np.int32),
+        l7g=empty_field(cfg.l7g_len),
+    )
+
+
+def _gather_table_field(blob: np.ndarray, offsets: np.ndarray,
+                        idx: np.ndarray, max_len: int,
+                        pad_multiple: int = 32,
+                        fixed_len: Optional[int] = None):
+    """Vectorized :func:`encode_strings` over a capture string table:
+    ``idx`` [B] references strings in (offsets, blob) → the same
+    (data [B, L] u8, lengths, valid) triple; ``fixed_len`` pins L."""
+    uniq, inv = np.unique(idx, return_inverse=True)
+    starts = offsets[uniq].astype(np.int64)
+    lens = offsets[uniq + 1].astype(np.int64) - starts
+    if fixed_len is not None:
+        L = fixed_len
+    else:
+        longest = int(lens.max()) if len(lens) else 1
+        L = min(max_len,
+                max(pad_multiple, -(-max(longest, 1) // pad_multiple)
+                    * pad_multiple))
+    valid_u = lens <= L
+    lens_u = np.minimum(lens, L)
+    pos = np.arange(L, dtype=np.int64)
+    gidx = starts[:, None] + pos[None, :]
+    mask = pos[None, :] < lens_u[:, None]
+    if blob.size:
+        data_u = np.where(mask, blob[np.minimum(gidx, blob.size - 1)], 0)
+    else:
+        data_u = np.zeros((len(uniq), L), dtype=np.uint8)
+    return (data_u.astype(np.uint8, copy=False)[inv],
+            lens_u.astype(np.int32)[inv], valid_u[inv])
+
+
+def _intern_lut(offsets: np.ndarray, blob: np.ndarray, idx: np.ndarray,
+                intern: Dict[str, int]) -> np.ndarray:
+    """String-table indices → engine intern ids (-2 = unknown),
+    resolving each UNIQUE string once."""
+    uniq, inv = np.unique(idx, return_inverse=True)
+    lut = np.full(len(uniq), -2, dtype=np.int32)
+    for j, u in enumerate(uniq):
+        s = blob[int(offsets[u]):int(offsets[u + 1])].tobytes()
+        lut[j] = intern.get(s.decode("utf-8", "replace"), -2)
+    return lut[inv]
+
+
+def _pad_rows_pow2(*arrays):
+    """Pad each array's FIRST axis (same length across arrays) with
+    zeros up to the next power of two. Padded rows must never be
+    referenced (valid-masked or absent from every id stream)."""
+    n = len(arrays[0])
+    S_pad = 1 << max(0, (max(1, n) - 1)).bit_length()
+    if S_pad == n:
+        return arrays if len(arrays) > 1 else arrays[0]
+    out = tuple(
+        np.concatenate(
+            [a, np.zeros((S_pad - n,) + a.shape[1:], dtype=a.dtype)])
+        for a in arrays)
+    return out if len(out) > 1 else out[0]
+
+
+#: a v3 capture's GENERIC section needs the protocol frontends
+_GENERIC_SECTION = ("replaying a v3 capture's GENERIC section needs the "
+                    "protocol frontends (queue 1, Q5)")
+
+
+def encode_l7_records(rec, l7, offsets, blob,
+                      interns: Dict[str, Dict],
+                      cfg: Optional[EngineConfig] = None,
+                      widths: Optional[Dict[str, int]] = None,
+                      gen=None) -> FlowBatch:
+    """FlowBatch straight from a v2 capture (base records + L7
+    sidecar): string fields gather from the capture's string table,
+    kafka strings resolve to engine intern ids. Chunked callers pass
+    whole-capture ``widths`` (:func:`capture_field_widths`)."""
+    if gen is not None:
+        raise NotImplementedError(_GENERIC_SECTION)
+    cfg = cfg or EngineConfig()
+    B = len(rec)
+    ingress = rec["direction"] == int(TrafficDirection.INGRESS)
+    ep = np.where(ingress, rec["dst_identity"],
+                  rec["src_identity"]).astype(np.int32)
+    peer = np.where(ingress, rec["src_identity"],
+                    rec["dst_identity"]).astype(np.int32)
+    fmax = int(interns.get("gen_fmax", 4))
+    w = widths or {}
+
+    def field(name: str, cap: int):
+        return _gather_table_field(blob, offsets, l7[name], cap,
+                                   fixed_len=w.get(name))
+
+    return FlowBatch(
+        ep_ids=ep, peer_ids=peer,
+        dports=rec["dport"].astype(np.int32),
+        protos=rec["proto"].astype(np.int32),
+        directions=rec["direction"].astype(np.int32),
+        l7_types=rec["l7_type"].astype(np.int32),
+        path=field("path", max(cfg.http_path_buckets)),
+        method=field("method", cfg.http_method_len),
+        host=field("host", cfg.http_host_len),
+        headers=field("headers", 1024),
+        qname=field("qname", cfg.dns_name_len),
+        kafka_api_key=l7["kafka_api_key"].astype(np.int32),
+        kafka_api_version=l7["kafka_api_version"].astype(np.int32),
+        kafka_client=_intern_lut(offsets, blob, l7["kafka_client"],
+                                 interns.get("client_id", {})),
+        kafka_topic=_intern_lut(offsets, blob, l7["kafka_topic"],
+                                interns.get("topic", {})),
+        gen_proto=np.full(B, -2, dtype=np.int32),
+        gen_pairs=np.full((B, fmax), -2, dtype=np.int32),
+        l7g=(np.zeros((B, 32), dtype=np.uint8),
+             np.zeros(B, dtype=np.int32),
+             np.ones(B, dtype=bool)),
+    )
+
+
+#: column order of the [B, 15] row block ``verdict_step_capture``
+#: consumes (:meth:`CaptureFeaturizer.encode_rows`)
+_ROW_COLS = (
+    "ep_ids", "peer_ids", "dports", "protos", "directions", "l7_types",
+    "kafka_api_key", "kafka_api_version", "kafka_client", "kafka_topic",
+    "path_row", "method_row", "host_row", "headers_row", "qname_row",
+)
+
+
+class CaptureFeaturizer:
+    """Chunked-replay featurizer over one v2 capture: the string work
+    is paid ONCE per file, then each chunk is pure row gathers. Every
+    string each field references is encoded into a padded per-field
+    table ([S_used → pow2, L] u8 + lengths + valid), kafka strings
+    resolve to engine intern ids, and a string-table → row LUT is
+    built per field."""
+
+    _FIELD_CAPS = (("path", "http_path_buckets"),
+                   ("method", "http_method_len"),
+                   ("host", "http_host_len"),
+                   ("headers", None),      # fixed 1024 cap
+                   ("qname", "dns_name_len"))
+
+    def __init__(self, l7, offsets, blob, interns: Dict[str, Dict],
+                 cfg: Optional[EngineConfig] = None, gen=None):
+        if gen is not None:
+            raise NotImplementedError(_GENERIC_SECTION)
+        self.widths = capture_field_widths(l7, offsets, cfg)
+        n_strings = len(offsets) - 1
+        self.tables: Dict[str, tuple] = {}
+        self.luts: Dict[str, np.ndarray] = {}
+        for field, _ in self._FIELD_CAPS:
+            used = np.unique(l7[field])
+            data, lens, valid = _gather_table_field(
+                blob, offsets, used, self.widths[field],
+                fixed_len=self.widths[field])
+            # string count bucketed to a power of two, as the
+            # reference does; the padded rows are invalid and no LUT
+            # entry points at them
+            data, lens, valid = _pad_rows_pow2(data, lens, valid)
+            lut = np.zeros(n_strings, dtype=np.int32)
+            lut[used] = np.arange(len(used), dtype=np.int32)
+            self.tables[field] = (data, lens, valid)
+            self.luts[field] = lut
+        for col, key in (("kafka_client", "client_id"),
+                         ("kafka_topic", "topic")):
+            used = np.unique(l7[col])
+            ids = _intern_lut(offsets, blob, used, interns.get(key, {}))
+            lut = np.full(n_strings, -2, dtype=np.int32)
+            lut[used] = ids
+            self.luts[col] = lut
+
+    def encode_rows(self, rec, l7) -> np.ndarray:
+        """Chunk → ONE [B, 15] int32 block: per-flow scalars plus
+        per-field ROW indices into the staged table match words."""
+        rec = np.asarray(rec)
+        B = len(rec)
+        out = np.empty((B, len(_ROW_COLS)), dtype=np.int32)
+        col = {c: i for i, c in enumerate(_ROW_COLS)}
+        ingress = rec["direction"] == int(TrafficDirection.INGRESS)
+        out[:, col["ep_ids"]] = np.where(
+            ingress, rec["dst_identity"], rec["src_identity"])
+        out[:, col["peer_ids"]] = np.where(
+            ingress, rec["src_identity"], rec["dst_identity"])
+        out[:, col["dports"]] = rec["dport"]
+        out[:, col["protos"]] = rec["proto"]
+        out[:, col["directions"]] = rec["direction"]
+        out[:, col["l7_types"]] = rec["l7_type"]
+        out[:, col["kafka_api_key"]] = l7["kafka_api_key"]
+        out[:, col["kafka_api_version"]] = l7["kafka_api_version"]
+        out[:, col["kafka_client"]] = \
+            self.luts["kafka_client"][l7["kafka_client"]]
+        out[:, col["kafka_topic"]] = \
+            self.luts["kafka_topic"][l7["kafka_topic"]]
+        for name, _ in self._FIELD_CAPS:
+            out[:, col[f"{name}_row"]] = self.luts[name][l7[name]]
+        return out

@@ -9,10 +9,10 @@ reference's code, copied, so the staged arrays are byte-equal. The
 device half is PyTorch; the scans run on the hand-written kernels (KD,
 K1, K2) for CUDA tensors and on their plain versions for CPU tensors.
 
-Not in this slice: the ``autotune`` pick (measures both arms at
-staging), the protocol-frontend ``l7g`` field, and the legacy
-per-rule resolve a policy falls back to when its plan degenerates —
-each raises ``NotImplementedError``.
+A policy whose plan degenerated (no ``rp_*`` arrays) resolves per
+rule through the shared ``verdict._verdict_core``, as the reference's
+does. Not ported yet: the ``autotune`` pick (queue 1, Q6) and the
+protocol-frontend ``l7g`` field (Q5) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ IMPL_DENSE = "dfa-dense"
 IMPL_NFA = "nfa-bitset"
 
 #: past this many signature groups the factored resolve stops paying
-#: and the plan is skipped (the legacy resolve is a later slice)
+#: and the plan is skipped (the per-rule resolve takes over)
 GROUP_CAP = 2048
 
 #: (prefix, batch-field) pairs of the five scanned string fields
@@ -38,13 +38,10 @@ SCAN_FIELDS = (("path", "path"), ("method", "method"),
                ("host", "host"), ("hdr", "headers"), ("dns", "qname"))
 
 #: the slices that carry what this one leaves out
-_LEGACY_SLICE = ("the legacy per-rule verdict step (a policy whose "
-                 "resolve plan degenerated, or kernel_impl='legacy') "
-                 "arrives with the legacy-step slice")
 _AUTOTUNE_SLICE = ("kernel_impl='autotune' arrives with the autotune "
-                   "slice")
+                   "slice (queue 1, Q6)")
 _L7G_SLICE = ("protocol-frontend (l7g) fields arrive with the "
-              "frontends/l7proto slice")
+              "frontends/l7proto slice (queue 1, Q5)")
 
 
 def scan_fields(arrays) -> tuple:
@@ -535,28 +532,50 @@ def fused_scan_field(arrays, prefix: str, data, lengths, valid,
     return torch.where(valid[:, None], flat, zero), gwords
 
 
+def policy_lookup(arrays, ep_ids, peer_ids, dports, protos, directions):
+    """The L3/L4 mapstate lookup of one batch, and the (src, dst)
+    identity columns the authed-pairs check reads (flows rebuild them
+    from (ep, peer) by direction)."""
+    from cilium_tpu_torch.core.flow import TrafficDirection
+    from cilium_tpu_torch.engine.mapstate_kernel import mapstate_lookup
+
+    ms = mapstate_lookup(
+        arrays["ms_key_w0"], arrays["ms_key_w1"], arrays["ms_key_w2"],
+        arrays["ms_deny"], arrays["ms_ruleset"],
+        arrays["ms_enf_ids"], arrays["ms_enf_flags"],
+        ep_ids, peer_ids, dports, protos, directions,
+        auth=arrays.get("ms_auth"),
+        port_plens=arrays.get("ms_plens"),
+        tmpl_ids=arrays.get("ms_tmpl_ids"))
+    ingress = directions == int(TrafficDirection.INGRESS)
+    src = torch.where(ingress, peer_ids, ep_ids)
+    dst = torch.where(ingress, ep_ids, peer_ids)
+    return ms, (src, dst)
+
+
+def kafka_columns(b):
+    return (b["kafka_api_key"], b["kafka_api_version"],
+            b["kafka_client"], b["kafka_topic"])
+
+
 def fused_verdict_step(arrays, batch, *, impl_plan=(),
                        dfa_impl: str = "gather"):
     """Full verdict for one batch. ``impl_plan`` is a tuple of
     (field-prefix, impl) picks from :func:`plan_for_engine`; fields
     absent default to the dense arm. ``dfa_impl`` ("gather" /
-    "oblivious") is the arm of the dense-planned fields."""
-    from cilium_tpu_torch.core.flow import TrafficDirection
-    from cilium_tpu_torch.engine.mapstate_kernel import mapstate_lookup
-    from cilium_tpu_torch.engine.verdict import batch_field, unpack_batch
+    "oblivious") is the arm of the dense-planned fields. Without a
+    staged plan the resolve runs per rule (``verdict._verdict_core``)."""
+    from cilium_tpu_torch.engine.verdict import (
+        _verdict_core,
+        batch_field,
+        unpack_batch,
+    )
 
-    if "rp_g_method" not in arrays:
-        raise NotImplementedError(_LEGACY_SLICE)
     b = unpack_batch(batch) if "scalars" in batch else batch
-    ms = mapstate_lookup(
-        arrays["ms_key_w0"], arrays["ms_key_w1"], arrays["ms_key_w2"],
-        arrays["ms_deny"], arrays["ms_ruleset"],
-        arrays["ms_enf_ids"], arrays["ms_enf_flags"],
-        b["ep_ids"], b["peer_ids"], b["dports"],
-        b["protos"], b["directions"],
-        auth=arrays.get("ms_auth"),
-        port_plens=arrays.get("ms_plens"),
-        tmpl_ids=arrays.get("ms_tmpl_ids"))
+    ms, auth_src_dst = policy_lookup(
+        arrays, b["ep_ids"], b["peer_ids"], b["dports"], b["protos"],
+        b["directions"])
+    plan_on = "rp_g_method" in arrays
     impls = dict(impl_plan)
     words = []
     gwords = None
@@ -564,18 +583,17 @@ def fused_verdict_step(arrays, batch, *, impl_plan=(),
         w, gw = fused_scan_field(
             arrays, prefix, *batch_field(b, field),
             impl=impls.get(prefix, IMPL_DENSE), dfa_impl=dfa_impl,
-            want_groups=(prefix == "path"))
+            want_groups=(plan_on and prefix == "path"))
         words.append(w)
         if gw is not None:
             gwords = gw
-    ingress = b["directions"] == int(TrafficDirection.INGRESS)
-    src = torch.where(ingress, b["peer_ids"], b["ep_ids"])
-    dst = torch.where(ingress, b["ep_ids"], b["peer_ids"])
-    kafka_cols = (b["kafka_api_key"], b["kafka_api_version"],
-                  b["kafka_client"], b["kafka_topic"])
     gen_cols = (b["gen_proto"], b["gen_pairs"])
+    if not plan_on:
+        return _verdict_core(arrays, ms, b["l7_types"], tuple(words),
+                             kafka_columns(b), auth_src_dst, b,
+                             gen_cols=gen_cols)
     return fused_verdict_core(arrays, ms, b["l7_types"], tuple(words),
-                              gwords, kafka_cols, (src, dst), b,
+                              gwords, kafka_columns(b), auth_src_dst, b,
                               gen_cols=gen_cols)
 
 
@@ -590,8 +608,6 @@ def plan_for_engine(policy, cfg, device) -> Tuple[
     mode = getattr(cfg, "kernel_impl", "auto")
     if mode == "autotune":
         raise NotImplementedError(_AUTOTUNE_SLICE)
-    if mode == "legacy":
-        raise NotImplementedError(_LEGACY_SLICE)
     if mode not in ("auto", IMPL_DENSE, IMPL_NFA):
         raise ValueError(f"unknown kernel_impl {mode!r}")
     accel = torch.device(device).type == "cuda"

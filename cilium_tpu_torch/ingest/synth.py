@@ -1,7 +1,9 @@
-"""Synthetic scenario generator for the L7 HTTP config (1k path/header
-regex rules × 10k flows) — a copy of the reference's
-``ingest/synth.py`` ``synth_http_scenario`` / ``scenario_by_name`` /
-``realize_scenario``, restricted to the ``http`` scenario of this slice.
+"""Synthetic scenario generators — a copy of the reference's
+``ingest/synth.py`` for the scenarios the port runs: ``fqdn`` (DNS
+names × toFQDNs patterns), ``http`` (1k path/header regex rules × 10k
+flows) and ``kafka`` (topic/API-key ACLs), with ``scenario_by_name``
+and ``realize_scenario``. The ``generic`` and ``protocols`` scenarios
+need ``l7proto`` rules, which arrive with the frontends slice.
 """
 
 from __future__ import annotations
@@ -11,19 +13,24 @@ import random
 from typing import Dict, List, Optional, Tuple
 
 from cilium_tpu_torch.core.flow import (
+    DNSInfo,
     Flow,
     HTTPInfo,
+    KafkaInfo,
     L7Type,
     Protocol,
     TrafficDirection,
 )
 from cilium_tpu_torch.policy.api import (
+    EgressRule,
     EndpointSelector,
     IngressRule,
     L7Rules,
     PortProtocol,
     PortRule,
+    PortRuleDNS,
     PortRuleHTTP,
+    PortRuleKafka,
     Rule,
 )
 
@@ -43,6 +50,57 @@ class SynthScenario:
 
 def _sel(**kv) -> EndpointSelector:
     return EndpointSelector.from_labels(**kv)
+
+
+# ------------------------------------------------------- config 0: FQDN --
+def synth_fqdn_scenario(n_names: int = 100, n_rules: int = 10,
+                        n_flows: Optional[int] = None,
+                        seed: int = 0) -> SynthScenario:
+    rng = random.Random(seed)
+    domains = ["cilium.io", "example.com", "k8s.local", "corp.internal",
+               "cdn.net"]
+    dns_rules = []
+    for i in range(n_rules):
+        base = domains[i % len(domains)]
+        if i % 3 == 0:
+            dns_rules.append(PortRuleDNS(match_name=f"svc{i}.{base}"))
+        elif i % 3 == 1:
+            dns_rules.append(PortRuleDNS(match_pattern=f"*.{base}"))
+        else:
+            dns_rules.append(PortRuleDNS(match_pattern=f"api-*.sub{i}.{base}"))
+    rule = Rule(
+        endpoint_selector=_sel(app="crawler"),
+        egress=(EgressRule(to_ports=(PortRule(
+            ports=(PortProtocol(53, Protocol.UDP),),
+            rules=L7Rules(dns=tuple(dns_rules)),
+        ),),),),
+        labels=("synth=fqdn",),
+    )
+    names = []
+    for i in range(n_names):
+        base = domains[i % len(domains)]
+        kind = rng.random()
+        if kind < 0.3:
+            names.append(f"svc{rng.randrange(n_rules)}.{base}")
+        elif kind < 0.6:
+            names.append(f"host{i}.{base}")
+        elif kind < 0.8:
+            names.append(f"api-{i}.sub{rng.randrange(n_rules)}.{base}")
+        else:
+            names.append(f"deep{i}.x.y.{base}")
+    flows = []
+    for i in range(n_flows or n_names):
+        flows.append(Flow(
+            src_identity=0, dst_identity=0, dport=53, protocol=Protocol.UDP,
+            direction=EG, l7=L7Type.DNS,
+            dns=DNSInfo(query=names[i % len(names)]),
+        ))
+    return SynthScenario(
+        name="fqdn", rules=[rule],
+        endpoints={"crawler": {"app": "crawler"},
+                   "peer": {"app": "peer"}},
+        flows=flows,
+    )
 
 
 # ------------------------------------------------------- config 1: HTTP --
@@ -120,18 +178,73 @@ def synth_http_scenario(n_rules: int = 1000, n_flows: int = 10000,
     )
 
 
+# ------------------------------------------------------ config 2: Kafka --
+def synth_kafka_scenario(n_rules: int = 20, n_records: int = 100000,
+                         seed: int = 0) -> SynthScenario:
+    rng = random.Random(seed)
+    kafka_rules = []
+    for i in range(n_rules):
+        if i % 2 == 0:
+            kafka_rules.append(PortRuleKafka(role="produce",
+                                             topic=f"topic-{i}"))
+        else:
+            kafka_rules.append(PortRuleKafka(role="consume",
+                                             topic=f"topic-{i}",
+                                             client_id=f"client-{i % 5}"))
+    rule = Rule(
+        endpoint_selector=_sel(app="kafka"),
+        ingress=(IngressRule(
+            from_endpoints=(_sel(app="producer"),),
+            to_ports=(PortRule(
+                ports=(PortProtocol(9092, Protocol.TCP),),
+                rules=L7Rules(kafka=tuple(kafka_rules)),
+            ),),
+        ),),
+        labels=("synth=kafka",),
+    )
+    flows = []
+    for _ in range(n_records):
+        i = rng.randrange(n_rules + 5)  # some topics unmatched
+        produce = rng.random() < 0.5
+        flows.append(Flow(
+            src_identity=0, dst_identity=0, dport=9092,
+            protocol=Protocol.TCP, direction=ING, l7=L7Type.KAFKA,
+            kafka=KafkaInfo(
+                api_key=0 if produce else 1,
+                api_version=rng.randint(0, 5),
+                client_id=f"client-{rng.randrange(8)}",
+                topic=f"topic-{i}",
+            ),
+        ))
+    return SynthScenario(
+        name="kafka", rules=[rule],
+        endpoints={"kafka": {"app": "kafka"},
+                   "producer": {"app": "producer"}},
+        flows=flows,
+    )
+
+
 # ----------------------------------------------------------- harness ----
 def scenario_by_name(name: str, n_rules: int, n_flows: int,
                      seed: int = 0) -> "SynthScenario":
-    """Scenario dispatch. Only ``http`` is ported; the reference's other
-    scenarios (fqdn, kafka, generic, protocols) belong to later slices."""
+    """Scenario dispatch (the reference's, including fqdn's 100-name
+    universe). ``generic`` and ``protocols`` raise: their ``l7proto``
+    rules arrive with the frontends slice (queue 1, Q5)."""
     if n_rules < 1:
         raise ValueError("n_rules must be >= 1")
     if name == "http":
         return synth_http_scenario(n_rules=n_rules, n_flows=n_flows,
                                    seed=seed)
-    raise NotImplementedError(
-        f"scenario {name!r} is not ported yet (only 'http' is)")
+    if name == "fqdn":
+        return synth_fqdn_scenario(n_names=100, n_rules=n_rules,
+                                   n_flows=n_flows, seed=seed)
+    if name == "kafka":
+        return synth_kafka_scenario(n_rules=n_rules, n_records=n_flows,
+                                    seed=seed)
+    if name in ("generic", "protocols"):
+        raise NotImplementedError(
+            f"scenario {name!r} needs l7proto rules (queue 1, Q5)")
+    raise ValueError(f"unknown scenario {name!r}")
 
 
 def realize_scenario(scenario: SynthScenario, resolve: bool = True):

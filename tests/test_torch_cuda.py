@@ -8,8 +8,9 @@ machine with the card has no JAX; this file imports none.)
 
 Each kernel is held exactly against its plain version on the same CUDA
 tensors (random, all-zero and all-full lengths; the tile edges of the
-tensor-core kernels), and the fused step on the card against the same step on the
-CPU (the plain versions), at a small size.
+tensor-core kernels), and the fused step, capture replay (memo route)
+and the legacy step on the card against the same paths on the CPU (the
+plain versions), at a small size.
 """
 
 import numpy as np
@@ -111,6 +112,56 @@ def test_fused_step_on_card_equals_plain(cuda, mode, dfa_impl, kernel,
     _build.reset_launches()
     got = TorchVerdictEngine(pol, cfg=cfg).verdict_flows(sc.flows)
     assert _build.KERNELS[kernel].launches > 0
+    want = TorchVerdictEngine(pol, device="cpu", cfg=cfg) \
+        .verdict_flows(sc.flows)
+    for lane in OUTPUT_LANES:
+        np.testing.assert_array_equal(got[lane], want[lane], lane)
+
+
+def _replay_lanes(engine, sections, cfg):
+    from cilium_tpu_torch.engine.replay import CaptureReplay
+
+    rec, l7, offsets, blob = sections
+    r = CaptureReplay(engine, l7, offsets, blob, cfg)
+    r.stage_rows(rec, l7)
+    r.stage_unique()
+    outs = [r.verdict_chunk(rec[s:s + 128], l7[s:s + 128], start=s)
+            for s in range(0, len(rec), 128)]
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+@pytest.mark.parametrize("dfa_impl,kernel", [("gather", "KD"),
+                                             ("pallas", "K2")])
+def test_capture_replay_on_card_equals_plain(cuda, dfa_impl, kernel,
+                                             monkeypatch, tmp_path):
+    from cilium_tpu_torch.ingest import binary
+
+    monkeypatch.setenv("CILIUM_TPU_DFA_IMPL", dfa_impl)
+    pi, sc = synth.realize_scenario(synth.scenario_by_name("http", 40, 600))
+    cfg = EngineConfig()
+    cfg.bank_size = 8
+    pol = CompiledPolicy.build(pi, cfg)
+    path = str(tmp_path / "c.bin")
+    binary.write_capture_l7(path, sc.flows)
+    sections = (np.asarray(binary.map_capture(path)),
+                *binary.read_l7_sidecar(path))
+    _build.reset_launches()
+    got = _replay_lanes(TorchVerdictEngine(pol, cfg=cfg), sections, cfg)
+    assert _build.KERNELS[kernel].launches > 0
+    want = _replay_lanes(TorchVerdictEngine(pol, device="cpu", cfg=cfg),
+                         sections, cfg)
+    for lane in OUTPUT_LANES:
+        np.testing.assert_array_equal(got[lane], want[lane], lane)
+
+
+def test_legacy_step_on_card_equals_plain(cuda):
+    pi, sc = synth.realize_scenario(synth.scenario_by_name("http", 40, 300))
+    cfg = EngineConfig()
+    cfg.kernel_impl = "legacy"
+    pol = CompiledPolicy.build(pi, cfg)
+    _build.reset_launches()
+    got = TorchVerdictEngine(pol, cfg=cfg).verdict_flows_blob(sc.flows)
+    assert _build.KERNELS["KD"].launches > 0
     want = TorchVerdictEngine(pol, device="cpu", cfg=cfg) \
         .verdict_flows(sc.flows)
     for lane in OUTPUT_LANES:

@@ -2,7 +2,8 @@
 
 * importing ``cilium_tpu_torch`` and every submodule pulls in no JAX,
   nothing of ``cilium_tpu`` and no ``yaml`` (the machine with the card
-  has neither JAX nor pyyaml);
+  has neither JAX nor pyyaml), and ``chip_smoke.py`` imports none of
+  them either;
 * its entry points default to ``cuda`` and raise when CUDA is absent —
   they never drop quietly to the CPU;
 * the kernel launchers refuse CPU tensors (only the dispatching
@@ -38,9 +39,18 @@ def _all_modules():
         cilium_tpu_torch.__path__, "cilium_tpu_torch."))
 
 
+#: modules every slice so far added, which the walk must find
+_EXPECTED = ("cilium_tpu_torch.engine.megakernel",
+             "cilium_tpu_torch.engine.memo",
+             "cilium_tpu_torch.engine.replay",
+             "cilium_tpu_torch.ingest.binary",
+             "cilium_tpu_torch.ingest.columnar",
+             "cilium_tpu_torch.runtime.metrics")
+
+
 def test_every_module_imports_without_jax_cilium_tpu_or_yaml():
     mods = _all_modules()
-    assert "cilium_tpu_torch.engine.megakernel" in mods
+    assert set(_EXPECTED) <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -53,6 +63,28 @@ def test_every_module_imports_without_jax_cilium_tpu_or_yaml():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
+
+
+def _imported_roots(path):
+    """Top-level package of every import statement in a file, those
+    inside functions included."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax_cilium_tpu_or_yaml():
+    roots = _imported_roots(os.path.join(REPO, "chip_smoke.py"))
+    assert "cilium_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "cilium_tpu", "yaml"}, roots
 
 
 def _no_cuda(monkeypatch):
