@@ -8,16 +8,22 @@ Phases, in order (any failure exits non-zero before the result line):
 2. build the hand-written kernels (KD, K1, K2) from
    ``cilium_tpu_torch/engine/csrc`` — one nvcc per source, in parallel —
    and check in their SASS (``cuobjdump``) that every instantiation of
-   K1 and K2 issues tensor-core instructions (HMMA, HGMMA);
+   K1 and K2 issues tensor-core instructions (HMMA, HGMMA) and that
+   KD's shared-memory instantiations stage with the bulk copy on an
+   mbarrier and read the table with shared loads;
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, exactly, on random banks (0/1/128 positions, 128 states,
    zero-length rows, batches that are not a multiple of the block), on
    the tile edges of the tensor-core kernels K1 and K2 (with random,
-   all-zero and all-full lengths) and on the http-1000 policy's own
-   banks; then K2 and K1 timed at the http-1000 host shape on random
-   bytes and on one repeated byte at full length: their times must
-   agree within 1.25x (the data-oblivious property of the reference
-   kernels);
+   all-zero and all-full lengths), on KD's edges (both variants, a bank
+   over the shared-memory budget included; L from 1 to 1024; B around
+   one CTA; W in 1, 3, 4 with and without the extra plane; finals only;
+   a column slice of a wider blob at an odd offset; negative and
+   past-L lengths; every cluster size) and on the http-1000 policy's
+   own banks; then K2 and K1 timed at the http-1000 host shape on
+   random bytes and on one repeated byte at full length: their times
+   must agree within 1.25x (the data-oblivious property of the
+   reference kernels);
 4. main path: the http scenario at 1000 rules x 10000 flows, bank size
    128, batches of 8192, under ``auto``, ``nfa-bitset`` and the
    oblivious DFA. Each configuration is verdicted once with every
@@ -27,7 +33,9 @@ Phases, in order (any failure exits non-zero before the result line):
    (``device="cpu"``) on the same batches; the verdict mix must be a
    plausible allow/deny split; then the median batch time over 25
    timed batches after warm-up, and each kernel's time for one launch
-   at the shapes of every field it scans;
+   at the shapes of every field it scans. The http-1000 path bank must
+   have run KD's shared-memory variant, phase 3's over-budget banks its
+   global one (launch counts by variant);
 5. capture replay: the scenario's 10000 flows repeated to a
    200000-record v2 capture, written with the port's writer into a
    temporary directory and read back with its reader; under the gather
@@ -47,7 +55,9 @@ Phases, in order (any failure exits non-zero before the result line):
 6. legacy step: ``kernel_impl="legacy"``, a policy whose resolve plan
    degenerated (``GROUP_CAP`` = 1) and ``verdict_flows_blob`` on the
    http-1000 batches against the fused step; the legacy step's batch
-   median and device kernels per batch beside the fused step's;
+   median and device kernels per batch beside the fused step's, and the
+   blob route's device kernels per batch (KD reads its byte fields and
+   length columns in place);
 7. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -225,6 +235,17 @@ K2_EDGES = [(1, 1, 1, 1, 1), (2, 16, 255, 15, 33), (1, 17, 256, 17, 1),
 K1_EDGES = [(1, 1, 1, 1, 1), (2, 16, 256, 15, 33), (1, 17, 1, 17, 33),
             (3, 128, 256, 65, 1), (1, 128, 1, 8193, 33),
             (2, 17, 256, 8193, 1), (1, 40, 7, 100, 300)]
+#: (NB, S, K, B, L) edge cases of KD: B below one CTA's 512 flows, one
+#: past it and 8193; L on and off the 16-byte load, past a chunk, 300
+#: and 1024; banks over the shared-memory budget (S = 8192, K = 256:
+#: 8 MB) take the global variant
+KD_EDGES = [(1, 1, 1, 1, 1), (2, 17, 5, 511, 15), (3, 40, 7, 513, 16),
+            (2, 128, 31, 8193, 17), (1, 300, 20, 100, 33),
+            (2, 768, 31, 1000, 300), (1, 74, 16, 512, 1024),
+            (1, 8192, 256, 8193, 33), (2, 8192, 256, 513, 1024)]
+#: KD's lengths cases: random in [-3, L + 4], all zero, all L, negative,
+#: past L
+KD_LENGTHS = ("random", "zero", "full", "negative", "over")
 
 def max_err(a, b) -> float:
     """Largest absolute difference; the kernels are exact, so 0."""
@@ -289,6 +310,7 @@ def kernel_phase(errs, field_inputs, capture_inputs):
             record("K2", what,
                    dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*args),
                    dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
+    kd_variants = kd_edges(T, rng, record)
     for nb, p, k, b, l in [(1, 1, 1, 7, 4), (2, 17, 5, 50, 12),
                            (3, 128, 13, 300, 9), (2, 33, 4, 129, 1),
                            (1, 64, 9, 257, 32)]:
@@ -376,6 +398,118 @@ def kernel_phase(errs, field_inputs, capture_inputs):
             record("K2", what,
                    dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a),
                    dfa_oblivious_cuda.dfa_finals_oblivious_plain(*a))
+    return kd_variants
+
+
+def kd_edges(T, rng, record):
+    """KD against its plain version on KD_EDGES: every lengths case of
+    KD_LENGTHS with W in (1, 3, 4) and the extra plane on and off, a
+    finals-only call, a data tensor that is a column slice of a wider
+    u8 blob at an odd offset with its lengths a strided int32 column,
+    and each case under every cluster size the launch plan may take.
+    Returns KD's launches by variant over these cases."""
+    import numpy as np
+
+    from cilium_tpu_torch.engine import _build, dfa_dense_cuda as kd
+
+    def lens_of(case, b, l):
+        return {"random": rng.integers(-3, l + 5, (b,)),
+                "zero": np.zeros(b), "full": np.full(b, l),
+                "negative": np.full(b, -7),
+                "over": np.full(b, l + 9)}[case].astype(np.int32)
+
+    _build.reset_launches()
+    for nb, s, k, b, l in KD_EDGES:
+        tables = (T(rng.integers(0, s, (nb, s, k)).astype(np.int32)),
+                  T(rng.integers(0, k, (nb, 256)).astype(np.int32)),
+                  T(rng.integers(0, s, (nb,)).astype(np.int32)))
+        planes = {w: T(rng.integers(-2 ** 31, 2 ** 31 - 1, (nb, s, w),
+                                    dtype=np.int64).astype(np.int32))
+                  for w in (1, 3, 4)}
+        data = T(rng.integers(0, 256, (b, l)).astype(np.uint8))
+        plan = kd.plan_launch(nb, s, k, b, l)
+        what = f"edge NB={nb} S={s} K={k} B={b} L={l} ({plan.variant})"
+        for i, case in enumerate(KD_LENGTHS):
+            args = (*tables, data, T(lens_of(case, b, l)))
+            acc = planes[(1, 3, 4)[i % 3]]
+            extra = planes[(4, 1, 3)[i % 3]] if i % 2 == 0 else None
+            record("KD", f"{what} {case} lengths W={acc.shape[2]} "
+                         f"extra={extra is not None}",
+                   kd.dense_scan_cuda(*args, accept=acc, extra=extra),
+                   kd.dense_scan_plain(*args, accept=acc, extra=extra))
+        args = (*tables, data, T(lens_of("random", b, l)))
+        record("KD", f"{what} finals", kd.dense_scan_cuda(*args),
+               kd.dense_scan_plain(*args))
+        blob = T(rng.integers(0, 256, (b, l + 9)).astype(np.uint8))
+        cols = T(np.stack([lens_of("random", b, l)] * 3, axis=1))
+        args = (*tables, blob[:, 3:3 + l], cols[:, 1])
+        record("KD", f"{what} blob column slice at offset 3, strided "
+                     f"lengths", kd.dense_scan_cuda(*args, accept=planes[4],
+                                                    extra=planes[1]),
+               kd.dense_scan_plain(*args, accept=planes[4], extra=planes[1]))
+    variants = dict(kd.KERNEL.launches_by_variant)
+    # the multicast path: every cluster size, on the banks that fit
+    keep = kd.CLUSTER_MAX
+    try:
+        for c in (2, 4, 8):
+            kd.CLUSTER_MAX = c
+            kd.plan_launch.cache_clear()
+            for nb, s, k, b, l in [(2, 768, 31, 8193, 33),
+                                   (3, 40, 7, 5000, 16)]:
+                args = (T(rng.integers(0, s, (nb, s, k)).astype(np.int32)),
+                        T(rng.integers(0, k, (nb, 256)).astype(np.int32)),
+                        T(rng.integers(0, s, (nb,)).astype(np.int32)),
+                        T(rng.integers(0, 256, (b, l)).astype(np.uint8)),
+                        T(lens_of("random", b, l)))
+                acc = T(rng.integers(-2 ** 31, 2 ** 31 - 1, (nb, s, 4),
+                                     dtype=np.int64).astype(np.int32))
+                plan = kd.plan_launch(nb, s, k, b, l, 4, 4)
+                record("KD", f"cluster {plan.cluster} grid {plan.grid} "
+                             f"NB={nb} S={s} K={k} B={b} L={l}",
+                       kd.dense_scan_cuda(*args, accept=acc, extra=acc),
+                       kd.dense_scan_plain(*args, accept=acc, extra=acc))
+    finally:
+        kd.CLUSTER_MAX = keep
+        kd.plan_launch.cache_clear()
+    log(f"  KD edge cases: launches by variant {variants}")
+    check(variants.get("global", 0) > 0 and variants.get("smem", 0) > 0,
+          f"KD edge cases: both variants must launch ({variants})")
+    return variants
+
+
+def sass_kd():
+    """KD's shared-memory instantiations stage the table with the bulk
+    copy (UBLKCP) on an mbarrier (SYNCS) and read it with shared loads
+    (LDS); the global ones issue no bulk copy. Returns {variant:
+    {"UBLKCP": n, "LDS": n}} over the instantiations."""
+    from cilium_tpu_torch.engine import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()),
+                             "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass",
+                          _build.KERNELS["KD"].library_path()],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump KD: {out.stderr[-500:]}")
+    counts = {}
+    for f in out.stdout.split("Function : ")[1:]:
+        name = f.splitlines()[0]
+        if "dfa_dense_kernel" not in name:
+            continue
+        variant = "smem" if "ILb1E" in name else "global"
+        c = {op: f.count(op) for op in ("UBLKCP", "SYNCS", "LDS")}
+        if variant == "smem":
+            check(c["UBLKCP"] > 0 and c["SYNCS"] > 0 and c["LDS"] > 0,
+                  f"KD {name}: no bulk copy on an mbarrier or no shared "
+                  f"load ({c})")
+        else:
+            check(c["UBLKCP"] == 0, f"KD {name}: a bulk copy ({c})")
+        agg = counts.setdefault(variant, {"instantiations": 0})
+        agg["instantiations"] += 1
+        for op, n in c.items():
+            agg[op] = agg.get(op, 0) + n
+    check(set(counts) == {"smem", "global"}, f"KD instantiations {counts}")
+    log(f"  KD: {counts}")
+    return counts
 
 
 def sass_tensor_ops():
@@ -529,9 +663,11 @@ def drive_config(name, setup, n_flows, card):
         outs = [engine.verdict_batch_arrays(b) for b in setup["batches"]]
         torch.cuda.synchronize()
         launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        variants = kd_variants()
         want = [plain.verdict_batch_arrays(b) for b in setup["host_cpu"]]
     log(f"[{name}] impl_plan {json.dumps(engine.impl_plan, sort_keys=True)}"
-        f" CILIUM_TPU_DFA_IMPL={dfa_impl} launches {launches}")
+        f" CILIUM_TPU_DFA_IMPL={dfa_impl} launches {launches}, KD by "
+        f"variant {variants}")
     for kid in path_kernels:
         check(launches[kid] > 0,
               f"[{name}] kernel {kid} never launched on the main path")
@@ -552,9 +688,29 @@ def drive_config(name, setup, n_flows, card):
     check(mix[5] > 0.2 * n_flows and mix[2] > 0.2 * n_flows,
           f"[{name}] implausible verdict mix {mix} (identity wiring?)")
 
-    med, busy, _ = batch_timing(engine, setup["full"], name, card)
-    return {"launches": launches, "batch_ms": med, "mix": mix,
-            "busy_share": busy}
+    med, busy, kernels = batch_timing(engine, setup["full"], name, card)
+    return {"launches": launches, "kd_variants": variants, "batch_ms": med,
+            "mix": mix, "busy_share": busy, "device_kernels": kernels}
+
+
+def kd_plan_check(arrays, path_data, auto_variants, edge_variants):
+    """Phase 4's variant check: the http-1000 path bank plans, and ran
+    on the main path, through KD's shared-memory variant; phase 3's
+    over-budget banks ran through the global one."""
+    from cilium_tpu_torch.engine import dfa_dense_cuda as kd
+
+    NB, S, K = arrays["path_trans"].shape
+    plan = kd.plan_launch(NB, S, K, *path_data.shape,
+                          arrays["path_accept"].shape[2],
+                          arrays["rp_path_gaccept"].shape[2])
+    log(f"[auto] KD plan for the path bank {(NB, S, K)} at "
+        f"{tuple(path_data.shape)}: {plan}; main path by variant "
+        f"{auto_variants}; phase 3 edge cases by variant {edge_variants}")
+    check(plan.variant == "smem" and auto_variants.get("smem", 0) > 0,
+          "[auto] the http-1000 path bank must run KD's shared-memory "
+          "variant")
+    check(edge_variants.get("global", 0) > 0,
+          "the over-budget banks must run KD's global variant")
 
 
 def field_inputs_of(engine, batch):
@@ -885,7 +1041,8 @@ def capture_phase(arm, setups, caps, cfg, card):
         lanes["row"] = replay_all(row_r, rec, l7)
         torch.cuda.synchronize()
         launches = {k: v.launches for k, v in _build.KERNELS.items()}
-    log(f"[capture {arm}] launches {launches}")
+        variants = kd_variants()
+    log(f"[capture {arm}] launches {launches}, KD by variant {variants}")
     for kid in CAPTURE_ARMS[arm][1]:
         check(launches[kid] > 0,
               f"[capture {arm}] kernel {kid} never launched")
@@ -947,7 +1104,8 @@ def capture_phase(arm, setups, caps, cfg, card):
                 f"of 5 windows) on {card}")
             rates[route].update(trace_route(
                 fn, f"[capture {arm}] {route} route", card))
-    return {"launches": launches, "split_ms": split, "rates": rates,
+    return {"launches": launches, "kd_variants": variants,
+            "split_ms": split, "rates": rates,
             "unique": memo_r.n_unique, "records": N,
             "tables_forced_ms": tables_forced_ms,
             "memo_fill_ms": memo_fill_ms}
@@ -977,8 +1135,10 @@ def high_cardinality_phase(setups, caps, cfg, card):
     got = replay_all(r, rec, l7)
     torch.cuda.synchronize()
     launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    variants = kd_variants()
     path_rows = r.feat.tables["path"][0].shape
-    log(f"[capture high-cardinality] launches {launches}; path table "
+    log(f"[capture high-cardinality] launches {launches}, KD by variant "
+        f"{variants}; path table "
         f"{path_rows}; unique rows {r.n_unique}/{N} ({ratio:.5f})")
     check(launches["KD"] > 0, "[capture high-cardinality] KD never launched")
     check(r.row_idx is None, "[capture high-cardinality] stage_unique "
@@ -1004,7 +1164,8 @@ def high_cardinality_phase(setups, caps, cfg, card):
     row = {"chunk_ms": lat, "rows_per_s": rate,
            **trace_route(chunk, "[capture high-cardinality] row route",
                          card)}
-    return {"launches": launches, "split_ms": split, "unique": r.n_unique,
+    return {"launches": launches, "kd_variants": variants,
+            "split_ms": split, "unique": r.n_unique,
             "records": N, "path_table": list(path_rows),
             "rates": {"row": row}}
 
@@ -1088,6 +1249,7 @@ def legacy_phase(per_identity, base_cfg, setups, scenario, card):
     _build.reset_launches()
     got = run(legacy)
     launches["legacy"] = {k: v.launches for k, v in _build.KERNELS.items()}
+    variants = {"legacy": kd_variants()}
     assert_lanes("[legacy] kernel_impl=legacy", got, want)
 
     cap = mk.GROUP_CAP
@@ -1103,6 +1265,7 @@ def legacy_phase(per_identity, base_cfg, setups, scenario, card):
     got_d = run(degen)
     launches["degenerate-plan"] = {k: v.launches
                                    for k, v in _build.KERNELS.items()}
+    variants["degenerate-plan"] = kd_variants()
     want_d = [TorchVerdictEngine(pol_d, device="cpu", cfg=base_cfg)
               .verdict_batch_arrays(b) for b in fused["host_cpu"]]
     assert_lanes("[legacy] degenerate plan vs its plain path", got_d,
@@ -1122,6 +1285,7 @@ def legacy_phase(per_identity, base_cfg, setups, scenario, card):
             got_b.setdefault(k, []).append(v)
     torch.cuda.synchronize()
     launches["blob"] = {k: v.launches for k, v in _build.KERNELS.items()}
+    variants["blob"] = kd_variants()
     assert_lanes("[legacy] verdict_flows_blob",
                  {k: np.concatenate(v) for k, v in got_b.items()}, want)
     for name, ln in launches.items():
@@ -1137,7 +1301,47 @@ def legacy_phase(per_identity, base_cfg, setups, scenario, card):
                                     card),
               "degenerate-plan": batch_timing(degen, full,
                                               "degenerate plan", card)}
-    return {"launches": launches, "timing": timing}
+    return {"launches": launches, "kd_variants": variants, "timing": timing,
+            "blob": blob_route_kernels(fused["engine"], flows, card)}
+
+
+def blob_route_kernels(engine, flows, card):
+    """Device kernels and device ms per batch of the blob route: the
+    fused step over a [B, W] u8 blob staged on the card and unpacked
+    there, whose byte fields and length columns KD reads in place
+    (profiler, 5 batches)."""
+    import torch
+
+    from cilium_tpu_torch.engine.compiled import (
+        encode_flows,
+        flowbatch_to_host_dict,
+        pack_blob_host,
+    )
+    from cilium_tpu_torch.engine.verdict import unpack_blob
+
+    blob, layout = pack_blob_host(flowbatch_to_host_dict(
+        encode_flows(flows[:BATCH], engine.policy.kafka_interns, None)))
+    blob = torch.from_numpy(blob).to(DEVICE)
+    kern = profile_kernels(
+        lambda: engine.verdict_batch_arrays(unpack_blob(blob, layout)), 5)
+    if not kern:
+        log("[blob route] traced: the profiler saw no device time")
+        return {}
+    out = {"device_kernels": sum(n for n, _ in kern.values()) / 5,
+           "device_ms": sum(ms for _, ms in kern.values()) / 5,
+           "kd_launches": sum(n for k, (n, _) in kern.items()
+                              if "dfa_dense_kernel" in k) / 5}
+    log(f"[blob route] traced: {out['device_kernels']:.0f} device kernels "
+        f"per batch of {BATCH} ({out['kd_launches']:.0f} of them KD), "
+        f"{out['device_ms']:.4f} ms of device time per batch on {card}")
+    return out
+
+
+def kd_variants():
+    """KD's launches by variant since the counts were last set to 0."""
+    from cilium_tpu_torch.engine import _build
+
+    return dict(_build.KERNELS["KD"].launches_by_variant)
 
 
 def main() -> int:
@@ -1164,6 +1368,7 @@ def main() -> int:
     log(f"  built {len(_build.KERNELS)} kernels in {secs:.1f}s "
         f"(nvcc in parallel)")
     tensor_ops = sass_tensor_ops()
+    kd_sass = sass_kd()
 
     log("set-up: the http-1000 policy, staged under each configuration")
     per_identity, scenario, cfg = build_policy()
@@ -1181,9 +1386,10 @@ def main() -> int:
     dense_fields = field_inputs_of(auto_engine, setups["auto"]["full"])
     nfa_fields = field_inputs_of(setups["nfa-bitset"]["engine"],
                                  setups["nfa-bitset"]["full"])
-    kernel_phase(errs, {**dense_fields,
-                        **{p: v for p, v in nfa_fields.items()
-                           if f"{p}_nfa_follow" in v[0]}}, capture_inputs)
+    edge_variants = kernel_phase(
+        errs, {**dense_fields, **{p: v for p, v in nfa_fields.items()
+                                  if f"{p}_nfa_follow" in v[0]}},
+        capture_inputs)
     log("phase 3: K2 and K1 timing against the input (data-oblivious)")
     oblivious = timing_independence(dense_fields, nfa_fields, card)
 
@@ -1192,6 +1398,8 @@ def main() -> int:
         log(f"phase 4: main path [{name}]")
         reports[name] = drive_config(name, setups[name],
                                      len(scenario.flows), card)
+    kd_plan_check(auto_engine._arrays, dense_fields["path"][1],
+                  reports["auto"]["kd_variants"], edge_variants)
 
     log("phase 4: one launch per kernel at the http-1000 shapes and the "
         "capture shapes")
@@ -1210,6 +1418,10 @@ def main() -> int:
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
     phase_launches.update(legacy["launches"])
+    phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
+    phase_variants.update({f"capture-{arm}": r["kd_variants"]
+                           for arm, r in captures.items()})
+    phase_variants.update(legacy["kd_variants"])
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -1230,6 +1442,11 @@ def main() -> int:
             "bound_by": row[6], "library_ms": None,
             "bound_ops": BOUND_OPS[kid],
             "sass_tensor_ops": tensor_ops.get(kid),
+            # KD: launches by variant in each phase, in phase 3's edge
+            # cases, and the bulk copies and shared loads in its SASS
+            **({"variants": {n: v for n, v in phase_variants.items() if v},
+                "edge_variants": edge_variants, "sass": kd_sass}
+               if kid == "KD" else {}),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -1243,7 +1460,10 @@ def main() -> int:
     log("replay: " + json.dumps({
         "captures": {a: {k: v for k, v in r.items() if k != "launches"}
                      for a, r in captures.items()},
-        "legacy_timing": legacy["timing"], "card": card}))
+        "legacy_timing": legacy["timing"], "blob_route": legacy["blob"],
+        "batch_device_kernels": {n: r["device_kernels"]
+                                 for n, r in reports.items()},
+        "card": card}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

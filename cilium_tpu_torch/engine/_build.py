@@ -54,7 +54,7 @@ class Kernel:
     """One hand-written kernel: its source, its C symbol and argument
     types, the reference function it replaces (``file:line``), and a
     count of launches (one per call of :meth:`launch`, and nowhere
-    else)."""
+    else), also kept per variant for a kernel that has several."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -64,6 +64,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.replaces = replaces
         self.launches = 0
+        self.launches_by_variant: Dict[str, int] = {}
         self._fn = None
         self._lib = None
 
@@ -95,8 +96,10 @@ class Kernel:
         lib.ct_error_string.restype = ctypes.c_char_p
         self._lib, self._fn = lib, fn
 
-    def launch(self, *args) -> None:
-        """Call the C entry point; raise on a refused or failed launch."""
+    def launch(self, *args, variant: Optional[str] = None) -> None:
+        """Call the C entry point; raise on a refused or failed launch.
+        ``variant`` names which of the kernel's variants the arguments
+        launch, for :attr:`launches_by_variant`."""
         if self._fn is None:
             self._load()
         rc = self._fn(*args)
@@ -105,6 +108,9 @@ class Kernel:
             raise RuntimeError(f"{self.name} kernel launch failed: "
                                f"{msg} (cudaError {rc})")
         self.launches += 1
+        if variant is not None:
+            self.launches_by_variant[variant] = \
+                self.launches_by_variant.get(variant, 0) + 1
 
 
 def build(kernels: Optional[Sequence[Kernel]] = None) -> float:
@@ -137,12 +143,13 @@ def build(kernels: Optional[Sequence[Kernel]] = None) -> float:
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.launches_by_variant = {}
 
 
 KERNELS: Dict[str, Kernel] = {
     "KD": Kernel(
         "dfa_dense", "dfa_dense.cu", "ct_dfa_dense",
-        [_P] * 10 + [_I] * 7 + [_P],
+        [_P],                   # one int64 array of its 26 arguments
         # dfa_scan_banked, a lax.scan of gathers, not Pallas
         replaces="cilium_tpu/engine/dfa_kernel.py:180"),
     "K1": Kernel(
@@ -156,21 +163,28 @@ KERNELS: Dict[str, Kernel] = {
 }
 
 
-def cuda_arg(t, dtype, what: str):
-    """Check one kernel argument: a CUDA tensor of ``dtype`` (made
-    contiguous). Raises on a CPU tensor or a wrong type — the kernels
-    take nothing else, and the wrapper never converts silently."""
-    import torch
-
-    if not isinstance(t, torch.Tensor) or not t.is_cuda:
+def cuda_check(t, dtype, what: str) -> None:
+    """Check one kernel argument: a CUDA tensor of ``dtype``. Raises on
+    a CPU tensor or a wrong type — the kernels take nothing else, and
+    the wrapper never converts silently."""
+    if not getattr(t, "is_cuda", False):
         raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, "
                          f"got {getattr(t, 'device', type(t))}")
     if t.dtype != dtype:
         raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+
+
+def cuda_arg(t, dtype, what: str):
+    """:func:`cuda_check`, then the tensor made contiguous."""
+    cuda_check(t, dtype, what)
     return t.contiguous()
 
 
-def stream_ptr() -> int:
+def stream_ptr(device_index: Optional[int] = None) -> int:
+    """The handle of the current CUDA stream of the device (the current
+    device when not given), without building a ``torch.cuda.Stream``."""
     import torch
 
-    return torch.cuda.current_stream().cuda_stream
+    if device_index is None:
+        device_index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(device_index)

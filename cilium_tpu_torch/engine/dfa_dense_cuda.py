@@ -9,17 +9,101 @@ per batch, so the port gives it a hand-written kernel all the same.
 :func:`dense_scan` dispatches on where the tensors lie: CPU tensors go
 to :func:`dense_scan_plain`, CUDA tensors to :func:`dense_scan_cuda`,
 which launches the kernel or raises.
+
+The kernel has two variants, picked from the shapes alone by
+:func:`plan_launch`: ``"smem"`` stages the bank's transition table (and
+its accept planes, when they fit) in shared memory with a bulk copy,
+``"global"`` reads tables over the shared-memory budget from global
+memory. ``KERNEL.launches_by_variant`` counts the launches of each.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import array
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from cilium_tpu_torch.engine import _build
 
 KERNEL = _build.KERNELS["KD"]
+
+#: the kernel's CTA: threads, flows per thread, flows per tile
+THREADS, CHAINS = 256, 2
+FLOWS_PER_CTA = THREADS * CHAINS
+#: dynamic shared memory a CTA may use on sm_90
+SMEM_MAX = 232448
+#: the kernel's shared memory before the staged arrays: the u8 class
+#: table and the mbarrier
+SMEM_HEADER = 256 + 16
+#: CTAs of one bank that may share one multicast copy of its table. 1:
+#: on the H100 clusters of 2 took as long as none and clusters of 4 and
+#: 8 up to 1.4x longer, at the batch's path field and at the
+#: high-cardinality path table (``tools/kd_bench.py --clusters``)
+CLUSTER_MAX = 1
+H100_SMS = 132
+
+
+class LaunchPlan(NamedTuple):
+    variant: str                 # "smem" or "global"
+    grid: Tuple[int, int]        # (CTAs per bank, NB)
+    cluster: int                 # CTAs per cluster along the grid's x
+    smem: int                    # dynamic shared memory bytes per CTA
+    words_smem: bool             # the accept planes staged beside the table
+    vec: int                     # bytes per row load: 16, 4 or 1
+
+
+def staged_bytes(nbytes: int) -> int:
+    """Shared memory the kernel lays out for one staged array: the
+    array rounded up to 16 bytes, and 16 more so that it keeps its
+    global address mod 16."""
+    return -(-nbytes // 16) * 16 + 16
+
+
+def row_load_width(data_ptr: int, row_stride: int, rows: int, L: int) -> int:
+    """The widest load (16, 4 or 1 bytes) that every row start
+    ``data_ptr + i * row_stride`` is aligned to and that divides L (a
+    load never crosses the row's end)."""
+    align = data_ptr | (row_stride if rows > 1 else 0) | L
+    for v in (16, 4):
+        if align % v == 0:
+            return v
+    return 1
+
+
+@functools.lru_cache(maxsize=256)
+def plan_launch(NB: int, S: int, K: int, B: int, L: int, W: int = 0,
+                Wg: int = 0, data_ptr: int = 0,
+                row_stride: Optional[int] = None,
+                sms: int = H100_SMS) -> LaunchPlan:
+    """The launch of KD for these shapes. The shared-memory variant
+    when the bank's transition table fits (``S·K·4`` bytes plus the
+    header), with the accept planes (``S·W·4``, ``S·Wg·4``) beside it
+    when they fit too; its CTAs per bank fill the SMs once (a CTA loops
+    over tiles of ``FLOWS_PER_CTA`` flows), grouped into clusters of up
+    to ``CLUSTER_MAX``. Else the global variant, one CTA per tile. The
+    row load width follows the data's address, row stride and L."""
+    tiles = -(-B // FLOWS_PER_CTA)
+    vec = row_load_width(data_ptr, L if row_stride is None else row_stride,
+                         B, L)
+    smem = SMEM_HEADER + staged_bytes(S * K * 4)
+    if smem > SMEM_MAX:
+        return LaunchPlan("global", (tiles, NB), 1, SMEM_HEADER, False, vec)
+    words = sum(staged_bytes(S * w * 4) for w in (W, Wg) if w)
+    words_smem = words > 0 and smem + words <= SMEM_MAX
+    per_bank = max(1, min(tiles, sms // max(NB, 1)))
+    cluster = 1
+    while cluster * 2 <= min(CLUSTER_MAX, per_bank):
+        cluster *= 2
+    per_bank = -(-per_bank // cluster) * cluster
+    return LaunchPlan("smem", (per_bank, NB), cluster,
+                      smem + (words if words_smem else 0), words_smem, vec)
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def accept_words(finals: torch.Tensor, accept: Optional[torch.Tensor],
@@ -63,45 +147,65 @@ def dense_scan_plain(trans, byteclass, start, data, lengths,
     return accept_words(finals, accept, extra)
 
 
+def _table(t, dtype, what):
+    """A table argument: a contiguous CUDA tensor of ``dtype`` (the
+    engine stages its tables contiguous; anything else is copied)."""
+    _build.cuda_check(t, dtype, what)
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def dense_scan_cuda(trans, byteclass, start, data, lengths,
                     accept=None, extra=None):
-    """KD on the card; same contract as :func:`dense_scan_plain`."""
+    """KD on the card; same contract as :func:`dense_scan_plain`. The
+    data is read in place when its bytes are contiguous within a row
+    (``stride(1) == 1``), the lengths at any stride."""
     i32 = torch.int32
-    trans = _build.cuda_arg(trans, i32, "trans")
-    byteclass = _build.cuda_arg(byteclass, i32, "byteclass")
-    start = _build.cuda_arg(start, i32, "start")
-    data = _build.cuda_arg(data, torch.uint8, "data")
-    lengths = _build.cuda_arg(lengths, i32, "lengths")
+    trans = _table(trans, i32, "trans")
+    byteclass = _table(byteclass, i32, "byteclass")
+    start = _table(start, i32, "start")
+    _build.cuda_check(data, torch.uint8, "data")
+    _build.cuda_check(lengths, i32, "lengths")
     NB, S, K = trans.shape
     B, L = data.shape
     if byteclass.shape != (NB, 256) or start.shape != (NB,) \
             or lengths.shape != (B,):
         raise ValueError("dense_scan: inconsistent shapes")
-    dev = trans.device
+    row_stride, col_stride = data.stride()
+    if L > 1 and col_stride != 1:
+        data = data.contiguous()
+        row_stride = L
     finals = words = xwords = None
     W = Wg = 0
     if accept is None:
-        finals = torch.empty((NB, B), dtype=i32, device=dev)
+        finals = data.new_empty((NB, B), dtype=i32)
     else:
-        accept = _build.cuda_arg(accept, i32, "accept")
+        accept = _table(accept, i32, "accept")
         W = accept.shape[2]
         if accept.shape[:2] != (NB, S):
             raise ValueError("dense_scan: accept must be [NB, S, W]")
-        words = torch.empty((B, NB, W), dtype=i32, device=dev)
+        words = data.new_empty((B, NB, W), dtype=i32)
         if extra is not None:
-            extra = _build.cuda_arg(extra, i32, "extra")
+            extra = _table(extra, i32, "extra")
             Wg = extra.shape[2]
             if extra.shape[:2] != (NB, S):
                 raise ValueError("dense_scan: extra must be [NB, S, Wg]")
-            xwords = torch.empty((B, NB, Wg), dtype=i32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    KERNEL.launch(
-        ptr(trans), ptr(byteclass), ptr(start), ptr(accept), ptr(extra),
-        ptr(data), ptr(lengths), ptr(words), ptr(xwords), ptr(finals),
-        NB, S, K, W, Wg, B, L, _build.stream_ptr())
+            xwords = data.new_empty((B, NB, Wg), dtype=i32)
+    if B and NB:
+        dptr = data.data_ptr()
+        index = data.get_device()
+        plan = plan_launch(NB, S, K, B, L, W, Wg, dptr % 16,
+                           row_stride % 16, _sm_count(index))
+        args = array.array("q", (
+            trans.data_ptr(), byteclass.data_ptr(), start.data_ptr(),
+            0 if accept is None else accept.data_ptr(),
+            0 if extra is None else extra.data_ptr(), dptr,
+            lengths.data_ptr(), 0 if words is None else words.data_ptr(),
+            0 if xwords is None else xwords.data_ptr(),
+            0 if finals is None else finals.data_ptr(),
+            NB, S, K, W, Wg, B, L, row_stride, lengths.stride()[0],
+            plan.variant == "smem", plan.words_smem, plan.grid[0],
+            plan.cluster, plan.smem, plan.vec, _build.stream_ptr(index)))
+        KERNEL.launch(args.buffer_info()[0], variant=plan.variant)
     if accept is None:
         return finals
     return words if extra is None else (words, xwords)

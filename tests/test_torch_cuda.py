@@ -83,6 +83,60 @@ def test_kd_and_k2_equal_plain(cuda, nb, s, k, b, l):
                 dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
 
 
+#: KD's edges: B below one CTA's 512 flows, one past it and 8193; L on
+#: and off the 16-byte row loads, 300 and 1024; banks over the
+#: shared-memory budget (S = 8192, K = 256: 8 MB) take the global variant
+KD_EDGES = [(1, 1, 1, 1, 1), (2, 17, 5, 511, 15), (3, 40, 7, 513, 16),
+            (2, 128, 31, 8193, 17), (1, 300, 20, 100, 33),
+            (2, 768, 31, 1000, 300), (1, 74, 16, 512, 1024),
+            (1, 8192, 256, 8193, 33), (2, 8192, 256, 513, 1024)]
+
+
+@pytest.mark.parametrize("nb,s,k,b,l", KD_EDGES)
+def test_kd_edges_equal_plain(cuda, nb, s, k, b, l):
+    """Random, all-zero, all-full, negative and past-L lengths with W in
+    (1, 3, 4) and the extra plane on and off; a finals-only call; data
+    that is a column slice of a wider blob at an odd offset with strided
+    lengths. The plan's variant is the one that launched."""
+    rng = np.random.default_rng(s * 7 + l)
+    tables = [_t(x, cuda) for x in (
+        rng.integers(0, s, (nb, s, k)).astype(np.int32),
+        rng.integers(0, k, (nb, 256)).astype(np.int32),
+        rng.integers(0, s, (nb,)).astype(np.int32))]
+    planes = {w: _t(rng.integers(-2 ** 31, 2 ** 31 - 1, (nb, s, w),
+                                 dtype=np.int64).astype(np.int32), cuda)
+              for w in (1, 3, 4)}
+    data = _t(rng.integers(0, 256, (b, l)).astype(np.uint8), cuda)
+    lens = [*_length_cases(rng, b, l), np.full(b, -7, np.int32),
+            np.full(b, l + 9, np.int32)]
+    _build.reset_launches()
+    for i, ln in enumerate(lens):
+        args = [*tables, data, _t(ln, cuda)]
+        acc = planes[(1, 3, 4)[i % 3]]
+        extra = planes[(4, 1, 3)[i % 3]] if i % 2 == 0 else None
+        got = dfa_dense_cuda.dense_scan_cuda(*args, accept=acc, extra=extra)
+        want = dfa_dense_cuda.dense_scan_plain(*args, accept=acc,
+                                               extra=extra)
+        if extra is None:
+            got, want = (got,), (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    args = [*tables, data, _t(lens[0], cuda)]
+    assert torch.equal(dfa_dense_cuda.dense_scan_cuda(*args),
+                       dfa_dense_cuda.dense_scan_plain(*args))
+    blob = _t(rng.integers(0, 256, (b, l + 9)).astype(np.uint8), cuda)
+    cols = _t(np.stack([lens[0]] * 3, axis=1), cuda)
+    args = [*tables, blob[:, 3:3 + l], cols[:, 1]]
+    got = dfa_dense_cuda.dense_scan_cuda(*args, accept=planes[4],
+                                         extra=planes[1])
+    want = dfa_dense_cuda.dense_scan_plain(*args, accept=planes[4],
+                                           extra=planes[1])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    variant = dfa_dense_cuda.plan_launch(nb, s, k, b, l).variant
+    kd = _build.KERNELS["KD"]
+    assert kd.launches_by_variant == {variant: kd.launches} \
+        and kd.launches == len(lens) + 2
+
+
 @pytest.mark.parametrize("nb,p,k,b,l", [(1, 1, 1, 7, 4), (2, 33, 4, 129, 1),
                                         (3, 128, 13, 300, 9), *K1_EDGES])
 def test_k1_equals_plain(cuda, nb, p, k, b, l):

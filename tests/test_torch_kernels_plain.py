@@ -27,6 +27,8 @@ from cilium_tpu.core.config import EngineConfig
 from cilium_tpu.engine import nfa_kernel as jax_nfa
 from cilium_tpu.engine import pallas_dfa, pallas_nfa
 from cilium_tpu.engine import verdict as jax_verdict
+from cilium_tpu.engine.dfa_kernel import dfa_finals_banked as \
+    jax_dfa_scan_finals
 from cilium_tpu.engine.dfa_kernel import dfa_scan_banked as jax_dfa_scan
 from cilium_tpu.policy.compiler.dfa import compile_patterns
 
@@ -79,6 +81,44 @@ def test_kd_plain_equals_gather(nb, s, k, b, l):
                                   extra=T(extra))
     np.testing.assert_array_equal(as_u32(got), np.asarray(want))
     np.testing.assert_array_equal(as_u32(got_x), np.asarray(want_x))
+
+
+#: (NB, S, K, B, L): L on and off KD's 16-byte row loads and past one
+KD_EDGES = [(2, 17, 5, 9, 1), (1, 40, 7, 12, 15), (3, 128, 31, 20, 16),
+            (2, 300, 20, 11, 17), (1, 74, 16, 13, 33)]
+
+
+@pytest.mark.parametrize("nb,s,k,b,l", KD_EDGES)
+@pytest.mark.parametrize("lengths", ["over and negative", "blob column"])
+def test_kd_plain_edges_equal_gather(nb, s, k, b, l, lengths):
+    """Lengths past L and below 0 (the reference steps min(max(len, 0),
+    L) bytes), and data that is a column slice of a wider u8 blob at an
+    odd offset with its lengths a strided int32 column — the blob
+    transport's layout, which KD reads in place."""
+    rng = np.random.default_rng(nb * 7919 + s * 31 + l)
+    trans, bc, start, accept, data, lens = _random_banked(
+        rng, nb, s, k, b, l, w=3)
+    lens = rng.integers(-4, l + 6, (b,)).astype(np.int32)
+    lens[:2] = (-1, l + 1)
+    extra = accept[:, :, :2] ^ np.uint32(0x80000001)
+    want, want_x = jax_dfa_scan(trans, bc, start, accept, data, lens,
+                                impl="gather", extra_accept=extra)
+    if lengths == "blob column":
+        blob = rng.integers(0, 256, (b, l + 9)).astype(np.uint8)
+        blob[:, 3:3 + l] = data
+        cols = np.stack([lens + 1, lens, lens - 1], axis=1)
+        tdata, tlens = T(blob)[:, 3:3 + l], T(cols)[:, 1]
+        assert tdata.stride() == (l + 9, 1) and tlens.stride() == (3,)
+    else:
+        tdata, tlens = T(data), T(lens)
+    got, got_x = dense_scan_plain(T(trans), T(bc), T(start), tdata, tlens,
+                                  accept=T(accept), extra=T(extra))
+    np.testing.assert_array_equal(as_u32(got), np.asarray(want))
+    np.testing.assert_array_equal(as_u32(got_x), np.asarray(want_x))
+    finals = dense_scan_plain(T(trans), T(bc), T(start), tdata, tlens)
+    np.testing.assert_array_equal(
+        finals.numpy(), np.asarray(jax_dfa_scan_finals(
+            trans, bc, start, data, lens, impl="gather")))
 
 
 def test_kd_plain_on_compiled_patterns():
