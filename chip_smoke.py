@@ -19,8 +19,7 @@ Phases, in order (any failure exits non-zero before the result line):
    over the shared-memory budget included; L from 1 to 1024; B around
    one CTA; W in 1, 3, 4 with and without the extra plane; finals only;
    a column slice of a wider blob at an odd offset; negative and
-   past-L lengths; every cluster size) and on the http-1000 policy's
-   own banks; then K2 and K1 timed at the http-1000 host shape on
+   past-L lengths) and on the http-1000 policy's own banks; then K2 and K1 timed at the http-1000 host shape on
    random bytes and on one repeated byte at full length: their times
    must agree within 1.25x (the data-oblivious property of the
    reference kernels);
@@ -405,8 +404,7 @@ def kd_edges(T, rng, record):
     """KD against its plain version on KD_EDGES: every lengths case of
     KD_LENGTHS with W in (1, 3, 4) and the extra plane on and off, a
     finals-only call, a data tensor that is a column slice of a wider
-    u8 blob at an odd offset with its lengths a strided int32 column,
-    and each case under every cluster size the launch plan may take.
+    u8 blob at an odd offset with its lengths a strided int32 column.
     Returns KD's launches by variant over these cases."""
     import numpy as np
 
@@ -448,29 +446,6 @@ def kd_edges(T, rng, record):
                                                     extra=planes[1]),
                kd.dense_scan_plain(*args, accept=planes[4], extra=planes[1]))
     variants = dict(kd.KERNEL.launches_by_variant)
-    # the multicast path: every cluster size, on the banks that fit
-    keep = kd.CLUSTER_MAX
-    try:
-        for c in (2, 4, 8):
-            kd.CLUSTER_MAX = c
-            kd.plan_launch.cache_clear()
-            for nb, s, k, b, l in [(2, 768, 31, 8193, 33),
-                                   (3, 40, 7, 5000, 16)]:
-                args = (T(rng.integers(0, s, (nb, s, k)).astype(np.int32)),
-                        T(rng.integers(0, k, (nb, 256)).astype(np.int32)),
-                        T(rng.integers(0, s, (nb,)).astype(np.int32)),
-                        T(rng.integers(0, 256, (b, l)).astype(np.uint8)),
-                        T(lens_of("random", b, l)))
-                acc = T(rng.integers(-2 ** 31, 2 ** 31 - 1, (nb, s, 4),
-                                     dtype=np.int64).astype(np.int32))
-                plan = kd.plan_launch(nb, s, k, b, l, 4, 4)
-                record("KD", f"cluster {plan.cluster} grid {plan.grid} "
-                             f"NB={nb} S={s} K={k} B={b} L={l}",
-                       kd.dense_scan_cuda(*args, accept=acc, extra=acc),
-                       kd.dense_scan_plain(*args, accept=acc, extra=acc))
-    finally:
-        kd.CLUSTER_MAX = keep
-        kd.plan_launch.cache_clear()
     log(f"  KD edge cases: launches by variant {variants}")
     check(variants.get("global", 0) > 0 and variants.get("smem", 0) > 0,
           f"KD edge cases: both variants must launch ({variants})")

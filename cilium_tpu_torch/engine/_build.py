@@ -149,7 +149,7 @@ def reset_launches() -> None:
 KERNELS: Dict[str, Kernel] = {
     "KD": Kernel(
         "dfa_dense", "dfa_dense.cu", "ct_dfa_dense",
-        [_P],                   # one int64 array of its 26 arguments
+        [_P],                   # one int64 array of its 25 arguments
         # dfa_scan_banked, a lax.scan of gathers, not Pallas
         replaces="cilium_tpu/engine/dfa_kernel.py:180"),
     "K1": Kernel(

@@ -36,10 +36,9 @@
 //    mod 16: its 16-byte-aligned interior goes by the bulk copy, its
 //    ragged head and tail (< 16 bytes each) by plain loads. CTAs loop
 //    over tiles of flows, and the grid fills the SMs once, so a large
-//    batch stages the table once per CTA, not once per tile. The CTAs
-//    of one bank can form a thread-block cluster that shares one
-//    multicast copy of the table (each CTA issues one slice to all);
-//    the launch plan keeps clusters of 1, which measured fastest.
+//    batch stages the table once per CTA, not once per tile. (Clusters
+//    of a bank's CTAs sharing one multicast copy of the table measured
+//    no faster on the H100, at 2 CTAs, and slower at 4 and 8.)
 // 2. Tables over the shared-memory budget (the compiler allows 8192
 //    states x 256 classes, 8 MB) read the table from global memory
 //    through the read-only path (variant "global"). The wrapper picks
@@ -99,26 +98,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t cluster_size() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(bar), "r"(count) : "memory");
@@ -142,26 +121,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "}\n" :: "r"(bar), "r"(parity) : "memory");
 }
 
-// 1-D bulk copy global → this CTA's shared memory, or multicast to the
-// same offset in every CTA of `mask`; completes on the mbarrier at the
-// same offset in each destination CTA.
+// 1-D bulk copy global → this CTA's shared memory, completed on the
+// mbarrier.
 __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
                                           uint32_t bytes, uint32_t bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst,
-                                                    const void* src,
-                                                    uint32_t bytes,
-                                                    uint32_t bar,
-                                                    uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask) : "memory");
 }
 
 // ---------------------------------------------------------- staging
@@ -177,8 +144,9 @@ struct Staged {
 };
 
 // Lay out `nbytes` of `g` at `region` (advanced past it by a size that
-// does not depend on g's alignment, so every CTA of a cluster lays out
-// alike) and copy its head and tail; the bulk part is issued later.
+// does not depend on g's alignment, so the launch plan can size the
+// shared memory from the shapes) and copy its head and tail; the bulk
+// part is issued later.
 __device__ __forceinline__ Staged place(uint8_t*& region, const int32_t* g,
                                         uint32_t nbytes) {
   const uint32_t shift = reinterpret_cast<uintptr_t>(g) & 15;
@@ -194,31 +162,6 @@ __device__ __forceinline__ Staged place(uint8_t*& region, const int32_t* g,
     a.smem[i] = g[i];
   region += (nbytes + 15) / 16 * 16 + 16;
   return a;
-}
-
-// Thread 0 issues the bulk copies on the barrier: the table's split
-// into one slice per CTA of the cluster, each multicast to all of them,
-// so it crosses L2 once per cluster; the accept planes each CTA's own.
-// The barrier expects every byte that lands in this CTA.
-__device__ __forceinline__ void issue(const Staged& tab, const Staged* own,
-                                      int n_own, uint32_t bar) {
-  const uint32_t csize = cluster_size();
-  uint32_t tx = tab.bulk;
-  for (int i = 0; i < n_own; ++i) tx += own[i].bulk;
-  if (tx == 0) return;
-  const uint32_t per = (tab.bulk / 16 + csize - 1) / csize * 16;
-  const uint32_t off = cluster_rank() * per;
-  if (off < tab.bulk) {
-    const uint32_t len = min(per, tab.bulk - off);
-    if (csize > 1)
-      bulk_copy_multicast(tab.dst + off, tab.src + off, len, bar,
-                          static_cast<uint16_t>((1u << csize) - 1));
-    else
-      bulk_copy(tab.dst + off, tab.src + off, len, bar);
-  }
-  for (int i = 0; i < n_own; ++i)
-    if (own[i].bulk > 0) bulk_copy(own[i].dst, own[i].src, own[i].bulk, bar);
-  mbar_expect_tx(bar, tx);
 }
 
 // ------------------------------------------------------------- rows
@@ -325,27 +268,26 @@ dfa_dense_kernel(const Params p) {
   uint32_t tx = 0;
   if constexpr (kSmem) {
     uint8_t* region = smem + kTableOffset;
-    const Staged t = place(region, tab, (uint32_t)p.S * p.K * 4);
-    Staged own[2];
-    int n_own = 0;
+    Staged st[3];
+    st[0] = place(region, tab, (uint32_t)p.S * p.K * 4);
+    int n = 1;
     if (p.words_smem && acc != nullptr)
-      own[n_own++] = place(region, acc, (uint32_t)p.S * p.W * 4);
+      st[n++] = place(region, acc, (uint32_t)p.S * p.W * 4);
     if (p.words_smem && ext != nullptr)
-      own[n_own++] = place(region, ext, (uint32_t)p.S * p.Wg * 4);
-    tab = t.smem;
-    if (n_own > 0) acc = own[0].smem;
-    if (n_own > 1) ext = own[1].smem;
-    tx = t.bulk + (n_own > 0 ? own[0].bulk : 0) +
-         (n_own > 1 ? own[1].bulk : 0);
+      st[n++] = place(region, ext, (uint32_t)p.S * p.Wg * 4);
+    tab = st[0].smem;
+    if (n > 1) acc = st[1].smem;
+    if (n > 2) ext = st[2].smem;
+    tx = st[0].bulk + (n > 1 ? st[1].bulk : 0) + (n > 2 ? st[2].bulk : 0);
     if (threadIdx.x == 0) mbar_init(bar, 1);
-    // every barrier of the cluster is set up before a copy lands on it
-    if (cluster_size() > 1) {
-      cluster_arrive();
-      cluster_wait();
-    } else {
-      __syncthreads();
+    __syncthreads();                    // the barrier is set up
+    if (threadIdx.x == 0 && tx > 0) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        if (i < n && st[i].bulk > 0)
+          bulk_copy(st[i].dst, st[i].src, st[i].bulk, bar);
+      mbar_expect_tx(bar, tx);
     }
-    if (threadIdx.x == 0) issue(t, own, n_own, bar);
   }
   for (int i = threadIdx.x; i < 256; i += kThreads)
     cls[i] = static_cast<uint8_t>(__ldg(p.byteclass + bank * 256 + i));
@@ -356,9 +298,6 @@ dfa_dense_kernel(const Params p) {
   cur.fetch(p, blockIdx.x);
   if (tx > 0) mbar_wait(bar, 0);
   __syncthreads();                      // heads, tails and classes
-  if constexpr (kSmem) {
-    if (cluster_size() > 1) cluster_arrive();  // this CTA's table is in
-  }
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     Tile<kVec> next;
@@ -410,19 +349,20 @@ dfa_dense_kernel(const Params p) {
     }
     cur = next;
   }
-  // no CTA leaves while a multicast slice it issued may still be
-  // landing in another CTA of its cluster
-  if constexpr (kSmem) {
-    if (cluster_size() > 1) cluster_wait();
-  }
 }
 
 template <bool kSmem>
-cudaError_t launch(const cudaLaunchConfig_t& cfg, int vec, const Params& p) {
+void launch(dim3 grid, int smem, cudaStream_t stream, int vec,
+            const Params& p) {
   switch (vec) {
-    case 16: return cudaLaunchKernelEx(&cfg, dfa_dense_kernel<kSmem, 16>, p);
-    case 4: return cudaLaunchKernelEx(&cfg, dfa_dense_kernel<kSmem, 4>, p);
-    default: return cudaLaunchKernelEx(&cfg, dfa_dense_kernel<kSmem, 1>, p);
+    case 16:
+      dfa_dense_kernel<kSmem, 16><<<grid, kThreads, smem, stream>>>(p);
+      break;
+    case 4:
+      dfa_dense_kernel<kSmem, 4><<<grid, kThreads, smem, stream>>>(p);
+      break;
+    default:
+      dfa_dense_kernel<kSmem, 1><<<grid, kThreads, smem, stream>>>(p);
   }
 }
 
@@ -432,15 +372,14 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// The launch plan (variant, CTAs per bank, cluster, dynamic shared
-// memory, row load width) comes from dfa_dense_cuda.plan_launch; this
-// entry point launches it as given and returns cudaGetLastError() or
-// the launch's own error. Its arguments come as one int64 array
-// (pointers as addresses), so that the caller converts one ctypes
-// argument instead of 26: trans, byteclass, start, accept, extra, data,
-// lengths, out_words, out_extra, out_finals, NB, S, K, W, Wg, B, L,
-// row_stride, len_stride, smem_variant, words_smem, grid_x, cluster,
-// smem_bytes, vec, stream.
+// The launch plan (variant, CTAs per bank, dynamic shared memory, row
+// load width) comes from dfa_dense_cuda.plan_launch; this entry point
+// launches it as given and returns cudaGetLastError(). Its arguments
+// come as one int64 array (pointers as addresses), so that the caller
+// converts one ctypes argument instead of 25: trans, byteclass, start,
+// accept, extra, data, lengths, out_words, out_extra, out_finals, NB,
+// S, K, W, Wg, B, L, row_stride, len_stride, smem_variant, words_smem,
+// grid_x, smem_bytes, vec, stream.
 extern "C" int ct_dfa_dense(const long long* a) {
   Params p;
   p.trans = (const int32_t*)a[0];
@@ -458,33 +397,20 @@ extern "C" int ct_dfa_dense(const long long* a) {
   p.row_stride = a[17];
   p.len_stride = a[18];
   const bool smem_variant = a[19] != 0;
-  const int grid_x = (int)a[21], cluster = (int)a[22];
-  const int smem_bytes = (int)a[23], vec = (int)a[24];
+  const dim3 grid((unsigned)a[21], (unsigned)p.NB);
+  const int smem_bytes = (int)a[22], vec = (int)a[23];
+  const cudaStream_t stream = (cudaStream_t)a[24];
   if (p.B == 0 || p.NB == 0) return 0;
   p.words_vec =
       p.W % 4 == 0 && aligned16(p.accept) && aligned16(p.out_words);
   p.extra_vec =
       p.Wg % 4 == 0 && aligned16(p.extra) && aligned16(p.out_extra);
   p.words_smem = smem_variant && a[20] != 0;
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid_x, p.NB, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_bytes;
-  cfg.stream = (cudaStream_t)a[25];
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 1 ? 1 : 0;
-  cudaError_t err;
   if (smem_variant) {
     // the shared-memory ceiling is raised once per device
     static bool raised[64] = {};
     int dev = 0;
-    err = cudaGetDevice(&dev);
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64 && !raised[dev]) {
       void (*kernels[])(const Params) = {dfa_dense_kernel<true, 16>,
@@ -497,11 +423,10 @@ extern "C" int ct_dfa_dense(const long long* a) {
       }
       raised[dev] = true;
     }
-    err = launch<true>(cfg, vec, p);
+    launch<true>(grid, smem_bytes, stream, vec, p);
   } else {
-    err = launch<false>(cfg, vec, p);
+    launch<false>(grid, smem_bytes, stream, vec, p);
   }
-  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

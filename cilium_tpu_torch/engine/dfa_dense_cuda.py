@@ -37,18 +37,12 @@ SMEM_MAX = 232448
 #: the kernel's shared memory before the staged arrays: the u8 class
 #: table and the mbarrier
 SMEM_HEADER = 256 + 16
-#: CTAs of one bank that may share one multicast copy of its table. 1:
-#: on the H100 clusters of 2 took as long as none and clusters of 4 and
-#: 8 up to 1.4x longer, at the batch's path field and at the
-#: high-cardinality path table (``tools/kd_bench.py --clusters``)
-CLUSTER_MAX = 1
 H100_SMS = 132
 
 
 class LaunchPlan(NamedTuple):
     variant: str                 # "smem" or "global"
     grid: Tuple[int, int]        # (CTAs per bank, NB)
-    cluster: int                 # CTAs per cluster along the grid's x
     smem: int                    # dynamic shared memory bytes per CTA
     words_smem: bool             # the accept planes staged beside the table
     vec: int                     # bytes per row load: 16, 4 or 1
@@ -81,23 +75,19 @@ def plan_launch(NB: int, S: int, K: int, B: int, L: int, W: int = 0,
     when the bank's transition table fits (``S·K·4`` bytes plus the
     header), with the accept planes (``S·W·4``, ``S·Wg·4``) beside it
     when they fit too; its CTAs per bank fill the SMs once (a CTA loops
-    over tiles of ``FLOWS_PER_CTA`` flows), grouped into clusters of up
-    to ``CLUSTER_MAX``. Else the global variant, one CTA per tile. The
-    row load width follows the data's address, row stride and L."""
+    over tiles of ``FLOWS_PER_CTA`` flows, and stages its tables once).
+    Else the global variant, one CTA per tile. The row load width
+    follows the data's address, row stride and L."""
     tiles = -(-B // FLOWS_PER_CTA)
     vec = row_load_width(data_ptr, L if row_stride is None else row_stride,
                          B, L)
     smem = SMEM_HEADER + staged_bytes(S * K * 4)
     if smem > SMEM_MAX:
-        return LaunchPlan("global", (tiles, NB), 1, SMEM_HEADER, False, vec)
+        return LaunchPlan("global", (tiles, NB), SMEM_HEADER, False, vec)
     words = sum(staged_bytes(S * w * 4) for w in (W, Wg) if w)
     words_smem = words > 0 and smem + words <= SMEM_MAX
     per_bank = max(1, min(tiles, sms // max(NB, 1)))
-    cluster = 1
-    while cluster * 2 <= min(CLUSTER_MAX, per_bank):
-        cluster *= 2
-    per_bank = -(-per_bank // cluster) * cluster
-    return LaunchPlan("smem", (per_bank, NB), cluster,
+    return LaunchPlan("smem", (per_bank, NB),
                       smem + (words if words_smem else 0), words_smem, vec)
 
 
@@ -204,7 +194,7 @@ def dense_scan_cuda(trans, byteclass, start, data, lengths,
             0 if finals is None else finals.data_ptr(),
             NB, S, K, W, Wg, B, L, row_stride, lengths.stride()[0],
             plan.variant == "smem", plan.words_smem, plan.grid[0],
-            plan.cluster, plan.smem, plan.vec, _build.stream_ptr(index)))
+            plan.smem, plan.vec, _build.stream_ptr(index)))
         KERNEL.launch(args.buffer_info()[0], variant=plan.variant)
     if accept is None:
         return finals

@@ -1,7 +1,7 @@
 """Measure kernel KD's wrapper and the blob route on one GPU, for one
 checkout of the repo.
 
-    python3 cilium_tpu_torch/tools/kd_bench.py [--tree DIR] [--clusters]
+    python3 cilium_tpu_torch/tools/kd_bench.py [--tree DIR]
 
 ``--tree`` names the checkout whose ``cilium_tpu_torch`` is measured
 (default: the one this file lives in), so one command can measure a
@@ -17,10 +17,7 @@ of ``chip_smoke.py``) it prints:
   timed alone over 2000 repetitions;
 * the device kernels and device ms per batch of the packed route
   (``verdict_batch_arrays``) and of the blob route (``unpack_blob`` of
-  a staged [B, W] u8 blob, then the step), by ``torch.profiler``;
-* with ``--clusters`` (a checkout whose KD has launch plans): KD's
-  device time at the batch path field and on a 262144 × 32 table of
-  unique http paths, for each cluster size the plan may take.
+  a staged [B, W] u8 blob, then the step), by ``torch.profiler``.
 
 The last line is one JSON object with every number, the card's name
 and its power limit. Needs CUDA; imports nothing of JAX.
@@ -38,8 +35,6 @@ import sys
 import time
 
 N_RULES, N_FLOWS, BATCH, BANK_SIZE = 1000, 10000, 8192, 128
-#: the high-cardinality path table: rows, width (chip_smoke.py phase 5)
-HC_ROWS, HC_WIDTH = 262144, 32
 
 
 def _events_ms(fn, reps: int) -> float:
@@ -135,7 +130,7 @@ def _setup():
     blob = torch.from_numpy(blob).cuda()
     data, lens, _ = batch_field(unpack_batch(batch), "path")
     torch.cuda.synchronize()
-    return engine, scenario, batch, blob, layout, data, lens
+    return engine, batch, blob, layout, data, lens
 
 
 def wrapper_parts(kd, build, arrays, data, lens):
@@ -192,7 +187,7 @@ def wrapper_parts(kd, build, arrays, data, lens):
             args = array.array("q", (
                 *ptrs, NB, S, K, W, Wg, B, L, data.stride(0),
                 lens.stride(0), plan.variant == "smem", plan.words_smem,
-                plan.grid[0], plan.cluster, plan.smem, plan.vec, stream))
+                plan.grid[0], plan.smem, plan.vec, stream))
             kd.KERNEL.launch(args.buffer_info()[0], variant=plan.variant)
         parts["ctypes call and launch"] = launch
     else:
@@ -207,29 +202,10 @@ def wrapper_parts(kd, build, arrays, data, lens):
     return {name: _host_ms(fn, 2000) for name, fn in parts.items()}
 
 
-def hc_table(scenario):
-    """A HC_ROWS × HC_WIDTH table of unique http paths (each flow's path
-    suffixed with its record number, cut to the width), padded with
-    empty rows, as the high-cardinality capture's path table."""
-    import numpy as np
-    import torch
-
-    paths = [f.http.path for f in scenario.flows if f.http is not None]
-    n = 200_000
-    data = np.zeros((HC_ROWS, HC_WIDTH), np.uint8)
-    lens = np.zeros(HC_ROWS, np.int32)
-    for i in range(n):
-        s = f"{paths[i % len(paths)]}?u={i}".encode()[:HC_WIDTH]
-        data[i, :len(s)] = np.frombuffer(s, np.uint8)
-        lens[i] = len(s)
-    return torch.from_numpy(data).cuda(), torch.from_numpy(lens).cuda()
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
-    ap.add_argument("--clusters", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -248,7 +224,7 @@ def main() -> int:
     print(f"tree {args.tree}; card {card}; torch {torch.__version__}",
           flush=True)
     _build.build([kd.KERNEL])
-    engine, scenario, batch, blob, layout, data, lens = _setup()
+    engine, batch, blob, layout, data, lens = _setup()
     arrays = engine._arrays
     acc, ext = arrays["path_accept"], arrays["rp_path_gaccept"]
     tables = [arrays[f"path_{k}"] for k in ("trans", "byteclass", "start")]
@@ -283,26 +259,6 @@ def main() -> int:
               f"kernels, {log['kd_launches']:.0f} of them KD, "
               f"{log['device_ms']:.4f} ms of device time", flush=True)
 
-    if args.clusters and hasattr(kd, "plan_launch"):
-        hc = hc_table(scenario)
-        shapes = {"batch path": (data, lens), "high-cardinality path": hc}
-        keep = kd.CLUSTER_MAX
-        out["clusters"] = {}
-        for c in (1, 2, 4, 8):
-            kd.CLUSTER_MAX = c
-            kd.plan_launch.cache_clear()
-            for label, (d, ln) in shapes.items():
-                plan = kd.plan_launch(*tables[0].shape, *d.shape,
-                                      acc.shape[2], ext.shape[2], 0,
-                                      d.stride(0))
-                ms = _kd_device_ms(lambda: kd.dense_scan_cuda(
-                    *tables, d, ln, accept=acc, extra=ext))
-                out["clusters"].setdefault(label, {})[c] = ms
-                print(f"KD {label} B={d.shape[0]} L={d.shape[1]} cluster "
-                      f"{plan.cluster} grid {plan.grid}: device {ms:.5f} ms",
-                      flush=True)
-        kd.CLUSTER_MAX = keep
-        kd.plan_launch.cache_clear()
     print(json.dumps(out), flush=True)
     return 0
 

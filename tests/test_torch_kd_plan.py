@@ -1,16 +1,15 @@
 """KD's launch plan (``dfa_dense_cuda.plan_launch``), on the CPU.
 
-The wrapper picks the kernel's variant, grid, cluster, dynamic shared
-memory and row load width from the shapes and the data's alignment
+The wrapper picks the kernel's variant, grid, dynamic shared memory and
+row load width from the shapes and the data's alignment
 alone; these are the rules the CUDA side relies on (the kernel itself
 runs only on the card: ``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 
 import pytest
 
-from cilium_tpu_torch.engine import _build, dfa_dense_cuda
+from cilium_tpu_torch.engine import _build
 from cilium_tpu_torch.engine.dfa_dense_cuda import (
-    CLUSTER_MAX,
     FLOWS_PER_CTA,
     H100_SMS,
     SMEM_HEADER,
@@ -39,12 +38,8 @@ def test_plan_invariants(nb, s, k, b, l, w, wg):
     per_bank, banks = p.grid
     assert banks == nb
     assert p.smem <= SMEM_MAX
-    assert 1 <= p.cluster <= CLUSTER_MAX
-    assert p.cluster & (p.cluster - 1) == 0
-    assert per_bank % p.cluster == 0
     tiles = -(-b // FLOWS_PER_CTA)
-    # never more CTAs than tiles, except to round up to a whole cluster
-    assert per_bank < tiles + p.cluster
+    assert 1 <= per_bank <= tiles
     if p.variant == "smem":
         staged = s * k * 4 + (s * (w + wg) * 4 if p.words_smem else 0)
         assert p.smem >= SMEM_HEADER + staged
@@ -54,9 +49,9 @@ def test_plan_invariants(nb, s, k, b, l, w, wg):
                                       for x in (w, wg) if x) <= SMEM_MAX)
         # the grid fills the SMs once: the table is staged once per
         # CTA, whatever the batch
-        assert per_bank * nb <= H100_SMS + nb * (p.cluster - 1)
+        assert per_bank == min(tiles, max(1, H100_SMS // nb))
     else:
-        assert p.cluster == 1 and per_bank == tiles and not p.words_smem
+        assert per_bank == tiles and not p.words_smem
 
 
 @pytest.mark.parametrize("nb,s,k,b,l,variant", [
@@ -77,7 +72,7 @@ def test_batch_path_plan():
     planes (W = 4 words, Wg = 1 group word) in shared memory."""
     p = plan_launch(8, 768, 31, 8192, 256, 4, 1)
     assert p.variant == "smem" and p.words_smem
-    assert p.grid == (16, 8) and 16 % p.cluster == 0
+    assert p.grid == (16, 8)
     assert p.smem == SMEM_HEADER + sum(
         staged_bytes(768 * x * 4) for x in (31, 4, 1))
 
@@ -89,37 +84,11 @@ def test_accept_planes_stay_global_when_they_do_not_fit():
     assert p.smem == SMEM_HEADER + staged_bytes(220 * 256 * 4)
 
 
-@pytest.mark.parametrize("cluster_max", [2, 8])
-@pytest.mark.parametrize("nb,s,k,b,l", SHAPES)
-def test_cluster_plans_cover_whole_clusters(monkeypatch, cluster_max, nb, s,
-                                            k, b, l):
-    """With multicast clusters allowed, the grid is a whole number of
-    clusters of a power of two CTAs of one bank, never more than the
-    bank's tiles need but for that rounding."""
-    monkeypatch.setattr(dfa_dense_cuda, "CLUSTER_MAX", cluster_max)
-    dfa_dense_cuda.plan_launch.cache_clear()
-    try:
-        p = plan_launch(nb, s, k, b, l, 4, 1)
-    finally:
-        monkeypatch.undo()
-        dfa_dense_cuda.plan_launch.cache_clear()
-    per_bank = p.grid[0]
-    tiles = -(-b // FLOWS_PER_CTA)
-    assert per_bank % p.cluster == 0 and p.cluster & (p.cluster - 1) == 0
-    assert p.cluster <= min(cluster_max, max(1, per_bank))
-    if p.variant == "smem":
-        fill = max(1, min(tiles, H100_SMS // nb))
-        assert p.cluster == min(cluster_max, 1 << (fill.bit_length() - 1))
-        assert per_bank < fill + p.cluster
-    else:
-        assert p.cluster == 1 and per_bank == tiles
-
-
 def test_high_cardinality_plan_loops_over_tiles():
     p = plan_launch(8, 768, 31, 262144, 32)
     per_bank = p.grid[0]
     assert per_bank * FLOWS_PER_CTA < 262144     # CTAs loop over tiles
-    assert per_bank * 8 <= H100_SMS + 8 * (p.cluster - 1)
+    assert per_bank * 8 <= H100_SMS
 
 
 @pytest.mark.parametrize("ptr,stride,rows,L,vec", [
