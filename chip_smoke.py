@@ -57,13 +57,34 @@ Phases, in order (any failure exits non-zero before the result line):
    median and device kernels per batch beside the fused step's, and the
    blob route's device kernels per batch (KD reads its byte fields and
    length columns in place);
-7. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+7. online serving: the port's ``ServeLoop`` over the ``auto`` engine
+   with 1024 leased streams, driven inline by ``step()``. Cold: the
+   10000 flows in chunks of 64 spread over the leases, one pack, with
+   provenance; verdict, ``l7_match`` and ``match_spec`` equal to the
+   engine's direct ``verdict_flows`` and every attribution code
+   resolving. Warm: the flows repeated to 200000 records, waves of one
+   chunk a lease, ``step()`` until drained: zero memo misses and 4 bytes
+   shipped a record; median pack ms, records per pack, records/s, and
+   a separate traced pack's kernels, device ms and busy share (device
+   over wall ms of that one traced pack). A sample of the warm traffic
+   through a ring over the plain (CPU) engine equals the card's lanes.
+   Growth: unique paths across the session's string cap: one reset,
+   the chunk encoded before it resolves ``session-reset`` and serves
+   when resubmitted; the delta-scan shapes the session launches KD at
+   are noted. Thread: ``start()`` against eight submitter threads for
+   a few seconds, then ``stop()``; every verdict equal, KD launched
+   from the pack thread. The launch counts cover these serving passes
+   alone; after they are read, KD is held against its plain version
+   and timed at every growth shape that phase 3 lacks. A
+   ``serve: {...}`` line carries the numbers;
+8. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
 shapes (each field's largest table over the two captures, at the
-capture's widths) and on a synthetic L = 1024 batch, and the per-kernel
-times cover those shapes.
+capture's widths), on a synthetic L = 1024 batch, and KD at the
+incremental session's delta shapes (``SESSION_DELTAS``), and the
+per-kernel times cover those shapes.
 
 It imports nothing of JAX. Run it from the root of a checkout: it
 imports ``cilium_tpu_torch`` from the directory it lives in.
@@ -71,6 +92,7 @@ imports ``cilium_tpu_torch`` from the directory it lives in.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -109,6 +131,24 @@ CAPTURE_RECORDS, REPLAY_CHUNK = 200_000, 65_536
 LATENCY_SAMPLES, WINDOW_S, HC_SAMPLE = 20, 0.25, 8192
 #: the capture-staging phases of ``cilium_tpu_capture_stage_seconds``
 STAGE_PHASES = ("tables", "featurize", "dedup", "table-h2d", "memo-fill")
+#: phase 3: the incremental session's delta scans (KD, accept words
+#: only) — field prefix → (B, L): a delta padded to at least 256 rows at
+#: the session's field widths, and the path delta of one flush at the
+#: string cap (``engine/session.py``)
+SESSION_DELTAS = [("path", 256, 256), ("path", 131072, 256),
+                  ("hdr", 256, 1024), ("method", 256, 16),
+                  ("host", 256, 128), ("dns", 256, 256)]
+#: phase 7: leased streams (the serve loop's default ring capacity) and
+#: records per chunk; the warm pass's records (phase 5's capture size);
+#: the string cap the growth pass crosses (the session's MAX_STRINGS);
+#: the plain-path sample; the thread pass's submitters and seconds
+SERVE_STREAMS, SERVE_CHUNK = 1024, 64
+SERVE_WARM_RECORDS = CAPTURE_RECORDS
+GROWTH_MAX_STRINGS = 1 << 16
+#: growth pass: records per unique path, so that the records up to the
+#: cap outnumber one pack's PACK_MAX (``engine/ring.py``)
+GROWTH_REPEAT = 4
+SERVE_PLAIN_SAMPLE, SERVE_THREADS, SERVE_THREAD_S = 2048, 8, 3.0
 #: capture arm → (phase-4 configuration it replays on, kernels it must
 #: launch)
 CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
@@ -260,7 +300,32 @@ def max_err(a, b) -> float:
         if not a.is_floating_point() else float((a - b).abs().max())
 
 
-def kernel_phase(errs, field_inputs, capture_inputs):
+def hold(errs, kid, what, got, want):
+    """Hold a kernel's result against its plain version's: exact, or
+    fail; the largest error goes into ``errs``."""
+    e = max_err(got, want)
+    errs[kid] = max(errs.get(kid, 0.0), e)
+    check(e == 0.0, f"{kid} disagrees with its plain version on "
+                    f"{what}: max abs err {e}")
+    log(f"  {kid} {what}: exact")
+
+
+def session_check(errs, session_inputs):
+    """KD against its plain version at the incremental session's delta
+    scans: accept words only."""
+    from cilium_tpu_torch.engine import dfa_dense_cuda
+
+    for label, (prefix, arrays, data, lens) in session_inputs.items():
+        a = (arrays[f"{prefix}_trans"], arrays[f"{prefix}_byteclass"],
+             arrays[f"{prefix}_start"], data, lens)
+        acc = arrays[f"{prefix}_accept"]
+        hold(errs, "KD", f"{label} {tuple(a[0].shape)} B={data.shape[0]} "
+                         f"L={data.shape[1]}",
+             dfa_dense_cuda.dense_scan_cuda(*a, accept=acc),
+             dfa_dense_cuda.dense_scan_plain(*a, accept=acc))
+
+
+def kernel_phase(errs, field_inputs, capture_inputs, session_inputs):
     """Every kernel against its plain version on the card, exactly."""
     import numpy as np
     import torch
@@ -283,11 +348,7 @@ def kernel_phase(errs, field_inputs, capture_inputs):
         return T(data), T(lens)
 
     def record(kid, what, got, want):
-        e = max_err(got, want)
-        errs[kid] = max(errs.get(kid, 0.0), e)
-        check(e == 0.0, f"{kid} disagrees with its plain version on "
-                        f"{what}: max abs err {e}")
-        log(f"  {kid} {what}: exact")
+        hold(errs, kid, what, got, want)
 
     for nb, s, k, w, b, l in [(1, 2, 1, 1, 7, 4), (3, 17, 5, 2, 50, 12),
                               (2, 128, 31, 1, 300, 9),
@@ -397,6 +458,7 @@ def kernel_phase(errs, field_inputs, capture_inputs):
             record("K2", what,
                    dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a),
                    dfa_oblivious_cuda.dfa_finals_oblivious_plain(*a))
+    session_check(errs, session_inputs)
     return kd_variants
 
 
@@ -701,7 +763,8 @@ def field_inputs_of(engine, batch):
     return out
 
 
-def kernel_times(fields_dense, fields_nfa, capture_inputs, card):
+def kernel_times(fields_dense, fields_nfa, capture_inputs, session_inputs,
+                 card):
     """One launch of each kernel at the shape of every field it scans
     on the main path: its device time (profiler), its wall time per
     call from Python (CUDA events, wrapper included), the plain
@@ -720,13 +783,15 @@ def kernel_times(fields_dense, fields_nfa, capture_inputs, card):
     rows = {"KD": [], "K1": [], "K2": []}
     dense = [(p, (p, *v)) for p, v in fields_dense.items()]
     for label, (prefix, arr, data, lens) in dense + list(
-            capture_inputs.items()):
+            capture_inputs.items()) + list(session_inputs.items()):
         live = lens.clamp(0, data.shape[1]).to(torch.int64)
         a = (arr[f"{prefix}_trans"], arr[f"{prefix}_byteclass"],
              arr[f"{prefix}_start"], data, lens)
         NB = a[0].shape[0]
         acc = arr[f"{prefix}_accept"]
-        extra = arr.get("rp_path_gaccept") if prefix == "path" else None
+        # the session's delta scans read no group plane
+        extra = arr.get("rp_path_gaccept") if prefix == "path" \
+            and label not in session_inputs else None
         steps = NB * int(live.sum())
         tables = nbytes(*a[:3]) + flow_bytes(data, lens)
         out = dfa_dense_cuda.dense_scan_cuda(*a, accept=acc, extra=extra)
@@ -741,7 +806,7 @@ def kernel_times(fields_dense, fields_nfa, capture_inputs, card):
                            time_launch(lambda: dfa_dense_cuda.dense_scan_plain(
                                *a, accept=acc, extra=extra), reps=3),
                            *bound(kd_bytes, 2 * steps)))
-        if a[0].shape[1] <= 128:
+        if a[0].shape[1] <= 128 and label not in session_inputs:
             def k2():
                 return dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a)
             fin = k2()
@@ -874,6 +939,24 @@ def capture_inputs_of(arrays, caps):
         out[f"L1024-{prefix}"] = (prefix, arrays,
                                   torch.from_numpy(data).cuda(),
                                   torch.from_numpy(lens).cuda())
+    return out
+
+
+def session_inputs_of(arrays, deltas=SESSION_DELTAS, seed=4):
+    """label → (prefix, staged arrays, data, lengths) on the card: a
+    session delta scan of B random strings at the field's width L."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for prefix, b, l in deltas:
+        data = rng.integers(0, 256, (b, l)).astype(np.uint8)
+        lens = rng.integers(0, l + 1, (b,)).astype(np.int32)
+        lens[:8] = l
+        out[f"session-{prefix}-{b}"] = (
+            prefix, arrays, torch.from_numpy(data).to(DEVICE),
+            torch.from_numpy(lens).to(DEVICE))
     return out
 
 
@@ -1312,6 +1395,402 @@ def blob_route_kernels(engine, flows, card):
     return out
 
 
+# ---------------------------------------------------------- online serving
+class StubLoader:
+    """What the serve loop reads of a loader: its engine."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+
+def chunk_sections(flows):
+    """Capture sections of one stream chunk (the unit a stream submits,
+    as the reference's stream transport ships it)."""
+    from cilium_tpu_torch.ingest import binary
+
+    return binary.capture_from_bytes(binary.capture_to_bytes(flows))
+
+
+def serve_loop(engine, **kw):
+    """A serve loop over ``engine`` with SERVE_STREAMS leases granted
+    (a lease TTL longer than the phase: no lease lapses mid-pass)."""
+    from cilium_tpu_torch.runtime.serveloop import ServeLoop
+
+    loop = ServeLoop(StubLoader(engine), capacity=SERVE_STREAMS,
+                     lease_ttl_s=600.0, **kw)
+    leases = [loop.connect(f"s{i}") for i in range(SERVE_STREAMS)]
+    return loop, leases
+
+
+def ticket_lanes(tickets):
+    """The served lanes of resolved tickets, concatenated."""
+    import numpy as np
+
+    return {k: np.concatenate([getattr(t.prov, k) for t in tickets])
+            for k in ("verdict", "l7_match", "match_spec")}
+
+
+def trace_once(fn):
+    """(device kernels, device ms, wall ms) of one call of ``fn``, all
+    three from the same traced call (profiler on, so the wall includes
+    its overhead); kernels and device ms are None when the profiler saw
+    no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if "CUDA" in str(getattr(e, "device_type", ""))]
+    if not ev:
+        return None, None, wall_ms
+    return (sum(e.count for e in ev),
+            sum(getattr(e, "self_device_time_total", 0.0) for e in ev) / 1e3,
+            wall_ms)
+
+
+@contextlib.contextmanager
+def delta_scans_noted(arrays, shapes):
+    """While open, append (field prefix, bank shape, B, L) of every
+    delta scan the incremental session launches to ``shapes``: the
+    session's scan call is wrapped, and runs unchanged."""
+    from cilium_tpu_torch.engine import session
+
+    scan = session.dfa_scan_banked
+    prefix_of = {id(v): k[:-len("_trans")] for k, v in arrays.items()
+                 if k.endswith("_trans")}
+
+    def noted(trans, byteclass, start, accept, data, lens):
+        shapes.append((prefix_of[id(trans)], tuple(trans.shape),
+                       *data.shape))
+        return scan(trans, byteclass, start, accept, data, lens)
+
+    session.dfa_scan_banked = noted
+    try:
+        yield
+    finally:
+        session.dfa_scan_banked = scan
+
+
+def serve_phase(setups, scenario, card):
+    """Phase 7: online serving through the port's serve loop on the
+    ``auto`` engine — cold, warm, plain, growth and thread passes. The
+    launch counts cover the serving passes alone: the direct steps the
+    passes are held against run before the counts are set to 0. Returns
+    the counts, the growth pass's delta-scan shapes (KD is held and
+    timed at them outside this phase's count) and the report."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.attribution import (
+        AttributionMap,
+        flow_family,
+    )
+    from cilium_tpu_torch.runtime.serveloop import ShedError
+
+    t_phase = time.perf_counter()
+    engine, plain = setups["auto"]["engine"], setups["auto"]["plain"]
+    flows = scenario.flows
+    N = len(flows)
+    direct = engine.verdict_flows(flows)
+    lanes = ("verdict", "l7_match", "match_spec")
+    # the warm stream: the flows repeated; a chunk's records depend only
+    # on its start modulo N, so its sections are built once
+    cache = {}
+
+    def warm_chunk(c):
+        s = (c * SERVE_CHUNK) % N
+        if s not in cache:
+            cache[s] = chunk_sections([flows[(s + i) % N]
+                                       for i in range(SERVE_CHUNK)])
+        return s, cache[s]
+
+    def want_of(s, n):
+        return {k: np.asarray(direct[k])[(s + np.arange(n)) % N]
+                for k in lanes}
+
+    # the growth pass's flows: unique paths, each in GROWTH_REPEAT
+    # consecutive records, past the path table's cap; their direct
+    # verdicts, a batch at a time
+    copies = GROWTH_MAX_STRINGS // N + 1
+    unique = list(uniquify_flows(flows * copies))
+    uflows = [f for f in unique for _ in range(GROWTH_REPEAT)]
+    ucheck = {}
+    for lo in range(0, len(unique), BATCH):
+        o = engine.verdict_flows(unique[lo:lo + BATCH])
+        for k in lanes:
+            ucheck.setdefault(k, []).append(np.asarray(o[k]))
+    udirect = {k: np.repeat(np.concatenate(v), GROWTH_REPEAT)
+               for k, v in ucheck.items()}
+    # every chunk's sections (host featurize, set-up)
+    cold = [chunk_sections(flows[s:s + SERVE_CHUNK])
+            for s in range(0, N, SERVE_CHUNK)]
+    n_chunks = SERVE_WARM_RECORDS // SERVE_CHUNK
+    for c in range(n_chunks):
+        warm_chunk(c)
+    ucache = [(s, chunk_sections(uflows[s:s + SERVE_CHUNK]))
+              for s in range(0, len(uflows), SERVE_CHUNK)]
+
+    out = {"card": card, "streams": SERVE_STREAMS, "chunk": SERVE_CHUNK}
+    # the serving passes' run: counts to 0 just before, read just after
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t_serve = time.perf_counter()
+
+    # -- cold: the scenario's flows once, one pack
+    loop, leases = serve_loop(engine, provenance=True)
+    tickets = [loop.submit(leases[k % SERVE_STREAMS], *sec)
+               for k, sec in enumerate(cold)]
+    t0 = time.perf_counter()
+    served = loop.step()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    check(served == N and all(t.done and t.error is None for t in tickets),
+          f"[serve cold] {served} of {N} records served")
+    got = ticket_lanes(tickets)
+    assert_lanes("[serve cold] vs the direct step", got, direct, lanes)
+    amap = AttributionMap.from_policy(engine.policy)
+    codes = got["l7_match"]
+    unresolved = sum(1 for i in np.nonzero(codes >= 0)[0]
+                     if amap.resolve(flow_family(flows[i]),
+                                     int(codes[i])) is None)
+    check(unresolved == 0, f"[serve cold] {unresolved} attribution codes "
+                           f"do not resolve")
+    memo = loop.ring.session.memo
+    out["cold"] = {"records": N, "chunks": len(cold),
+                   "unique_rows": loop.ring.session.n_rows,
+                   "pack_ms": cold_ms, "memo_misses": memo.misses,
+                   "codes_resolved": int((codes >= 0).sum())}
+    # its kernels: a fresh ring's cold pack, traced
+    tl, tleases = serve_loop(engine, provenance=True)
+    for k, sec in enumerate(cold):
+        tl.submit(tleases[k % SERVE_STREAMS], *sec)
+    kern, dev_ms, tr_ms = trace_once(tl.step)
+    out["cold"].update(device_kernels=kern, device_ms=dev_ms,
+                       traced_pack_ms=tr_ms,
+                       busy_share=None if dev_ms is None else dev_ms / tr_ms)
+    log(f"[serve cold] {N} records in {len(cold)} chunks over "
+        f"{SERVE_STREAMS} leases: one pack of {cold_ms:.3f} ms, "
+        f"{out['cold']['unique_rows']} unique rows; verdict, l7_match and "
+        f"match_spec equal to the direct step; "
+        f"{out['cold']['codes_resolved']} attribution codes resolve; "
+        f"traced cold pack {kern} device kernels, {dev_ms} ms of device "
+        f"time in {tr_ms:.3f} ms, busy share {out['cold']['busy_share']} "
+        f"on {card}")
+
+    # -- warm: the flows repeated to SERVE_WARM_RECORDS, waves of one
+    # chunk per lease, step() until drained
+    ring = loop.ring
+    misses0, shipped0, saved0, hits0 = (memo.misses, ring.bytes_shipped,
+                                        ring.bytes_saved, memo.hits)
+    warm, packs = [], []
+    t_all = time.perf_counter()
+    for w0 in range(0, n_chunks, SERVE_STREAMS):
+        for c in range(w0, min(n_chunks, w0 + SERVE_STREAMS)):
+            s, sec = warm_chunk(c)
+            warm.append((s, loop.submit(leases[c % SERVE_STREAMS], *sec)))
+        while not all(t.done for _, t in warm):
+            t0 = time.perf_counter()
+            n = loop.step()
+            packs.append(((time.perf_counter() - t0) * 1e3, n))
+    wall = time.perf_counter() - t_all
+    records = n_chunks * SERVE_CHUNK
+    check(all(t.error is None for _, t in warm), "[serve warm] errors")
+    for s, t in warm:
+        if not np.array_equal(t.verdicts, want_of(s, t.n)["verdict"]):
+            raise SmokeFailure(f"[serve warm] chunk at {s} differs from "
+                               f"the direct step")
+    check(memo.misses == misses0,
+          f"[serve warm] {memo.misses - misses0} memo misses")
+    check(ring.bytes_shipped - shipped0 == 4 * records,
+          f"[serve warm] {ring.bytes_shipped - shipped0} bytes shipped for "
+          f"{records} records (4 each expected)")
+    pack_ms = statistics.median(p for p, _ in packs)
+    out["warm"] = {
+        "records": records, "packs": len(packs),
+        "pack_ms_median": pack_ms,
+        "records_per_pack": statistics.median(n for _, n in packs),
+        "records_per_s": records / wall,
+        "pack_records_per_s": records / (sum(p for p, _ in packs) / 1e3),
+        "memo_hits": memo.hits - hits0, "memo_misses": memo.misses - misses0,
+        "bytes_saved": ring.bytes_saved - saved0,
+        "bytes_shipped": ring.bytes_shipped - shipped0}
+    # a separate traced pack of one full wave
+    for c in range(SERVE_STREAMS):
+        loop.submit(leases[c], *warm_chunk(c)[1])
+    kern, dev_ms, tr_ms = trace_once(loop.step)
+    out["warm"].update(device_kernels=kern, device_ms=dev_ms,
+                       traced_pack_ms=tr_ms,
+                       busy_share=None if dev_ms is None else dev_ms / tr_ms)
+    log(f"[serve warm] {records} records, {len(packs)} packs: median pack "
+        f"{pack_ms:.3f} ms, {out['warm']['records_per_pack']:.0f} records "
+        f"per pack, {out['warm']['records_per_s']:.0f} records/s submit to "
+        f"verdict ({out['warm']['pack_records_per_s']:.0f} in the packs); "
+        f"memo hits {out['warm']['memo_hits']}, misses 0; bytes saved "
+        f"{out['warm']['bytes_saved']}, shipped "
+        f"{out['warm']['bytes_shipped']} (4 a record); traced pack {kern} "
+        f"device kernels, {dev_ms} ms of device time in {tr_ms:.3f} ms, "
+        f"busy share {out['warm']['busy_share']} on {card}")
+
+    # -- plain: a sample of the warm traffic through a ring on the CPU
+    pl, pleases = serve_loop(plain, provenance=True)
+    n_s = SERVE_PLAIN_SAMPLE // SERVE_CHUNK
+    pt = [pl.submit(pleases[c], *warm_chunk(c)[1]) for c in range(n_s)]
+    pl.step()
+    assert_lanes("[serve plain] the card's warm lanes vs a ring on the CPU",
+                 ticket_lanes([t for _, t in warm[:n_s]]), ticket_lanes(pt),
+                 lanes)
+    log(f"[serve plain] {n_s * SERVE_CHUNK} records of the warm traffic: "
+        f"the ring on the CPU serves the card's lanes")
+
+    # -- growth: the unique paths until the path table passes the cap
+    gl, gleases = serve_loop(engine, provenance=True)
+    sess = gl.ring.session
+    sess.max_strings = GROWTH_MAX_STRINGS
+    shapes, done, stale = [], [], []
+    todo = list(ucache)
+    k = 0
+    with delta_scans_noted(engine._arrays, shapes):
+        # wave A: until the path table reaches the cap. The pack takes
+        # the first PACK_MAX records, but the flush scans every pending
+        # string: the largest delta a flush can hold. The chunks left in
+        # the slots were encoded before the reset the next submit
+        # triggers
+        while todo and sess.tables["path"].n < GROWTH_MAX_STRINGS:
+            s, sec = todo.pop(0)
+            done.append((s, gl.submit(gleases[k % SERVE_STREAMS], *sec)))
+            k += 1
+        gl.step()
+        # wave B: the rest, from a fresh session
+        for s, sec in todo:
+            done.append((s, gl.submit(gleases[k % SERVE_STREAMS], *sec)))
+            k += 1
+        gl.step()
+        check(sess.resets == 1, f"[serve growth] {sess.resets} resets (1 "
+                                f"expected)")
+        for s, t in done:
+            if t.error is not None:
+                check(t.error == "session-reset",
+                      f"[serve growth] chunk at {s}: {t.error}")
+                stale.append(s)
+        check(stale, "[serve growth] no chunk was orphaned by the reset")
+        redo = [(s, gl.submit(gleases[i % SERVE_STREAMS],
+                              *dict(ucache)[s]))
+                for i, s in enumerate(stale)]
+        gl.step()
+    check(sess.resets == 1, "[serve growth] a second reset")
+    for s, t in [d for d in done if d[1].error is None] + redo:
+        if not np.array_equal(t.verdicts,
+                              udirect["verdict"][s:s + t.n]):
+            raise SmokeFailure(f"[serve growth] chunk at {s} differs from "
+                               f"the direct step")
+    out["growth"] = {
+        "records": len(uflows), "unique_paths": len(unique),
+        "resets": sess.resets, "stale_chunks": len(stale)}
+    log(f"[serve growth] {len(uflows)} records, {len(unique)} unique "
+        f"paths: 1 session reset, {len(stale)} chunks resolved "
+        f"session-reset and served when resubmitted; all verdicts equal "
+        f"the direct step; delta scans (prefix, bank, B, L): {shapes}")
+
+    # -- thread: the pack thread against concurrent submitters
+    kd0 = _build.KERNELS["KD"].launches
+    th, tleases = serve_loop(engine, provenance=False,
+                             pack_interval_s=0.002)
+    per = SERVE_STREAMS // SERVE_THREADS
+    results = [[] for _ in range(SERVE_THREADS)]
+    sheds = [0] * SERVE_THREADS
+    deadline = time.perf_counter() + SERVE_THREAD_S
+
+    def submitter(i):
+        c = i
+        while time.perf_counter() < deadline:
+            s, sec = warm_chunk(c)
+            try:
+                t = th.submit(tleases[i * per + (c // SERVE_THREADS) % per],
+                              *sec)
+            except ShedError:
+                sheds[i] += 1
+                time.sleep(0.001)
+                continue
+            results[i].append((s, t))
+            c += SERVE_THREADS
+
+    import threading
+
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        workers = [threading.Thread(target=submitter, args=(i,))
+                   for i in range(SERVE_THREADS)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        for rs in results:
+            for s, t in rs:
+                v = t.wait(timeout=120.0)
+                if not np.array_equal(v, want_of(s, t.n)["verdict"]):
+                    raise SmokeFailure(f"[serve thread] chunk at {s} "
+                                       f"differs from the direct step")
+    finally:
+        th.stop()
+    t_wall = time.perf_counter() - t0
+    n_rec = sum(t.n for rs in results for _, t in rs)
+    kd_thread = _build.KERNELS["KD"].launches - kd0
+    check(th.pack_failures == 0, f"[serve thread] {th.pack_failures} "
+                                 f"pack failures")
+    check(kd_thread > 0, "[serve thread] KD never launched from the pack "
+                         "thread")
+    out["thread"] = {"records": n_rec, "packs": th.ring.packs,
+                     "wall_s": t_wall, "records_per_s": n_rec / t_wall,
+                     "sheds": sum(sheds), "kd_launches": kd_thread}
+    log(f"[serve thread] {SERVE_THREADS} submitters over {per} leases "
+        f"each for {SERVE_THREAD_S} s, pack thread on: {n_rec} records in "
+        f"{th.ring.packs} packs, {t_wall:.3f} s to the last verdict "
+        f"({n_rec / t_wall:.0f} records/s), {sum(sheds)} queue-full sheds "
+        f"retried, KD launched {kd_thread} times from the pack thread; "
+        f"every verdict equal to the direct step on {card}")
+
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in _build.KERNELS.items()}
+    variants = kd_variants()
+    out["serve_wall_s"] = time.perf_counter() - t_serve
+    check(launches["KD"] > 0, "[serve] kernel KD never launched")
+    out["setup_wall_s"] = t_serve - t_phase
+    log(f"[serve] serving passes: launches {launches}, KD by variant "
+        f"{variants}, {out['serve_wall_s']:.1f} s (set-up "
+        f"{out['setup_wall_s']:.1f} s)")
+    return {"launches": launches, "kd_variants": variants,
+            "delta_shapes": shapes, "report": out}
+
+
+def growth_kd(errs, rows, arrays, serve, card):
+    """KD at the growth pass's delta shapes, through phases 3 and 4's
+    code and outside the serve count: the shapes SESSION_DELTAS lacks
+    are held against the plain version and timed here (their rows join
+    ``rows``); the serve report gains KD's device ms at every delta
+    scan of the pass, and is returned."""
+    deltas = sorted({(p, b, l) for p, _, b, l in serve["delta_shapes"]}
+                    - set(SESSION_DELTAS))
+    log(f"phase 7: KD at the growth pass's delta shapes {deltas}, against "
+        f"its plain version")
+    inputs = session_inputs_of(arrays, deltas, seed=5)
+    session_check(errs, inputs)
+    rows["KD"].extend(kernel_times({}, {}, {}, inputs, card)["KD"])
+    kd_ms = {r[0]: r[2] for r in rows["KD"]}
+    report = serve["report"]
+    report["growth"]["delta_scans"] = [
+        [p, list(bank), b, l, kd_ms[f"session-{p}-{b}"]]
+        for p, bank, b, l in serve["delta_shapes"]]
+    log(f"[serve growth] KD device ms at each delta scan (prefix, bank, "
+        f"B, L, ms; exact): {report['growth']['delta_scans']} on {card}")
+    return report
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -1355,6 +1834,7 @@ def main() -> int:
     caps = write_captures(scenario, auto_engine.policy, cfg,
                           CAPTURE_RECORDS)
     capture_inputs = capture_inputs_of(auto_engine._arrays, caps)
+    session_inputs = session_inputs_of(auto_engine._arrays)
 
     log("phase 3: kernels against their plain versions (exact)")
     errs = {}
@@ -1364,7 +1844,7 @@ def main() -> int:
     edge_variants = kernel_phase(
         errs, {**dense_fields, **{p: v for p, v in nfa_fields.items()
                                   if f"{p}_nfa_follow" in v[0]}},
-        capture_inputs)
+        capture_inputs, session_inputs)
     log("phase 3: K2 and K1 timing against the input (data-oblivious)")
     oblivious = timing_independence(dense_fields, nfa_fields, card)
 
@@ -1378,7 +1858,8 @@ def main() -> int:
 
     log("phase 4: one launch per kernel at the http-1000 shapes and the "
         "capture shapes")
-    rows = kernel_times(dense_fields, nfa_fields, capture_inputs, card)
+    rows = kernel_times(dense_fields, nfa_fields, capture_inputs,
+                        session_inputs, card)
 
     captures = {}
     for arm in CAPTURE_ARMS:
@@ -1389,14 +1870,22 @@ def main() -> int:
                                                           card)
     log("phase 6: legacy step")
     legacy = legacy_phase(per_identity, cfg, setups, scenario, card)
+    log("phase 7: online serving")
+    t7 = time.perf_counter()
+    serve = serve_phase(setups, scenario, card)
+    report = growth_kd(errs, rows, auto_engine._arrays, serve, card)
+    report["wall_s"] = time.perf_counter() - t7
+    log(f"phase 7 wall {report['wall_s']:.1f} s")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
     phase_launches.update(legacy["launches"])
+    phase_launches["serve"] = serve["launches"]
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
     phase_variants.update(legacy["kd_variants"])
+    phase_variants["serve"] = serve["kd_variants"]
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -1439,6 +1928,7 @@ def main() -> int:
         "batch_device_kernels": {n: r["device_kernels"]
                                  for n, r in reports.items()},
         "card": card}))
+    log("serve: " + json.dumps(report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

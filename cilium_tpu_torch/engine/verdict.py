@@ -42,6 +42,7 @@ from cilium_tpu_torch.engine.compiled import (
     pack_blob_host,
 )
 from cilium_tpu_torch.engine.search import lower_bound
+from cilium_tpu_torch.runtime import faults as _faults
 
 #: the ten output lanes of a verdict batch
 OUTPUT_LANES = ("verdict", "allowed", "l3l4_allowed", "redirect", "l7_ok",
@@ -54,6 +55,11 @@ AUTH_UNENFORCED = object()
 
 #: masked-min sentinel for the attribution winners
 _ATTR_NONE = 0x7FFFFFFF
+
+#: fires at every device dispatch of the engine and of the serving
+#: session (``IncrementalSession.serve_ids``)
+DISPATCH_POINT = _faults.register_point(
+    "engine.dispatch", "device dispatch in TorchVerdictEngine")
 
 
 @functools.lru_cache(maxsize=None)
@@ -517,8 +523,20 @@ class TorchVerdictEngine:
                 dfa_impl=self._dfa_impl)
         self._arrays = arrays_from_reference({**policy.arrays, **extra},
                                              self.device)
+        self._attribution = None
+
+    @property
+    def attribution(self):
+        """:class:`~cilium_tpu_torch.engine.attribution.AttributionMap`
+        over this engine's policy, built once."""
+        if self._attribution is None:
+            from cilium_tpu_torch.engine.attribution import AttributionMap
+
+            self._attribution = AttributionMap.from_policy(self.policy)
+        return self._attribution
 
     def verdict_batch_arrays(self, batch: Dict[str, torch.Tensor]):
+        _faults.maybe_fail(DISPATCH_POINT)
         return self._step(self._arrays, batch)
 
     def _stage_auth(self, batch: Dict[str, torch.Tensor],

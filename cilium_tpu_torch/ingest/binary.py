@@ -19,7 +19,17 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 
-from cilium_tpu_torch.core.flow import Flow, L7Type
+from cilium_tpu_torch.core.flow import (
+    DNSInfo,
+    Flow,
+    GenericL7Info,
+    HTTPInfo,
+    KafkaInfo,
+    L7Type,
+    Protocol,
+    TrafficDirection,
+    Verdict,
+)
 
 MAGIC = b"CTCAP1\x00\x00"
 VERSION = 1
@@ -75,6 +85,20 @@ def flows_to_records(flows: Iterable[Flow]) -> np.ndarray:
                   int(f.protocol), int(f.direction), int(L7Type.NONE),
                   int(f.verdict), f.time, 0, 0)
     return rec
+
+
+def records_to_flows(rec: np.ndarray) -> List[Flow]:
+    return [
+        Flow(src_identity=int(r["src_identity"]),
+             dst_identity=int(r["dst_identity"]),
+             dport=int(r["dport"]), sport=int(r["sport"]),
+             protocol=Protocol(int(r["proto"])),
+             direction=TrafficDirection(int(r["direction"])),
+             l7=L7Type(int(r["l7_type"])),
+             verdict=Verdict(int(r["verdict"])),
+             time=float(r["time"]))
+        for r in rec
+    ]
 
 
 def capture_count(path: str) -> int:
@@ -250,3 +274,140 @@ def read_gen_sidecar(path: str):
         fp.seek((int(lh["n_strings"]) + 1) * 4 + int(lh["blob_bytes"])
                 + total * L7REC.itemsize, os.SEEK_CUR)
         return np.fromfile(fp, dtype=gen_dtype(fmax), count=total)
+
+
+def sections_to_bytes(rec, l7, offsets, blob,
+                      gen: Optional[np.ndarray] = None,
+                      fmax: int = 0) -> bytes:
+    """Capture sections → one in-memory v2/v3 capture image, byte-
+    identical to what :func:`write_capture_l7` puts on disk (the unit
+    a stream chunk travels as)."""
+    header = np.zeros(1, dtype=HEADER)
+    version = VERSION_L7 if gen is None else VERSION_L7G
+    header[0] = (MAGIC, version, len(rec))
+    l7h = np.zeros(1, dtype=L7HEADER)
+    l7h[0] = (len(offsets) - 1, fmax, int(blob.size))
+    parts = [header.tobytes(), np.ascontiguousarray(rec).tobytes(),
+             l7h.tobytes(), np.ascontiguousarray(offsets).tobytes(),
+             np.ascontiguousarray(blob).tobytes(),
+             np.ascontiguousarray(l7).tobytes()]
+    if gen is not None:
+        parts.append(np.ascontiguousarray(gen).tobytes())
+    return b"".join(parts)
+
+
+def capture_to_bytes(flows: Iterable[Flow]) -> bytes:
+    """Flows → in-memory v2/v3 capture image, column-encoded like
+    :func:`write_capture_l7`."""
+    from cilium_tpu_torch.ingest.columnar import flows_to_columns
+
+    c = flows_to_columns(flows)
+    return sections_to_bytes(c.rec, c.l7, c.offsets, c.blob, c.gen, c.fmax)
+
+
+def capture_from_bytes(buf: bytes):
+    """Capture image → (rec, l7, offsets, blob, gen) views. Validates
+    the whole layout (magic, version, section sizes) and raises
+    :class:`CaptureError` on anything short, long or misversioned."""
+    if len(buf) < HEADER.itemsize:
+        raise CaptureError("truncated capture image")
+    h = np.frombuffer(buf[:HEADER.itemsize], dtype=HEADER)[0]
+    if bytes(h["magic"]).ljust(8, b"\x00") != MAGIC:
+        raise CaptureError("bad magic")
+    version, count = int(h["version"]), int(h["count"])
+    if version not in (VERSION_L7, VERSION_L7G):
+        raise CaptureError(f"unsupported stream version {version}")
+    off = HEADER.itemsize
+    want = off + count * RECORD.itemsize + L7HEADER.itemsize
+    if len(buf) < want:
+        raise CaptureError("truncated capture image")
+    rec = np.frombuffer(buf, dtype=RECORD, count=count, offset=off)
+    off += count * RECORD.itemsize
+    lh = np.frombuffer(buf, dtype=L7HEADER, count=1, offset=off)[0]
+    off += L7HEADER.itemsize
+    n_strings = int(lh["n_strings"])
+    blob_bytes = int(lh["blob_bytes"])
+    fmax = int(lh["reserved"])
+    want = (off + (n_strings + 1) * 4 + blob_bytes
+            + count * L7REC.itemsize)
+    if version == VERSION_L7G:
+        if fmax <= 0:
+            raise CaptureError("truncated capture image")
+        want += count * gen_dtype(fmax).itemsize
+    if len(buf) != want:
+        raise CaptureError(
+            f"capture image size {len(buf)} != expected {want}")
+    offsets = np.frombuffer(buf, dtype="<u4", count=n_strings + 1,
+                            offset=off)
+    off += (n_strings + 1) * 4
+    blob = np.frombuffer(buf, dtype=np.uint8, count=blob_bytes,
+                         offset=off)
+    off += blob_bytes
+    l7 = np.frombuffer(buf, dtype=L7REC, count=count, offset=off)
+    off += count * L7REC.itemsize
+    gen = None
+    if version == VERSION_L7G:
+        gen = np.frombuffer(buf, dtype=gen_dtype(fmax), count=count,
+                            offset=off)
+    return rec, l7, offsets, blob, gen
+
+
+def _table_get(offsets: np.ndarray, blob: np.ndarray, idx: int) -> bytes:
+    return blob[int(offsets[idx]):int(offsets[idx + 1])].tobytes()
+
+
+def records_to_flows_l7(rec: np.ndarray, l7: np.ndarray,
+                        offsets: np.ndarray, blob: np.ndarray,
+                        gen: Optional[np.ndarray] = None
+                        ) -> List[Flow]:
+    """Object-path reconstruction of v2/v3 capture records (the serve
+    loop's explain sample)."""
+    flows = []
+    for i, (r, s) in enumerate(zip(rec, l7)):
+        f = Flow(src_identity=int(r["src_identity"]),
+                 dst_identity=int(r["dst_identity"]),
+                 dport=int(r["dport"]), sport=int(r["sport"]),
+                 protocol=Protocol(int(r["proto"])),
+                 direction=TrafficDirection(int(r["direction"])),
+                 l7=L7Type(int(r["l7_type"])),
+                 verdict=Verdict(int(r["verdict"])),
+                 time=float(r["time"]))
+        if f.l7 == L7Type.HTTP:
+            hdr_block = _table_get(offsets, blob, int(s["headers"]))
+            headers = tuple(
+                tuple(line.split(":", 1))
+                for line in hdr_block.decode("utf-8").splitlines() if line)
+            f.http = HTTPInfo(
+                method=_table_get(offsets, blob,
+                                  int(s["method"])).decode("utf-8"),
+                path=_table_get(offsets, blob,
+                                int(s["path"])).decode("utf-8"),
+                host=_table_get(offsets, blob,
+                                int(s["host"])).decode("utf-8"),
+                headers=headers)
+        elif f.l7 == L7Type.DNS:
+            f.dns = DNSInfo(query=_table_get(
+                offsets, blob, int(s["qname"])).decode("utf-8"))
+        elif f.l7 == L7Type.KAFKA:
+            f.kafka = KafkaInfo(
+                api_key=int(s["kafka_api_key"]),
+                api_version=int(s["kafka_api_version"]),
+                client_id=_table_get(offsets, blob,
+                                     int(s["kafka_client"])).decode("utf-8"),
+                topic=_table_get(offsets, blob,
+                                 int(s["kafka_topic"])).decode("utf-8"))
+        elif f.l7 == L7Type.GENERIC and gen is not None:
+            g = gen[i]
+            fields = {}
+            for k_idx, v_idx in g["pairs"]:
+                if k_idx:  # index 0 = "" = unused slot
+                    fields[_table_get(offsets, blob,
+                                      int(k_idx)).decode("utf-8")] = \
+                        _table_get(offsets, blob,
+                                   int(v_idx)).decode("utf-8")
+            f.generic = GenericL7Info(
+                proto=_table_get(offsets, blob,
+                                 int(g["proto"])).decode("utf-8"),
+                fields=fields)
+        flows.append(f)
+    return flows

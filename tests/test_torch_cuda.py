@@ -220,3 +220,77 @@ def test_legacy_step_on_card_equals_plain(cuda):
         .verdict_flows(sc.flows)
     for lane in OUTPUT_LANES:
         np.testing.assert_array_equal(got[lane], want[lane], lane)
+
+
+class _Loader:
+    """Just an ``.engine``, as the serve loop reads a loader."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+
+def _session_run(engine, flows):
+    """Uneven chunks through an incremental session → (verdicts, each
+    field's match-word table on the host)."""
+    from cilium_tpu_torch.engine.session import IncrementalSession
+    from cilium_tpu_torch.ingest import binary
+
+    sess = IncrementalSession(engine)
+    got = []
+    for s in range(0, len(flows), 97):
+        rec, l7, offsets, blob, gen = binary.capture_from_bytes(
+            binary.capture_to_bytes(flows[s:s + 97]))
+        n, dev = sess.verdict_chunk(rec, l7, offsets, blob, gen=gen)
+        got.append(dev[:n].cpu().numpy())
+    words = {f: t.words.cpu() for f, t in sess.tables.items()
+             if t.words is not None}
+    return np.concatenate(got), words
+
+
+def test_session_delta_scans_on_card_equal_plain(cuda):
+    """The session's delta scans (KD, written in place into the device
+    word tables) and the served verdicts equal the plain path's."""
+    pi, sc = synth.realize_scenario(synth.scenario_by_name("http", 40, 600))
+    cfg = EngineConfig()
+    cfg.bank_size = 8
+    pol = CompiledPolicy.build(pi, cfg)
+    _build.reset_launches()
+    got, words = _session_run(TorchVerdictEngine(pol, cfg=cfg), sc.flows)
+    assert _build.KERNELS["KD"].launches > 0
+    want, want_words = _session_run(
+        TorchVerdictEngine(pol, device="cpu", cfg=cfg), sc.flows)
+    np.testing.assert_array_equal(got, want)
+    assert sorted(words) == sorted(want_words)
+    for f, w in words.items():
+        assert torch.equal(w, want_words[f]), f
+
+
+def test_ring_pack_on_card_equals_direct_step(cuda):
+    """One pack of interleaved streams on the card: verdicts equal the
+    direct step's, and the provenance lanes equal the plain path's."""
+    from cilium_tpu_torch.ingest import binary
+    from cilium_tpu_torch.runtime.serveloop import ServeLoop
+
+    pi, sc = synth.realize_scenario(synth.scenario_by_name("http", 40, 600))
+    cfg = EngineConfig()
+    cfg.bank_size = 8
+    pol = CompiledPolicy.build(pi, cfg)
+    lanes = []
+    for device in ("cuda", "cpu"):
+        engine = TorchVerdictEngine(pol, device=device, cfg=cfg)
+        loop = ServeLoop(_Loader(engine), capacity=8)
+        leases = [loop.connect(f"s{i}") for i in range(8)]
+        tickets = [loop.submit(leases[k % 8], *binary.capture_from_bytes(
+            binary.capture_to_bytes(sc.flows[s:s + 50])))
+            for k, s in enumerate(range(0, len(sc.flows), 50))]
+        _build.reset_launches()
+        assert loop.step() == len(sc.flows)
+        if device == "cuda":
+            assert _build.KERNELS["KD"].launches > 0
+            np.testing.assert_array_equal(
+                np.concatenate([t.verdicts for t in tickets]),
+                engine.verdict_flows(sc.flows)["verdict"])
+        lanes.append([np.concatenate([getattr(t.prov, k) for t in tickets])
+                      for k in ("verdict", "l7_match", "match_spec")])
+    for got, want in zip(*lanes):
+        np.testing.assert_array_equal(got, want)
