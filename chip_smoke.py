@@ -77,7 +77,36 @@ Phases, in order (any failure exits non-zero before the result line):
    alone; after they are read, KD is held against its plain version
    and timed at every growth shape that phase 3 lacks. A
    ``serve: {...}`` line carries the numbers;
-8. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+8. the loader plane: the http-1000 policy built by the port's
+   ``Loader`` with its defaults (gate on, content-addressed banks, two
+   compile workers, a temporary cache directory): the cold build's
+   compile and stage seconds, bank plan, path stack (7, 2048, 28) and
+   KD's launch plan for it; the fused step over the 10000 flows on the
+   loader's engine, all ten lanes equal to the plain engine of the same
+   policy, and its batch median; then a ``ServeLoop`` over the loader
+   serves the corpus (and 2000 L4-only records) while 20 committed
+   updates add and delete one path rule on the server in turn: after
+   each, zero stale verdicts against the plain engine of the committed
+   snapshot (and, after every delete and the last add, against the CPU
+   oracle on a 500-flow sample, computed in worker processes during
+   phases 2-7), 1-3 bank compiles an add and none a delete (the banks
+   are content-addressed), memo misses exactly on the rows the delta
+   names, and update-to-enforcement ms (regenerate to the first pack
+   served under it). Then a rollback (the swap point injected once: the
+   previous engine serves, the rollback is counted, the retry commits),
+   a warm restart (a same-artifact restore keeps the memo; a fresh
+   loader restores with zero bank compiles and equal lanes) and the
+   canary (a dropped-rules rollout refused with the serving triple
+   untouched, a clean one committed); every pass from the rollback on
+   is held against the plain engine of the policy it serves. The
+   counts cover the batch run and the serving passes; KD, and K1 under
+   ``nfa-bitset``, are then held against their plain versions at the
+   cold build's arrays and KD timed at its path stack, and KD held and
+   timed again at the rollback retry's arrays (its pattern adds a byte
+   class: the path stack that the rest of the phase ran, over KD's
+   shared-memory budget, so under its global variant). A
+   ``loader: {...}`` line carries the numbers;
+9. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -92,8 +121,10 @@ imports ``cilium_tpu_torch`` from the directory it lives in.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -149,6 +180,14 @@ GROWTH_MAX_STRINGS = 1 << 16
 #: cap outnumber one pack's PACK_MAX (``engine/ring.py``)
 GROWTH_REPEAT = 4
 SERVE_PLAIN_SAMPLE, SERVE_THREADS, SERVE_THREAD_S = 2048, 8, 3.0
+#: phase 8: committed updates of the churn pass (adding and deleting one
+#: path rule on the server in turn), the L4-only records served beside
+#: the corpus (rows no churn may refill), the oracle's sample of the
+#: corpus and its worker processes, and the canary's sample floor and
+#: the rules its dropped-rules snapshot keeps
+LOADER_UPDATES, BYSTANDERS = 20, 2000
+ORACLE_SAMPLE, ORACLE_WORKERS = 500, 4
+CANARY_MIN_SAMPLES, CANARY_KEEP_RULES = 32, 100
 #: capture arm → (phase-4 configuration it replays on, kernels it must
 #: launch)
 CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
@@ -684,14 +723,16 @@ def setup_config(name, per_identity, scenario, base_cfg):
             "host_cpu": [batch_to_device(h, "cpu") for h in host]}
 
 
-def drive_config(name, setup, n_flows, card):
-    """One configuration of the main path; returns its report."""
+def drive_config(name, setup, n_flows, card, label=None):
+    """One configuration of the main path; returns its report.
+    ``label`` names it in the log (default: the configuration)."""
     import numpy as np
     import torch
 
     from cilium_tpu_torch.engine import _build
 
     _, dfa_impl, path_kernels = CONFIGS[name]
+    tag = label or name
     engine, plain = setup["engine"], setup["plain"]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always", RuntimeWarning)
@@ -702,30 +743,30 @@ def drive_config(name, setup, n_flows, card):
         launches = {k: v.launches for k, v in _build.KERNELS.items()}
         variants = kd_variants()
         want = [plain.verdict_batch_arrays(b) for b in setup["host_cpu"]]
-    log(f"[{name}] impl_plan {json.dumps(engine.impl_plan, sort_keys=True)}"
+    log(f"[{tag}] impl_plan {json.dumps(engine.impl_plan, sort_keys=True)}"
         f" CILIUM_TPU_DFA_IMPL={dfa_impl} launches {launches}, KD by "
         f"variant {variants}")
     for kid in path_kernels:
         check(launches[kid] > 0,
-              f"[{name}] kernel {kid} never launched on the main path")
+              f"[{tag}] kernel {kid} never launched on the main path")
     if dfa_impl == "pallas":
         check(any("constant-time guarantee" in str(w.message)
                   for w in caught),
-              f"[{name}] the >128-state path stack must warn on fallback")
+              f"[{tag}] the >128-state path stack must warn on fallback")
     got = {k: np.concatenate([o[k].cpu().numpy() for o in outs])
            for k in outs[0]}
     check(got["verdict"].shape == (n_flows,),
-          f"[{name}] {got['verdict'].shape} verdicts for {n_flows} flows")
-    assert_lanes(f"[{name}] vs the plain-version path", got,
+          f"[{tag}] {got['verdict'].shape} verdicts for {n_flows} flows")
+    assert_lanes(f"[{tag}] vs the plain-version path", got,
                  {k: np.concatenate([o[k].numpy() for o in want])
                   for k in want[0]})
     mix = np.bincount(got["verdict"], minlength=6).tolist()
-    log(f"[{name}] all 10 lanes equal to the plain path on "
+    log(f"[{tag}] all 10 lanes equal to the plain path on "
         f"{n_flows} flows; verdict mix [code 0..5] {mix}")
     check(mix[5] > 0.2 * n_flows and mix[2] > 0.2 * n_flows,
-          f"[{name}] implausible verdict mix {mix} (identity wiring?)")
+          f"[{tag}] implausible verdict mix {mix} (identity wiring?)")
 
-    med, busy, kernels = batch_timing(engine, setup["full"], name, card)
+    med, busy, kernels = batch_timing(engine, setup["full"], tag, card)
     return {"launches": launches, "kd_variants": variants, "batch_ms": med,
             "mix": mix, "busy_share": busy, "device_kernels": kernels}
 
@@ -764,14 +805,15 @@ def field_inputs_of(engine, batch):
 
 
 def kernel_times(fields_dense, fields_nfa, capture_inputs, session_inputs,
-                 card):
+                 card, tag="", suffix=""):
     """One launch of each kernel at the shape of every field it scans
     on the main path: its device time (profiler), its wall time per
     call from Python (CUDA events, wrapper included), the plain
     version's wall time per call, and the bound. The bound's operations
     are KD's transitions over live bytes at the non-tensor peak, and
     the one-hot products of K2 (2·NB·B·L·S·(K+1)) and K1
-    (2·NB·B·(L−1)·P²) at the int8 tensor-core peak."""
+    (2·NB·B·(L−1)·P²) at the int8 tensor-core peak. ``tag`` prefixes
+    and ``suffix`` ends the labels of the field rows."""
     import torch
 
     from cilium_tpu_torch.engine import (
@@ -781,7 +823,7 @@ def kernel_times(fields_dense, fields_nfa, capture_inputs, session_inputs,
     )
 
     rows = {"KD": [], "K1": [], "K2": []}
-    dense = [(p, (p, *v)) for p, v in fields_dense.items()]
+    dense = [(f"{tag}{p}{suffix}", (p, *v)) for p, v in fields_dense.items()]
     for label, (prefix, arr, data, lens) in dense + list(
             capture_inputs.items()) + list(session_inputs.items()):
         live = lens.clamp(0, data.shape[1]).to(torch.int64)
@@ -835,7 +877,8 @@ def kernel_times(fields_dense, fields_nfa, capture_inputs, session_inputs,
         def k1():
             return nfa_cuda.nfa_finals_cuda(*n)
         fin = k1()
-        rows["K1"].append((prefix, (NB, P, n[1].shape[2]) + tuple(data.shape),
+        rows["K1"].append((f"{tag}{prefix}{suffix}",
+                           (NB, P, n[1].shape[2]) + tuple(data.shape),
                            kernel_device_ms(k1, "nfa_scan_kernel"),
                            time_launch(k1),
                            time_launch(lambda: nfa_cuda.nfa_finals_plain(*n),
@@ -1791,6 +1834,571 @@ def growth_kd(errs, rows, arrays, serve, card):
     return report
 
 
+# --------------------------------------------------------- loader plane
+class ChurnWorld:
+    """The http scenario's server and client, resolved through the
+    port's policy repository, with churn: one extra rule on the server
+    per churned path (the reference fleet's ``/churn{step}/.*`` shape).
+    ``keep`` cuts the scenario rule to its first ``keep`` http rules
+    (the canary's dropped-rules snapshot). Only the server re-resolves:
+    the client keeps its MapState object, so the loader fingerprints
+    O(Δ)."""
+
+    def __init__(self):
+        from cilium_tpu_torch.core.identity import IdentityAllocator
+        from cilium_tpu_torch.core.labels import LabelSet
+        from cilium_tpu_torch.ingest import synth
+        from cilium_tpu_torch.policy.selectorcache import SelectorCache
+
+        _, self.scenario = synth.realize_scenario(
+            synth.scenario_by_name("http", N_RULES, N_FLOWS),
+            resolve=False)
+        self.ids = self.scenario.ids
+        alloc = IdentityAllocator()
+        self.labels = {}
+        for name, lbls in self.scenario.endpoints.items():
+            self.labels[name] = LabelSet.from_dict(lbls)
+            check(alloc.allocate(self.labels[name]) == self.ids[name],
+                  "identity allocation differs from the scenario's")
+        self.cache = SelectorCache(alloc)
+        self.client = self._resolve((), None)["client"]
+
+    def _rules(self, paths, keep):
+        import dataclasses
+
+        from cilium_tpu_torch.core.flow import Protocol
+        from cilium_tpu_torch.policy import api
+
+        rules = list(self.scenario.rules)
+        if keep is not None:
+            r = rules[0]
+            ing = r.ingress[0]
+            pr = ing.to_ports[0]
+            pr = dataclasses.replace(pr, rules=dataclasses.replace(
+                pr.rules, http=pr.rules.http[:keep]))
+            rules[0] = dataclasses.replace(r, ingress=(
+                dataclasses.replace(ing, to_ports=(pr,)),))
+        sel = api.EndpointSelector.from_labels
+        return rules + [api.Rule(
+            endpoint_selector=sel(app="server"),
+            ingress=(api.IngressRule(
+                from_endpoints=(sel(app="client"),),
+                to_ports=(api.PortRule(
+                    ports=(api.PortProtocol(80, Protocol.TCP),),
+                    rules=api.L7Rules(http=(api.PortRuleHTTP(
+                        path=p, method="GET"),))),)),),
+            labels=("synth=churn",)) for p in paths]
+
+    def _resolve(self, paths, keep):
+        from cilium_tpu_torch.policy.mapstate import PolicyResolver
+        from cilium_tpu_torch.policy.repository import Repository
+
+        repo = Repository()
+        repo.add(self._rules(paths, keep), sanitize=False)
+        res = PolicyResolver(repo, self.cache)
+        return {n: res.resolve(ls) for n, ls in self.labels.items()}
+
+    def snapshot(self, paths=(), keep=None):
+        return {self.ids["server"]: self._resolve(paths, keep)["server"],
+                self.ids["client"]: self.client}
+
+    def probe(self, path):
+        """A GET of ``path``'s churned prefix, from client to server."""
+        import dataclasses
+
+        f = self.scenario.flows[0]
+        return dataclasses.replace(f, http=dataclasses.replace(
+            f.http, method="GET", path=path.replace("/.*", "/x")))
+
+    def sample(self, paths=()):
+        """The oracle sample: every 20th flow (ORACLE_SAMPLE of them),
+        and the probe of the last churned path."""
+        flows = self.scenario.flows[::N_FLOWS // ORACLE_SAMPLE]
+        return flows[:ORACLE_SAMPLE] + [self.probe(p) for p in paths[-1:]]
+
+
+def oracle_verdicts(paths, lo, hi):
+    """The CPU oracle's verdicts of the oracle sample's flows [lo, hi)
+    under the snapshot with churned ``paths``. Runs in a worker process
+    (the oracle is the correctness reference, not a fast path: at 1000
+    rules its regex matching takes seconds per hundred flows)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cilium_tpu_torch.policy.oracle import OracleVerdictEngine
+
+    w = ChurnWorld()
+    flows = w.sample(paths)[lo:hi]
+    out = OracleVerdictEngine(w.snapshot(paths)).verdict_flows(flows)
+    return [int(v) for v in out["verdict"]]
+
+
+def start_oracle(pool):
+    """Submit the oracle samples phase 8 checks against: the base
+    snapshot (what every delete commits) and the last add's, each split
+    in halves over the pool's processes."""
+    last_add = (f"/churn{LOADER_UPDATES - 2}/.*",)
+    n = ORACLE_SAMPLE
+    jobs = {}
+    for paths in ((), last_add):
+        m = n + len(paths)
+        jobs[paths] = [pool.submit(oracle_verdicts, paths, lo, hi)
+                       for lo, hi in ((0, m // 2), (m // 2, m))]
+    return jobs
+
+
+def oracle_results(jobs):
+    return {paths: sum((f.result() for f in fs), [])
+            for paths, fs in jobs.items()}
+
+
+def loader_phase(card, oracle_jobs):
+    """Phase 8: the policy built, staged, hot-swapped and rolled back
+    through the port's ``Loader`` with its defaults (gate on,
+    content-addressed banks, two compile workers) into a temporary
+    cache directory. Returns the report, the batch configuration's and
+    the serving passes' launch counts, and the engines KD is held and
+    timed at after the counts are read: the cold build's, and the
+    rollback retry's (its pattern adds a byte class, and the wider path
+    stack runs KD's global variant for the rest of the phase)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.core.flow import L7Type
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine import dfa_dense_cuda as kd
+    from cilium_tpu_torch.engine import memo as memo_mod
+    from cilium_tpu_torch.engine.verdict import (
+        TorchVerdictEngine,
+        batch_to_device,
+    )
+    from cilium_tpu_torch.runtime import faults
+    from cilium_tpu_torch.runtime.canary import (
+        CanaryController,
+        CanaryRefused,
+    )
+    from cilium_tpu_torch.runtime.loader import Loader
+    from cilium_tpu_torch.runtime.metrics import (
+        LOADER_ROLLBACKS,
+        METRICS,
+        WARM_RESTORES,
+    )
+    from cilium_tpu_torch.runtime.serveloop import ServeLoop
+
+    t_phase = time.perf_counter()
+    world = ChurnWorld()
+    flows = world.scenario.flows
+    server = world.ids["server"]
+    # the loader's engine reads its DFA arm when it is staged: the
+    # gather arm (KD), as the batch configuration ``auto``
+    os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+    out = {"card": card, "updates": LOADER_UPDATES}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_loader_")
+    loaders = []
+    try:
+        cfg = Config()
+        cfg.loader.cache_dir = tmp.name
+        check(cfg.enable_tpu_offload and cfg.loader.bank_isolation
+              and cfg.compile.workers == 2,
+              "the port's Config must default to the gate on, "
+              "content-addressed banks and two compile workers")
+
+        # -- 1. cold build
+        def span_s(name):
+            return METRICS.histo_sum("cilium_tpu_span_seconds",
+                                     {"span": name})
+
+        spans0 = {s: span_s(s) for s in ("policy_compile", "policy_stage")}
+        loader = Loader(cfg)
+        loaders.append(loader)
+        t0 = time.perf_counter()
+        engine = loader.regenerate(world.snapshot(), revision=1)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        check(isinstance(engine, TorchVerdictEngine)
+              and engine.device.type == DEVICE,
+              "Loader() must stage a TorchVerdictEngine on the card")
+        arrays = engine.policy.arrays
+        path_shape = tuple(arrays["path_trans"].shape)
+        status = loader.bank_status()
+        reg = loader.bank_registry
+        plan = kd.plan_launch(*path_shape, BATCH, 32,
+                              arrays["path_accept"].shape[2],
+                              arrays["rp_path_gaccept"].shape[2])
+        out["cold"] = {
+            "wall_s": cold_s,
+            "compile_s": span_s("policy_compile") - spans0["policy_compile"],
+            "stage_s": span_s("policy_stage") - spans0["policy_stage"],
+            "plan": status["plan"], "kernel_plan": status["kernel_plan"],
+            "bank_compiles": reg.compiles, "path_stack": list(path_shape),
+            "kd_plan": plan._asdict()}
+        log(f"[loader cold] regenerate {cold_s:.3f} s (compile "
+            f"{out['cold']['compile_s']:.3f} s, stage "
+            f"{out['cold']['stage_s']:.3f} s); bank plan {status['plan']}, "
+            f"{reg.compiles} bank groups compiled; path stack {path_shape}; "
+            f"KD plan at B={BATCH}, L=32: {plan}")
+        check(status["degraded"] is False and status["quarantined"] == 0,
+              "[loader cold] a bank quarantined")
+        check(plan.variant == "smem",
+              "[loader cold] the loader's path bank must plan KD's "
+              "shared-memory variant")
+
+        # -- 2. batch: the fused step on the loader's engine
+        plain = TorchVerdictEngine(engine.policy, device="cpu",
+                                   cfg=cfg.engine)
+        host = host_batches(engine.policy, flows, cfg.engine)
+        setup = {"engine": engine, "plain": plain, "host": host,
+                 "batches": [batch_to_device(h, DEVICE) for h in host],
+                 "host_cpu": [batch_to_device(h, "cpu") for h in host]}
+        setup["full"] = setup["batches"][0]
+        batch = drive_config("auto", setup, len(flows), card,
+                             label="loader batch")
+        out["batch"] = {k: batch[k] for k in (
+            "batch_ms", "mix", "busy_share", "device_kernels")}
+
+        # -- 4.-7. the serving passes on the real loader
+        ctrl = CanaryController(loader, sample_fraction=1.0,
+                                diff_budget=0.0,
+                                min_samples=CANARY_MIN_SAMPLES)
+        bystanders = [dataclasses.replace(f, l7=L7Type.NONE, http=None)
+                      for f in flows[:BYSTANDERS]]
+        corpus = flows + bystanders
+        corpus_secs = [chunk_sections(corpus[s:s + SERVE_CHUNK])
+                       for s in range(0, len(corpus), SERVE_CHUNK)]
+        http_rows = len({(f.http.method, f.http.path, f.http.host,
+                          f.http.headers) for f in flows})
+        sample_idx = list(range(0, N_FLOWS, N_FLOWS // ORACLE_SAMPLE))[
+            :ORACLE_SAMPLE]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        loop = ServeLoop(loader, capacity=SERVE_STREAMS, lease_ttl_s=600.0,
+                         canary=ctrl)
+        leases = [loop.connect(f"s{i}") for i in range(SERVE_STREAMS)]
+
+        def serve(secs):
+            tickets = [loop.submit(leases[k % SERVE_STREAMS], *sec)
+                       for k, sec in enumerate(secs)]
+            while not all(t.done for t in tickets):
+                loop.step()
+            check(all(t.error is None for t in tickets),
+                  "[loader] a chunk failed")
+            return np.concatenate([t.verdicts for t in tickets])
+
+        got = serve(corpus_secs)
+        memo = loop.ring.session.memo
+        check(memo.misses == loop.ring.session.n_rows == http_rows + 1,
+              f"[loader churn] cold pack: {memo.misses} misses, "
+              f"{loop.ring.session.n_rows} rows, want {http_rows} http rows "
+              f"and one L4 row")
+        check(np.array_equal(got, plain.verdict_flows(corpus)["verdict"]),
+              "[loader churn] cold pack differs from the plain engine")
+
+        # 4. churn: alternate adding and deleting one path rule
+        updates, probes = [], set()
+        oracle = None
+        for step in range(LOADER_UPDATES):
+            add = step % 2 == 0
+            path = f"/churn{step if add else step - 1}/.*"
+            paths = (path,) if add else ()
+            snap = world.snapshot(paths)
+            probe = world.probe(path)
+            probe_chunk = [probe] + corpus[:SERVE_CHUNK - 1]
+            probe_secs = chunk_sections(probe_chunk)
+            c0, m0 = reg.compiles, memo.misses
+            g0 = memo_mod.policy_generation()
+            t0 = time.perf_counter()
+            loader.regenerate(snap, revision=2 + step)
+            tk = loop.submit(leases[step % SERVE_STREAMS], *probe_secs)
+            loop.step()
+            enforce_ms = (time.perf_counter() - t0) * 1e3
+            check(tk.done and tk.error is None,
+                  f"[loader churn] update {step}: probe chunk not served")
+            probes.add(probe.http.path)
+            got = np.concatenate([tk.verdicts, serve(corpus_secs)])
+            delta = memo_mod.POLICY_GENERATION.deltas_since(g0)
+            compiles = reg.compiles - c0
+            misses = memo.misses - m0
+            want = TorchVerdictEngine(loader.engine.policy, device="cpu",
+                                      cfg=cfg.engine).verdict_flows(
+                probe_chunk + corpus)["verdict"]
+            stale = int((got != want).sum())
+            stack = tuple(loader.engine.policy.arrays["path_trans"].shape)
+            updates.append({"step": step, "op": "add" if add else "delete",
+                            "enforce_ms": enforce_ms, "compiles": compiles,
+                            "misses": misses, "stale": stale,
+                            "path_stack": stack,
+                            "kd_variant": kd.plan_launch(
+                                *stack, BATCH, 32).variant})
+            check(stale == 0, f"[loader churn] update {step}: {stale} stale "
+                              f"verdicts against the plain engine")
+            check(int(got[0]) == (5 if add else 2),
+                  f"[loader churn] update {step}: probe {path} verdict "
+                  f"{int(got[0])}")
+            check(not delta.full and delta.changed_identities ==
+                  frozenset({server}),
+                  f"[loader churn] update {step}: delta {delta} is not "
+                  f"scoped to the server identity")
+            check((1 <= compiles <= 3) if add else compiles == 0,
+                  f"[loader churn] update {step} ({'add' if add else 'delete'}"
+                  f"): {compiles} bank compiles")
+            check(misses == http_rows + len(probes),
+                  f"[loader churn] update {step}: {misses} memo misses, the "
+                  f"delta names {http_rows + len(probes)} rows")
+            if not add or step == LOADER_UPDATES - 2:
+                if oracle is None:
+                    t_w = time.perf_counter()
+                    oracle = oracle_results(oracle_jobs)
+                    out["oracle_wait_s"] = time.perf_counter() - t_w
+                served = [int(got[SERVE_CHUNK + i]) for i in sample_idx]
+                if add:
+                    served.append(int(got[0]))
+                wrong = sum(a != b for a, b in zip(served, oracle[paths]))
+                check(wrong == 0 and len(served) == len(oracle[paths]),
+                      f"[loader churn] update {step}: {wrong} of "
+                      f"{len(served)} sampled verdicts differ from the "
+                      f"oracle")
+        ms = sorted(u["enforce_ms"] for u in updates)
+        out["churn"] = {
+            "enforce_ms_p50": statistics.median(ms),
+            "enforce_ms_p99": ms[min(len(ms) - 1,
+                                     int(round(0.99 * (len(ms) - 1))))],
+            "compiles": [u["compiles"] for u in updates],
+            "misses": [u["misses"] for u in updates],
+            "stale": sum(u["stale"] for u in updates),
+            # the committed path stacks and KD's variant for each: a
+            # churned pattern can widen a bank past the shared-memory
+            # budget
+            "path_stacks": sorted({u["path_stack"] for u in updates}),
+            "kd_variants": [u["kd_variant"] for u in updates],
+            "records_per_update": len(corpus) + SERVE_CHUNK,
+            "oracle_checks": sum(1 for u in updates if u["op"] == "delete")
+            + 1}
+        log(f"[loader churn] {LOADER_UPDATES} updates (add/delete of one "
+            f"path rule on the server): update to enforcement p50 "
+            f"{out['churn']['enforce_ms_p50']:.3f} ms, p99 "
+            f"{out['churn']['enforce_ms_p99']:.3f} ms; bank compiles "
+            f"{out['churn']['compiles']}; path stacks "
+            f"{out['churn']['path_stacks']}, KD variants "
+            f"{out['churn']['kd_variants']}; memo misses "
+            f"{out['churn']['misses']} (the server's http rows and the "
+            f"probes; the {BYSTANDERS} L4 records never refill); 0 stale "
+            f"verdicts against the plain engine over "
+            f"{len(corpus) + SERVE_CHUNK} records an update, and the oracle "
+            f"sample equal at {out['churn']['oracle_checks']} updates on "
+            f"{card}")
+
+        # 5. rollback: the swap point fires once
+        rb0 = METRICS.get(LOADER_ROLLBACKS)
+        serving, rev = loader.engine, loader.revision
+        path = "/churn-rollback/.*"
+        probe_secs = chunk_sections([world.probe(path)])
+        raised = False
+        with faults.inject(faults.FaultPlan(
+                [faults.FaultRule("loader.swap", times=1)])):
+            try:
+                loader.regenerate(world.snapshot((path,)), revision=rev + 1)
+            except faults.FaultInjected:
+                raised = True
+        check(raised and loader.engine is serving and loader.revision == rev
+              and METRICS.get(LOADER_ROLLBACKS) == rb0 + 1,
+              "[loader rollback] the previous engine must keep serving "
+              "and the rollback be counted")
+        # a rollback commits a full delta: the session re-interns the
+        # corpus on these packs. Every pass from here on is held against
+        # a plain engine of the policy it serves
+        probe_all = [world.probe(path)] + corpus
+
+        def held(label, got, want):
+            stale = int((got != want).sum())
+            check(stale == 0, f"[loader {label}] {stale} stale verdicts "
+                              f"against the plain engine")
+            return stale
+
+        want_before = TorchVerdictEngine(
+            serving.policy, device="cpu", cfg=cfg.engine).verdict_flows(
+            probe_all)["verdict"]
+        got = serve([probe_secs] + corpus_secs)
+        stale = held("rollback", got, want_before)
+        before = int(got[0])
+        loader.regenerate(world.snapshot((path,)), revision=rev + 1)
+        retry = loader.engine
+        plain_retry = TorchVerdictEngine(retry.policy, device="cpu",
+                                         cfg=cfg.engine)
+        want_all = plain_retry.verdict_flows(probe_all)
+        got = serve([probe_secs] + corpus_secs)
+        stale += held("rollback retry", got, want_all["verdict"])
+        after = int(got[0])
+        check(before == 2 and after == 5 and loader.revision == rev + 1,
+              f"[loader rollback] probe {before} while rolled back, "
+              f"{after} after the retry")
+        retry_stack = tuple(retry.policy.arrays["path_trans"].shape)
+        out["rollback"] = {"rollbacks": METRICS.get(LOADER_ROLLBACKS) - rb0,
+                           "probe_before": before, "probe_after": after,
+                           "stale": stale, "path_stack": list(retry_stack),
+                           "kd_variant": kd.plan_launch(
+                               *retry_stack, BATCH, 32).variant}
+        log(f"[loader rollback] injected swap fault: rolled back (counted), "
+            f"the previous engine served (probe {before}); the retry "
+            f"committed (probe {after}), path stack {retry_stack} (KD "
+            f"{out['rollback']['kd_variant']}); both passes equal to the "
+            f"plain engine")
+
+        # 6. warm restart: a same-artifact restore on the serving
+        # loader first (it keeps the engine and the memo), then a fresh
+        # loader on the same cache (its full delta would refill the
+        # serving loop's memo: both loaders share the process's policy
+        # generation)
+        w0 = METRICS.get(WARM_RESTORES)
+        check(loader.snapshot_warm(), "[loader warm] snapshot_warm")
+        m0, serving = memo.misses, loader.engine
+        check(loader.restore_warm() and loader.engine is serving,
+              "[loader warm] a same-artifact restore must keep the engine")
+        warm_stale = held("warm", serve(corpus_secs), want_all["verdict"][1:])
+        check(memo.misses == m0, f"[loader warm] {memo.misses - m0} memo "
+                                 f"misses after a same-artifact restore")
+        fresh = Loader(cfg)
+        loaders.append(fresh)
+        t0 = time.perf_counter()
+        check(fresh.restore_warm(), "[loader warm] restore_warm missed")
+        restore_s = time.perf_counter() - t0
+        check(fresh.bank_registry.compiles == 0
+              and fresh.revision == loader.revision,
+              f"[loader warm] {fresh.bank_registry.compiles} bank compiles "
+              f"on a warm restore")
+        restored = fresh.engine.verdict_flows(probe_all)
+        assert_lanes("[loader warm] the restored engine vs the drained one",
+                     restored, loader.engine.verdict_flows(probe_all))
+        assert_lanes("[loader warm] the restored engine vs the plain one",
+                     restored, want_all)
+        fresh.close()
+        out["warm"] = {"restore_s": restore_s,
+                       "bank_compiles": fresh.bank_registry.compiles,
+                       "same_artifact_misses": memo.misses - m0,
+                       "restores": METRICS.get(WARM_RESTORES) - w0,
+                       "stale": warm_stale}
+        log(f"[loader warm] a same-artifact restore kept the engine and "
+            f"the memo (0 misses on the next pack, equal to the plain "
+            f"engine); a fresh loader on the cache restored in "
+            f"{restore_s:.3f} s with 0 bank compiles, all ten lanes equal "
+            f"to the drained engine and to the plain one")
+
+        # 7. canary: a dropped-rules snapshot is refused, a clean one
+        # commits
+        rev, per = loader.revision, loader.per_identity
+        n_chunks = -(-CANARY_MIN_SAMPLES // 8)
+        ctrl.stage(world.snapshot((path,), keep=CANARY_KEEP_RULES),
+                   revision=rev + 1)
+        n_canary = min(n_chunks * SERVE_CHUNK, len(corpus))
+        held("canary", serve(corpus_secs[:n_chunks]),
+             want_all["verdict"][1:1 + n_canary])
+        refused = False
+        try:
+            ctrl.try_commit()
+        except CanaryRefused:
+            refused = True
+        bad = ctrl.report()
+        check(refused and bad["diffs"] > 0 and loader.revision == rev
+              and loader.engine is serving and loader.per_identity is per,
+              f"[loader canary] the dropped-rules rollout must be refused "
+              f"with the serving triple untouched: {bad}")
+        ctrl.stage(world.snapshot((path,)), revision=rev + 1)
+        held("canary", serve(corpus_secs[:n_chunks]),
+             want_all["verdict"][1:1 + n_canary])
+        committed = ctrl.try_commit()
+        good = ctrl.report()
+        check(good["diffs"] == 0 and loader.revision == rev + 1
+              and committed is loader.engine,
+              f"[loader canary] the clean rollout must commit: {good}")
+        out["canary"] = {"refused": bad, "committed": good}
+        log(f"[loader canary] dropped-rules rollout refused ({bad['diffs']} "
+            f"of {bad['samples']} sampled verdicts differ), serving triple "
+            f"untouched; clean rollout committed ({good['samples']} samples, "
+            f"0 diffs)")
+        torch.cuda.synchronize()
+        serving_launches = {k: v.launches for k, v in _build.KERNELS.items()}
+        serving_variants = kd_variants()
+        launches = {k: batch["launches"][k] + serving_launches[k]
+                    for k in serving_launches}
+        variants = dict(batch["kd_variants"])
+        for v, n in serving_variants.items():
+            variants[v] = variants.get(v, 0) + n
+        check(serving_launches["KD"] > 0,
+              "[loader] KD never launched on the serving passes")
+        out["launches"] = launches
+        out["wall_s"] = time.perf_counter() - t_phase
+        # KD is held and timed at the cold build's arrays (the path
+        # stack the reference's headline bench builds) and at the
+        # retry's, which the rest of the phase ran
+        return out, launches, variants, {"loader-path": engine,
+                                         "loader-path-retry": retry}
+    finally:
+        for ld in loaders:
+            ld.close()
+        tmp.cleanup()
+
+
+def loader_kernels(errs, rows, engine, flows, card, suffix="",
+                   nfa_arm=True):
+    """KD (and K1 under ``nfa-bitset``, with ``nfa_arm``) at one of the
+    loader's staged engines' arrays, against the plain versions and
+    timed through phase 4's code, after phase 8's counts were read.
+    Returns the KD row of the path field (``loader-path`` + ``suffix``)
+    and the variants KD ran for the path field."""
+    from cilium_tpu_torch.engine import dfa_dense_cuda
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+
+    host = host_batches(engine.policy, flows, engine.cfg)
+    full = batch_to_device(host[0], DEVICE)
+    fields = field_inputs_of(engine, full)
+    path_variants = {}
+    for prefix, (arr, data, lens) in fields.items():
+        a = (arr[f"{prefix}_trans"], arr[f"{prefix}_byteclass"],
+             arr[f"{prefix}_start"], data, lens)
+        acc = arr[f"{prefix}_accept"]
+        extra = arr.get("rp_path_gaccept") if prefix == "path" else None
+        v0 = kd_variants()
+        hold(errs, "KD", f"loader{suffix} {prefix} {tuple(a[0].shape)} "
+                         f"B={data.shape[0]} L={data.shape[1]}",
+             dfa_dense_cuda.dense_scan_cuda(*a, accept=acc, extra=extra),
+             dfa_dense_cuda.dense_scan_plain(*a, accept=acc, extra=extra))
+        if prefix == "path":
+            path_variants = {v: n - v0.get(v, 0)
+                             for v, n in kd_variants().items()
+                             if n - v0.get(v, 0)}
+    nfa_fields = nfa_fields_of(errs, engine, full) if nfa_arm else {}
+    got = kernel_times({"path": fields["path"]}, nfa_fields, {}, {}, card,
+                       tag="loader-", suffix=suffix)
+    for kid, rs in got.items():
+        rows[kid].extend(rs)
+    return (next(r for r in got["KD"] if r[0] == f"loader-path{suffix}"),
+            path_variants)
+
+
+def nfa_fields_of(errs, engine, full):
+    """K1 held at ``engine``'s policy staged under ``nfa-bitset``, for
+    each field whose banks fit it; returns those fields' inputs."""
+    import dataclasses
+
+    from cilium_tpu_torch.engine import nfa_cuda
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+
+    nfa = TorchVerdictEngine(engine.policy, device=DEVICE,
+                             cfg=dataclasses.replace(
+                                 engine.cfg, kernel_impl="nfa-bitset"))
+    nfa_fields = {p: v for p, v in field_inputs_of(nfa, full).items()
+                  if f"{p}_nfa_follow" in v[0]}
+    log(f"[loader nfa-bitset] impl_plan {json.dumps(nfa.impl_plan, sort_keys=True)}")
+    for prefix, (arr, data, lens) in nfa_fields.items():
+        n = [arr[f"{prefix}_nfa_{k}"] for k in
+             ("follow", "acc_cls", "byteclass", "start")] + [data, lens]
+        hold(errs, "K1", f"loader {prefix} {tuple(n[1].shape)} "
+                         f"B={data.shape[0]} L={data.shape[1]}",
+             nfa_cuda.nfa_finals_cuda(*n), nfa_cuda.nfa_finals_plain(*n))
+    return nfa_fields
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -1816,6 +2424,19 @@ def main() -> int:
     check(bool(smi), "nvidia-smi printed nothing")
     card = smi.splitlines()[0]
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    # phase 8's oracle samples, computed on the host's other cores while
+    # phases 2-7 run (spawned processes: none of them touches the card)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run_phases(torch, smi, card, start_oracle(pool))
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(torch, smi, card, oracle_jobs) -> int:
+    """Phases 2-9 (see the module docstring)."""
+    from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
     secs = _build.build()
@@ -1876,16 +2497,43 @@ def main() -> int:
     report = growth_kd(errs, rows, auto_engine._arrays, serve, card)
     report["wall_s"] = time.perf_counter() - t7
     log(f"phase 7 wall {report['wall_s']:.1f} s")
+    log("phase 8: the loader plane")
+    loader_report, loader_launches, loader_variants, loader_engines = \
+        loader_phase(card, oracle_jobs)
+    log(f"phase 8: KD and K1 at the loader's arrays, against their plain "
+        f"versions")
+    row_keys = ("label", "shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                "bound_by")
+    row, ran = loader_kernels(errs, rows, loader_engines["loader-path"],
+                              scenario.flows, card)
+    loader_report["kd_path"] = {**dict(zip(row_keys, row)), "variants": ran}
+    # the rollback retry's wider path stack, which ran the rest of the
+    # phase: held and timed under the variant its plan picks
+    retry = loader_report["rollback"]
+    row, ran = loader_kernels(errs, rows, loader_engines["loader-path-retry"],
+                              scenario.flows, card,
+                              suffix=f"-{retry['kd_variant']}",
+                              nfa_arm=False)
+    check(set(ran) == {retry["kd_variant"]}
+          and loader_variants.get(retry["kd_variant"], 0) > 0,
+          f"[loader] KD at the retry's path stack {retry['path_stack']} ran "
+          f"{ran} when held; phase 8 ran {loader_variants}")
+    loader_report["kd_path_retry"] = {**dict(zip(row_keys, row)),
+                                      "variants": ran}
+    log(f"phase 8 wall {loader_report['wall_s']:.1f} s (serving passes), "
+        f"oracle wait {loader_report.get('oracle_wait_s', 0.0):.1f} s")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
     phase_launches.update(legacy["launches"])
     phase_launches["serve"] = serve["launches"]
+    phase_launches["loader"] = loader_launches
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
     phase_variants.update(legacy["kd_variants"])
     phase_variants["serve"] = serve["kd_variants"]
+    phase_variants["loader"] = loader_variants
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -1909,7 +2557,9 @@ def main() -> int:
             # KD: launches by variant in each phase, in phase 3's edge
             # cases, and the bulk copies and shared loads in its SASS
             **({"variants": {n: v for n, v in phase_variants.items() if v},
-                "edge_variants": edge_variants, "sass": kd_sass}
+                "edge_variants": edge_variants, "sass": kd_sass,
+                "loader_path": loader_report["kd_path"],
+                "loader_path_retry": loader_report["kd_path_retry"]}
                if kid == "KD" else {}),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
@@ -1929,6 +2579,7 @@ def main() -> int:
                                  for n, r in reports.items()},
         "card": card}))
     log("serve: " + json.dumps(report))
+    log("loader: " + json.dumps(loader_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@ and featurize flows → numpy batches.
 
 A copy of the numpy half of the reference's ``engine/verdict.py``
 (``encode_strings`` … ``CompiledPolicy.build`` … ``encode_flows``,
-``pack_batch``, ``flowbatch_to_host_dict``) on the positional
-``compile_patterns`` path, plus the capture featurizers
+``pack_batch``, ``flowbatch_to_host_dict``), on the positional
+``compile_patterns`` path or, with a ``bank_registry``, on the
+content-addressed partition of ``policy/compiler/bankplan.py`` (the
+loader's default), plus the capture featurizers
 (``encode_records``, ``encode_l7_records``, ``CaptureFeaturizer``)
 and the single-blob transport's host half (``pack_blob_host``). Its
 arrays are byte-equal to the reference's for the same resolved policy
@@ -41,6 +43,7 @@ from cilium_tpu_torch.policy.compiler.dfa import (
     compile_patterns,
 )
 from cilium_tpu_torch.policy.mapstate import MapState
+from cilium_tpu_torch.secrets import resolve_header_value
 from cilium_tpu_torch.engine.mapstate_kernel import (
     PackedMapState,
     pack_mapstate,
@@ -97,18 +100,6 @@ def header_requirement_regex(name: str, value: str) -> str:
     return f"(?:[^\\n]*\\n)*{line}\\n(?:[^\\n]*\\n)*"
 
 
-def resolve_header_value(hm, secret_lookup) -> Optional[str]:
-    """Effective expected value of a HeaderMatch: the secret's value
-    when a secret ref is set (None if unresolvable — FAIL matches must
-    then fail closed), else the inline value. (Copy of the reference's
-    ``secrets.resolve_header_value``.)"""
-    if hm.secret is not None:
-        if secret_lookup is None:
-            return None
-        return secret_lookup(*hm.secret)
-    return hm.value
-
-
 def _empty_banked() -> BankedDFA:
     """A 1-bank, 0-pattern automaton (matches nothing) so tensor shapes
     stay non-degenerate when a protocol has no rules."""
@@ -135,18 +126,32 @@ class _FieldMatcher:
     banked: BankedDFA
     arrays: Dict[str, np.ndarray]
     pattern_index: Dict[str, int]
+    #: bankplan.FieldBankStats when built through a BankRegistry (the
+    #: content-addressed path); None on the positional path
+    bank_stats: object = None
 
     @classmethod
     def build(cls, patterns: List[str], cfg: EngineConfig,
-              case_insensitive: bool = False) -> "_FieldMatcher":
+              case_insensitive: bool = False,
+              bank_cache=None, bank_registry=None,
+              field: str = "") -> "_FieldMatcher":
         uniq: List[str] = []
         index: Dict[str, int] = {}
         for p in patterns:
             if p not in index:
                 index[p] = len(uniq)
                 uniq.append(p)
+        stats = None
         if not uniq:
             banked = _empty_banked()
+        elif bank_registry is not None:
+            # content-addressed banks: membership is a pure function of
+            # the pattern set, so a rule add/delete recompiles only its
+            # bank(s), and a failed bank quarantines instead of
+            # aborting the build
+            banked, stats = bank_registry.compile_field(
+                field or "field", uniq, cfg,
+                case_insensitive=case_insensitive)
         else:
             banked = compile_patterns(
                 uniq,
@@ -154,9 +159,10 @@ class _FieldMatcher:
                 max_states=cfg.max_dfa_states,
                 max_quantifier=cfg.max_quantifier,
                 case_insensitive=case_insensitive,
+                bank_cache=bank_cache,
             )
         return cls(banked=banked, arrays=banked.stacked(),
-                   pattern_index=index)
+                   pattern_index=index, bank_stats=stats)
 
     def lane(self, pattern: str) -> int:
         """Global lane of ``pattern``; -1 for the empty pattern (=no
@@ -202,14 +208,20 @@ class CompiledPolicy:
     #: mismatch actions: [(action, header-name, value), ...]
     header_rewrites: List[List[Tuple[str, str, str]]] = \
         dataclasses.field(default_factory=list)
+    #: content-addressed bank plan (field → serving bank-key tuple)
+    #: when built through a BankRegistry — the loader diffs plans
+    #: across commits to derive the bank-scoped invalidation delta
+    bank_plan: Dict[str, Tuple[str, ...]] = \
+        dataclasses.field(default_factory=dict)
+    #: bank keys quarantined during this build (stale covers serving);
+    #: non-empty marks the policy DEGRADED: never cached, never warm-
+    #: snapshotted, commits a full invalidation delta
+    bank_quarantined: Tuple[str, ...] = ()
     #: host-side metadata of the factored resolve plan
     #: (engine/megakernel.py); None when the grouping degenerated
     resolve_meta: Optional[Dict] = None
     #: field → scan-impl pick, written at engine staging
     kernel_plan: Dict[str, str] = dataclasses.field(default_factory=dict)
-    #: the positional compile path never quarantines a bank; kept so
-    #: ``plan_for_engine`` reads the same attribute as the reference's
-    bank_quarantined: Tuple[str, ...] = ()
     #: the frontend (l7g) automaton: never built in this slice, kept so
     #: ``plan_for_engine`` reads the same attribute as the reference's
     l7g_matcher: Optional[_FieldMatcher] = None
@@ -221,10 +233,16 @@ class CompiledPolicy:
         cfg: Optional[EngineConfig] = None,
         revision: int = 0,
         secret_lookup=None,
+        bank_cache=None,
+        bank_registry=None,
         audit: bool = False,
     ) -> "CompiledPolicy":
-        """``audit`` = policy_audit_mode: would-be denials verdict
-        AUDIT, not DROPPED (staged as a device scalar)."""
+        """``bank_cache`` (compiler.dfa.BankCache): reuse compiled DFA
+        banks across builds. ``bank_registry``
+        (compiler.bankplan.BankRegistry) supersedes it with the
+        content-addressed partition + per-bank quarantine. ``audit`` =
+        policy_audit_mode: would-be denials verdict AUDIT, not DROPPED
+        (staged as a device scalar)."""
         cfg = cfg or EngineConfig()
 
         # -- collect the L7 rule universe (deduped) and rulesets --------
@@ -291,13 +309,16 @@ class CompiledPolicy:
         )
 
         # -- compile field matchers -------------------------------------
+        banks = {"bank_cache": bank_cache, "bank_registry": bank_registry}
         path_matcher = _FieldMatcher.build(
-            [h.path for h in http_rules if h.path], cfg)
+            [h.path for h in http_rules if h.path], cfg,
+            field="path", **banks)
         method_matcher = _FieldMatcher.build(
-            [h.method for h in http_rules if h.method], cfg)
+            [h.method for h in http_rules if h.method], cfg,
+            field="method", **banks)
         host_matcher = _FieldMatcher.build(
             [h.host for h in http_rules if h.host], cfg,
-            case_insensitive=True)
+            case_insensitive=True, field="host", **banks)
 
         header_pats: List[str] = []
         rule_header_lanes: List[List[str]] = []   # FAIL: gate the rule
@@ -340,7 +361,8 @@ class CompiledPolicy:
             rule_log_lanes.append(log_pats)
             rule_dead.append(dead)
             header_rewrites.append(rewrites)
-        header_matcher = _FieldMatcher.build(header_pats, cfg)
+        header_matcher = _FieldMatcher.build(header_pats, cfg,
+                                             field="hdr", **banks)
 
         dns_pats = []
         for d in dns_rules:
@@ -348,7 +370,8 @@ class CompiledPolicy:
                 dns_pats.append(matchpattern.name_to_regex(d.match_name))
             else:
                 dns_pats.append(matchpattern.to_regex(d.match_pattern))
-        dns_matcher = _FieldMatcher.build(dns_pats, cfg)
+        dns_matcher = _FieldMatcher.build(dns_pats, cfg, field="dns",
+                                          **banks)
 
         # -- per-rule lane arrays (row counts bucketed past 64) ---------
         Rh = _rbucket(len(http_rules))
@@ -435,14 +458,23 @@ class CompiledPolicy:
             "kafka_topic": kafka_topic,
             "dns_lane": dns_lane,
         }
-        for prefix, m in (("path", path_matcher),
+        matcher_stacks = (("path", path_matcher),
                           ("method", method_matcher),
                           ("host", host_matcher),
                           ("hdr", header_matcher),
-                          ("dns", dns_matcher)):
+                          ("dns", dns_matcher))
+        for prefix, m in matcher_stacks:
             for k, v in m.arrays.items():
                 if k != "lane_of":
                     arrays[f"{prefix}_{k}"] = v
+
+        bank_plan: Dict[str, Tuple[str, ...]] = {}
+        bank_quarantined: List[str] = []
+        for _prefix, m in matcher_stacks:
+            st = m.bank_stats
+            if st is not None:
+                bank_plan[st.field] = st.bank_keys
+                bank_quarantined.extend(st.quarantined)
 
         # factored resolve plan (engine/megakernel.py): rule-signature
         # groups + group-accept planes over the path automaton
@@ -474,6 +506,8 @@ class CompiledPolicy:
             dns_matcher=dns_matcher,
             revision=revision,
             header_rewrites=header_rewrites,
+            bank_plan=bank_plan,
+            bank_quarantined=tuple(bank_quarantined),
             resolve_meta=resolve_meta,
         )
 

@@ -597,6 +597,33 @@ def fused_verdict_step(arrays, batch, *, impl_plan=(),
                               gen_cols=gen_cols)
 
 
+# ------------------------------------------------------------- autotune --
+#: (shape key) → {"impl", "dense_ms", "nfa_ms"} — process-wide, and
+#: carried through the loader's warm-restart snapshot. It stays empty
+#: until the autotune slice (queue 1, Q6) records picks; the container
+#: and its snapshot/adopt pair are here so a warm snapshot has the
+#: reference's layout
+_AUTOTUNE_CACHE: Dict[tuple, Dict] = {}
+
+
+def autotune_cache_snapshot() -> Dict:
+    return {repr(k): dict(v) for k, v in _AUTOTUNE_CACHE.items()}
+
+
+def autotune_cache_adopt(snap: Optional[Dict]) -> None:
+    import ast
+
+    if not snap:
+        return
+    for k, v in snap.items():
+        try:
+            key = ast.literal_eval(k)
+        except (ValueError, SyntaxError):
+            continue  # foreign snapshot entry: skip, never crash
+        if isinstance(key, tuple):
+            _AUTOTUNE_CACHE.setdefault(key, dict(v))
+
+
 # ------------------------------------------------------------- arm plan --
 def plan_for_engine(policy, cfg, device) -> Tuple[
         Dict[str, str], Dict[str, np.ndarray], Dict[str, Dict]]:

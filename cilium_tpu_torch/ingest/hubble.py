@@ -1,7 +1,8 @@
 """Hubble flow serde (the part of the reference's ``ingest/hubble.py``
 the explain plane needs): ``flow_to_dict`` writes the ``flowpb.Flow``
 JSON shape (``api/v1/flow/flow.proto``) for the fields the engine
-consumes, and ``_to_time`` reads its time stamps.
+consumes, ``flow_from_dict`` reads it back (the explain query's
+re-resolve), and ``_to_time`` reads its time stamps.
 """
 
 from __future__ import annotations
@@ -9,13 +10,21 @@ from __future__ import annotations
 from typing import Dict
 
 from cilium_tpu_torch.core.flow import (
+    DNSInfo,
     Flow,
+    GenericL7Info,
+    HTTPInfo,
+    KafkaInfo,
     L7Type,
     PolicyMatchType,
     Protocol,
     TrafficDirection,
     Verdict,
 )
+
+_VERDICT_NAMES = {v.name: v for v in Verdict}
+_DIR_NAMES = {"INGRESS": TrafficDirection.INGRESS,
+              "EGRESS": TrafficDirection.EGRESS}
 
 
 def _to_time(v) -> float:
@@ -120,3 +129,118 @@ def flow_to_dict(f: Flow) -> Dict:
             "fields": dict(f.generic.fields),
         }}
     return d
+
+
+def split_http_url(url: str) -> tuple:
+    """flowpb's ``http.url`` is ABSOLUTE (pkg/hubble/parser/seven
+    builds scheme://host/path); policy regexes match the PATH. Returns
+    ``(path_with_query, host)`` — host empty for bare paths. Shared by
+    the JSONL and protobuf ingest paths so they can never disagree on
+    what a policy regex sees."""
+    if "://" not in url:
+        return url, ""
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(url)
+    path = parts.path or "/"
+    if parts.query:
+        path = f"{path}?{parts.query}"
+    return path, parts.hostname or ""
+
+
+def flow_from_dict(d: Dict) -> Flow:
+    if isinstance(d.get("flow"), dict):
+        # the reference hubble exporter / `hubble observe -o jsonl`
+        # envelope: {"flow": {...}, "node_name": ..., "time": ...}
+        inner = dict(d["flow"])
+        for k in ("node_name", "time"):
+            inner.setdefault(k, d.get(k))
+        d = inner
+    f = Flow()
+    f.time = _to_time(d.get("time"))
+    f.verdict = _VERDICT_NAMES.get(d.get("verdict", ""),
+                                   Verdict.VERDICT_UNKNOWN)
+    f.direction = _DIR_NAMES.get(d.get("traffic_direction", ""),
+                                 TrafficDirection.INGRESS)
+    src = d.get("source") or {}
+    dst = d.get("destination") or {}
+    f.src_identity = int(src.get("identity", 0) or 0)
+    f.dst_identity = int(dst.get("identity", 0) or 0)
+    f.src_labels = tuple(src.get("labels") or ())
+    f.dst_labels = tuple(dst.get("labels") or ())
+    f.node_name = d.get("node_name", "") or ""
+    f.trace_id = d.get("trace_id", "") or ""
+    try:
+        # absent (old writers) decodes to NONE — the compat contract
+        f.policy_match_type = PolicyMatchType(
+            int(d.get("policy_match_type", 0) or 0))
+    except ValueError:
+        f.policy_match_type = PolicyMatchType.NONE
+    prov = d.get("provenance") or {}
+    if isinstance(prov, dict) and prov:
+        f.prov_word = int(prov.get("word", 0) or 0)
+        f.prov_rule = str(prov.get("rule", "") or "")
+        f.prov_bank = str(prov.get("bank", "") or "")
+        f.prov_generation = int(prov.get("generation", -1)
+                                if prov.get("generation") is not None
+                                else -1)
+        f.prov_memo = bool(prov.get("memo", False))
+    ip = d.get("IP") or {}
+    f.src_ip = ip.get("source", "")
+    f.dst_ip = ip.get("destination", "")
+    l4 = d.get("l4") or {}
+    for proto_name, proto in (("TCP", Protocol.TCP), ("UDP", Protocol.UDP),
+                              ("SCTP", Protocol.SCTP)):
+        if proto_name in l4:
+            f.protocol = proto
+            f.dport = int(l4[proto_name].get("destination_port", 0))
+            f.sport = int(l4[proto_name].get("source_port", 0))
+    for proto_name, proto in (("ICMPv4", Protocol.ICMP),
+                              ("ICMPv6", Protocol.ICMPV6)):
+        if proto_name in l4:
+            # flowpb carries {type, code}; the engine keys ICMP rules
+            # by type in the port slot (bpf encodes it the same way)
+            f.protocol = proto
+            f.dport = int(l4[proto_name].get("type", 0))
+    l7 = d.get("l7") or {}
+    if "http" in l7:
+        h = l7["http"]
+        f.l7 = L7Type.HTTP
+        url, url_host = split_http_url(h.get("url", ""))
+        f.http = HTTPInfo(
+            method=h.get("method", ""),
+            path=url,
+            host=h.get("host", "") or url_host,
+            headers=tuple((x.get("key", ""), x.get("value", ""))
+                          for x in (h.get("headers") or ())),
+            protocol=h.get("protocol", "HTTP/1.1"),
+            code=int(h.get("code", 0)),
+        )
+    elif "kafka" in l7:
+        k = l7["kafka"]
+        f.l7 = L7Type.KAFKA
+        f.kafka = KafkaInfo(
+            api_key=int(k.get("api_key", 0)),
+            api_version=int(k.get("api_version", 0)),
+            client_id=k.get("client_id", ""),
+            topic=k.get("topic", ""),
+            correlation_id=int(k.get("correlation_id", 0)),
+        )
+    elif "dns" in l7:
+        dd = l7["dns"]
+        f.l7 = L7Type.DNS
+        f.dns = DNSInfo(
+            query=dd.get("query", ""),
+            qtypes=tuple(dd.get("qtypes") or ("A",)),
+            ips=tuple(dd.get("ips") or ()),
+            ttl=int(dd.get("ttl", 0)),
+        )
+    elif "generic" in l7:
+        g = l7["generic"]
+        f.l7 = L7Type.GENERIC
+        f.generic = GenericL7Info(
+            proto=g.get("proto", ""),
+            fields={str(k): str(v)
+                    for k, v in (g.get("fields") or {}).items()},
+        )
+    return f

@@ -1,5 +1,5 @@
 """The explain plane: verdict → (rule id, bank, generation), recorded
-(the record side of the reference's ``runtime/explain.py``).
+(a copy of the reference's ``runtime/explain.py``).
 
 Every sampled verdict of a traced chunk records a bounded explain entry
 keyed by its trace id: the decoded attribution (rule ids and content
@@ -7,8 +7,9 @@ via ``engine/attribution.AttributionMap``, the bank the match was read
 from, the policy generation the verdict was computed under, memo-hit vs
 computed, pack cycle, kernel impl) plus the flow itself. Entries live
 in one process-global bounded store (:data:`EXPLAIN`): constant memory,
-evictions counted. The query side, which re-verdicts each entry through
-the loader's oracle, comes with the port's loader.
+evictions counted. The query side, :func:`resolve_explain`, re-verdicts
+each entry through the loader's ``fallback_engine`` (the CPU oracle) at
+the current committed revision.
 """
 
 from __future__ import annotations
@@ -20,7 +21,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from cilium_tpu_torch.runtime import simclock
-from cilium_tpu_torch.runtime.metrics import METRICS, PROVENANCE_RECORDS
+from cilium_tpu_torch.runtime.metrics import (
+    EXPLAIN_QUERIES,
+    METRICS,
+    PROVENANCE_RECORDS,
+)
 
 #: default bounded capacity (trace ids retained) and per-chunk record
 #: sample
@@ -152,4 +157,63 @@ def build_entries(trace_id: str, surface: str, flows: Sequence,
         if tenant:
             entry["tenant"] = tenant
         out.append(entry)
+    return out
+
+
+def resolve_explain(loader, trace_id: str,
+                    store: Optional[ExplainStore] = None) -> Dict:
+    """The query side: recorded entries for ``trace_id``, each
+    re-resolved through the CPU oracle at the CURRENT committed
+    revision → served-vs-fresh agreement. A disagreement on a
+    non-degraded plane is a stale verdict, surfaced to the operator."""
+    from cilium_tpu_torch.core.flow import Verdict
+    from cilium_tpu_torch.ingest.hubble import flow_from_dict
+
+    store = store if store is not None else EXPLAIN
+    entries = store.get(trace_id)
+    METRICS.inc(EXPLAIN_QUERIES,
+                labels={"result": "hit" if entries else "miss"})
+    if not entries:
+        return {"trace_id": trace_id, "found": False, "records": []}
+    oracle = loader.fallback_engine if loader is not None else None
+    records: List[Dict] = []
+    flows = [flow_from_dict(e["flow"]) for e in entries]
+    fresh: Optional[List[int]] = None
+    if oracle is not None:
+        try:
+            fresh = [int(v) for v in
+                     oracle.verdict_flows(flows)["verdict"]]
+        except Exception:  # noqa: BLE001 — a sick oracle degrades the
+            fresh = None   # comparison, never the query
+    degraded = bool(loader.bank_status().get("degraded")) \
+        if loader is not None else False
+    agree_all = True
+    for k, e in enumerate(entries):
+        rec = dict(e)
+        if fresh is not None:
+            rec["fresh_verdict"] = fresh[k]
+            rec["fresh_verdict_name"] = Verdict(fresh[k]).name
+            rec["agreement"] = fresh[k] == e["verdict"]
+            agree_all &= rec["agreement"]
+        records.append(rec)
+    out = {"trace_id": trace_id, "found": True,
+           "records": records, "degraded": degraded}
+    if fresh is not None:
+        out["served_equals_fresh"] = agree_all
+    if loader is not None:
+        out["revision"] = loader.revision
+        from cilium_tpu_torch.engine.memo import policy_generation
+
+        out["generation_now"] = policy_generation()
+    # link to the stitched cross-host timeline: a verdict served after
+    # a handoff explains on host B while its trace spans hosts A and B
+    # — the summary joins the two planes on the id
+    from cilium_tpu_torch.runtime.tracing import TRACER
+
+    stitched = TRACER.stitch(trace_id)
+    if stitched["records"]:
+        out["trace"] = {"hosts": stitched["hosts"],
+                        "epochs": stitched["epochs"],
+                        "spans": len(stitched["records"]),
+                        "stitched": stitched["stitched"]}
     return out

@@ -14,7 +14,12 @@ point raise what:
 Points the port registers: ``engine.dispatch`` (device dispatch,
 ``engine/verdict.py``; the session's ``serve_ids`` fires it),
 ``service.admit`` (``runtime/admission.py``), ``serve.lease`` and
-``serve.ring_slot`` (``runtime/serveloop.py``).
+``serve.ring_slot`` (``runtime/serveloop.py``), ``loader.swap``
+(``runtime/loader.py``), ``loader.bank_compile``
+(``policy/compiler/bankplan.py``), ``compile.worker``
+(``policy/compiler/compilequeue.py``), ``artifact.fetch``
+(``runtime/checkpoint.py``) and ``canary.dispatch``
+(``runtime/canary.py``).
 
 Usage::
 
@@ -25,6 +30,7 @@ Usage::
 from __future__ import annotations
 
 import contextlib
+import os
 import random
 import threading
 import zlib
@@ -193,3 +199,17 @@ def maybe_fail(point: str) -> None:
         TRACER.event("fault.injected", point=point,
                      exc=type(exc).__name__)
         raise exc
+
+
+#: names a known FIXED bug to re-introduce, so a schedule search can
+#: prove it would have caught it: "rollback-artifact-key" (the loader's
+#: rollback keeps the aborted revision's artifact key) or
+#: "positional-banks" (bankplan groups positionally). Off (empty) in
+#: production; read per call so tests toggle it with monkeypatch
+MUTATION_ENV = "CILIUM_TPU_DST_MUTATION"
+
+def mutation_active(name: str) -> bool:
+    """True when the named planted bug is armed. The seams guard their
+    buggy variant with this, so shipped behavior is untouched unless a
+    validation lane arms the mutation explicitly."""
+    return os.environ.get(MUTATION_ENV, "") == name

@@ -1,5 +1,6 @@
 """Structured logging: JSONL records with a subsystem field (the part
-of the reference's ``runtime/logging.py`` the serving path uses).
+of the reference's ``runtime/logging.py`` the serving path and the
+loader use).
 
 ``get_logger("serveloop")`` returns a logger whose records carry
 ``subsys``; :func:`setup` installs the JSONL handler (one JSON object
@@ -14,6 +15,8 @@ import json
 import logging
 import sys
 from typing import Optional
+
+from cilium_tpu_torch.runtime import simclock
 
 ROOT = "cilium_tpu_torch"
 
@@ -85,3 +88,25 @@ def setup(level: str = "info", stream=None,
         root.warning("unknown log level %r, using info", level,
                      extra={"subsys": "logging"})
     return root
+
+
+def span(log: logging.LoggerAdapter, msg: str, **fields):
+    """Context manager logging ``msg`` with a ``duration_s`` field on
+    exit (``failed`` and level error when the body raised)."""
+
+    class _Span:
+        def __enter__(self):
+            self.t0 = simclock.now()
+            return self
+
+        def __exit__(self, exc_type, exc, tb):
+            dur = round(simclock.now() - self.t0, 6)
+            all_fields = dict(fields, duration_s=dur)
+            if exc is not None:
+                all_fields["failed"] = f"{type(exc).__name__}: {exc}"
+                log.error(msg, extra={"fields": all_fields})
+            else:
+                log.info(msg, extra={"fields": all_fields})
+            return False
+
+    return _Span()

@@ -1,14 +1,15 @@
-"""The metric families the port's capture replay, verdict memo and
-online serving path report, under the reference's names
-(``runtime/metrics.py``), and the part of its registry they use:
-counters (``inc``/``get``), gauges (``set_gauge``) and histograms
-(``observe``/``histo_sum``). No exporter.
+"""The metric families the port's capture replay, verdict memo,
+online serving path and loader plane report, under the reference's
+names (``runtime/metrics.py``), and the part of its registry they use:
+counters (``inc``/``get``), gauges (``set_gauge``), histograms
+(``observe``/``histo_sum``) and :class:`SpanStat`. No exporter.
 """
 
 from __future__ import annotations
 
 import bisect
 import threading
+import time
 from typing import Dict, Optional, Tuple
 
 #: capture-replay session staging seconds, by phase (tables /
@@ -68,6 +69,61 @@ PROVENANCE_RECORDS = "cilium_tpu_provenance_records_total"
 HUBBLE_FLOW_RECORDS = "cilium_tpu_hubble_flow_records_total"
 #: aggregation keys dropped at the aggregator's bound
 HUBBLE_FLOW_OVERFLOW = "cilium_tpu_hubble_flow_overflow_total"
+
+# -- the loader plane (runtime/loader.py, runtime/checkpoint.py)
+#: regenerations rolled back mid-swap (previous table kept serving)
+LOADER_ROLLBACKS = "cilium_tpu_loader_swap_rollbacks_total"
+#: loader restorations from a warm-restart snapshot (no recompile)
+WARM_RESTORES = "cilium_tpu_warm_restores_total"
+#: corrupt artifact-cache entries deleted on read (recompile follows)
+ARTIFACT_CACHE_CORRUPT = "cilium_tpu_artifact_cache_corrupt_total"
+#: on-disk artifact-cache entries evicted by the byte-bound LRU
+ARTIFACT_CACHE_EVICTIONS = "cilium_tpu_artifact_cache_evictions_total"
+
+# -- content-addressed banks (policy/compiler/bankplan.py)
+#: bank groups compiled (a registry miss), by field
+BANK_REBUILDS = "cilium_tpu_bank_rebuilds_total"
+#: bank groups quarantined after a compile failure, by field
+BANK_QUARANTINED = "cilium_tpu_bank_quarantined_total"
+#: bank groups hot-swapped into the serving plan by a commit, by field
+BANK_HOTSWAPS = "cilium_tpu_bank_hotswaps_total"
+#: banks served from their cover while their compile was still pending
+BANK_PENDING_SERVES = "cilium_tpu_bank_pending_serves_total"
+#: compiled-bank artifact fetches, by result (hit / miss / corrupt)
+BANK_ARTIFACT_FETCHES = "cilium_tpu_bank_artifact_fetches_total"
+#: bank groups evicted from the byte-bounded registry shards
+REGISTRY_SHARD_EVICTIONS = "cilium_tpu_registry_shard_evictions_total"
+#: identity-fingerprint bundles evicted from the sharded store
+FP_CACHE_EVICTIONS = "cilium_tpu_fp_cache_evictions_total"
+
+# -- the compile queue (policy/compiler/compilequeue.py)
+#: compile tasks submitted, by priority class
+COMPILE_QUEUE_SUBMITTED = "cilium_tpu_compile_queue_submitted_total"
+#: submits coalesced onto an in-flight task with the same work key
+COMPILE_QUEUE_DEDUP = "cilium_tpu_compile_queue_dedup_total"
+#: tasks completed (success or permanent failure)
+COMPILE_QUEUE_COMPLETED = "cilium_tpu_compile_queue_completed_total"
+#: in-queue retries (worker death re-queues with backoff)
+COMPILE_QUEUE_RETRIES = "cilium_tpu_compile_queue_retries_total"
+#: serving-blocking waits that hit the per-bank compile deadline
+COMPILE_DEADLINE_LAPSES = "cilium_tpu_compile_deadline_lapses_total"
+#: worker threads killed (the ``compile.worker`` fault point)
+COMPILE_WORKER_DEATHS = "cilium_tpu_compile_worker_deaths_total"
+#: gauge: pending + running compile tasks
+COMPILE_QUEUE_DEPTH = "cilium_tpu_compile_queue_depth"
+#: compile results that landed after their waiter lapsed
+COMPILE_LATE_RESULTS = "cilium_tpu_compile_late_results_total"
+
+# -- the explain plane and the canary (runtime/explain.py,
+# runtime/canary.py)
+#: explain-plane queries, by result (hit / miss)
+EXPLAIN_QUERIES = "cilium_tpu_explain_queries_total"
+#: canary double-dispatch samples, by result (match / diff)
+CANARY_SAMPLES = "cilium_tpu_canary_samples_total"
+#: canary commit attempts, by result (committed / refused / aborted)
+CANARY_COMMITS = "cilium_tpu_canary_commits_total"
+#: gauge: observed verdict-diff fraction of the active canary
+CANARY_DIFF_FRACTION = "cilium_tpu_canary_diff_fraction"
 
 #: latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -150,3 +206,22 @@ class Metrics:
 
 #: the process's registry
 METRICS = Metrics()
+
+
+class SpanStat:
+    """Duration span: ``with SpanStat("compile"): ...`` records seconds
+    into the histogram ``cilium_tpu_span_seconds{span=...}``."""
+
+    def __init__(self, span: str, metrics: Metrics = METRICS):
+        self.span = span
+        self.metrics = metrics
+        self.seconds = 0.0
+
+    def __enter__(self) -> "SpanStat":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.seconds = time.perf_counter() - self._t0
+        self.metrics.observe("cilium_tpu_span_seconds", self.seconds,
+                             {"span": self.span})

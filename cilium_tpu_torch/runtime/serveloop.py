@@ -19,6 +19,13 @@ leases over the persistent verdict ring (counterpart of the reference's
 * **Hot-swap safe.** The ring's shared session consumes committed
   PolicyDeltas: a bank-scoped commit refills only the memo rows whose
   identity, family and port read the swapped bank.
+* **Canary double dispatch.** With a :class:`~cilium_tpu_torch.
+  runtime.canary.CanaryController` wired and sampling, a deterministic
+  fraction of chunks evaluates through the STAGED generation N+1 as
+  well — in the same pack cycle, off the already-resolved verdicts —
+  feeding the verdict-diff gate. Shadow work is advisory: its wall is
+  metered (``canary_seconds`` vs ``pack_seconds``) and a shadow failure
+  aborts the canary, never the chunk.
 * **Tenant attribution.** The tenant rides the lease and every chunk
   ticket, so sheds, SLO windows and explain entries attribute to it.
 
@@ -29,8 +36,6 @@ Two driving modes: ``start()`` spawns the pack thread (paced by
 ``loader`` is any object with an ``.engine`` (a
 :class:`~cilium_tpu_torch.engine.verdict.TorchVerdictEngine`) and,
 optionally, a ``.config`` carrying ``provenance``/``slo`` sections.
-The canary double dispatch (``canary=``) is not ported yet (queue 1,
-Q4) and raises.
 
 Fault points: ``serve.lease`` fires at every lease decision (a fired
 fault is an explicit shed); ``serve.ring_slot`` fires at every chunk
@@ -77,10 +82,6 @@ LEASE_POINT = faults.register_point(
 RING_SLOT_POINT = faults.register_point(
     "serve.ring_slot", "chunk submit into a ring slot in "
                        "ServeLoop.submit")
-
-_CANARY = ("the canary double dispatch (runtime/canary.py) is not "
-           "ported yet (queue 1, Q4)")
-
 
 class ShedError(RuntimeError):
     """An explicit, counted shed: the stream/chunk was refused with a
@@ -150,7 +151,8 @@ class ChunkTicket:
         self.sample_flows = None
         #: tenant attribution (from the lease) for SLO/explain
         self.tenant = ""
-        #: canary sampling: always False until the canary is ported
+        #: True when this chunk was canary-sampled: its sampled flows
+        #: double-dispatch through the staged generation at resolve
         self.canary = False
 
     def resolve(self, verdicts: Optional[np.ndarray],
@@ -201,8 +203,6 @@ class ServeLoop:
         from cilium_tpu_torch.runtime.explain import EXPLAIN
         from cilium_tpu_torch.runtime.slo import SLOTracker
 
-        if canary is not None:
-            raise NotImplementedError(_CANARY)
         engine = loader.engine
         if not isinstance(engine, TorchVerdictEngine):
             raise RuntimeError(
@@ -278,7 +278,23 @@ class ServeLoop:
         self.records_unexplained = 0
         #: wall seconds spent on observability bookkeeping
         self.obs_seconds = 0.0
-        #: wall seconds of pack cycles (dispatch + resolution)
+        #: a CanaryController whose sampling window double-dispatches a
+        #: deterministic fraction of chunks through the staged
+        #: generation N+1. It stages and commits through its own
+        #: loader, so one bound to another loader would diff and commit
+        #: a generation this loop never serves: refused
+        if canary is not None and canary.loader is not loader:
+            raise ValueError(
+                "the canary controller is bound to another loader than "
+                "the serve loop's")
+        self.canary = canary
+        #: monotone chunk counter driving the canary's counter-walk
+        #: sample selection (never an RNG or an id hash)
+        self._canary_counter = 0
+        #: wall seconds spent double-dispatching sampled chunks ...
+        self.canary_seconds = 0.0
+        #: ... and the pack-cycle wall (dispatch + resolution, shadow
+        #: included) it is measured against
         self.pack_seconds = 0.0
 
     @classmethod
@@ -455,21 +471,32 @@ class ServeLoop:
             trace_id=ctx.trace_id if ctx is not None else "",
             epoch=getattr(ctx, "epoch", 0) if ctx is not None else 0)
         ticket.tenant = lease.tenant
-        if ticket.trace_id and self.provenance and self.explain_sample > 0:
-            # sampled flows for the explain plane (traced chunks only):
-            # a bounded host reconstruction
+        # canary sample selection: a monotone chunk counter walked
+        # through the controller's deterministic fraction
+        if self.canary is not None and self.canary.active():
+            with self._stats_lock:
+                self._canary_counter += 1
+                c = self._canary_counter
+            ticket.canary = self.canary.should_sample(c)
+        want_explain = (ticket.trace_id and self.provenance
+                        and self.explain_sample > 0)
+        if want_explain or ticket.canary:
+            # sampled flows for the explain plane (traced chunks) and
+            # the canary's shadow dispatch: one bounded host
+            # reconstruction serves both
             t_obs = simclock.perf()
             try:
                 from cilium_tpu_torch.ingest.binary import (
                     records_to_flows_l7,
                 )
 
-                k = min(self.explain_sample, len(rec))
+                k = min(self.explain_sample or 8, len(rec))
                 ticket.sample_flows = records_to_flows_l7(
                     rec[:k], l7[:k], offsets, blob,
                     gen=(gen[:k] if gen is not None else None))
-            except Exception:  # noqa: BLE001 — explain is advisory;
-                ticket.sample_flows = None  # never fail the chunk
+            except Exception:  # noqa: BLE001 — explain/canary are
+                ticket.sample_flows = None  # advisory; never fail
+                ticket.canary = False       # the chunk
             with self._stats_lock:
                 self.obs_seconds += max(0.0, simclock.perf() - t_obs)
         # ring.submit takes its own lock; encoding outside ours keeps
@@ -536,6 +563,18 @@ class ServeLoop:
             self.slo.observe_latency(lat, tenant=ticket.tenant)
             self.slo.observe_request(shed=False,
                                      tenant=ticket.tenant)
+        if ticket.canary and self.canary is not None \
+                and ticket.sample_flows:
+            # the double dispatch: the sampled flows re-evaluate
+            # through the STAGED generation, diffed against what N
+            # just served — in this pack cycle, metered against it
+            t_can = simclock.perf()
+            self.canary.observe_chunk(
+                ticket.sample_flows,
+                verdicts[:len(ticket.sample_flows)])
+            with self._stats_lock:
+                self.canary_seconds += max(
+                    0.0, simclock.perf() - t_can)
         with self._stats_lock:
             if prov is not None:
                 self.records_explained += n
@@ -740,4 +779,9 @@ class ServeLoop:
         }
         if self.slo is not None:
             out["slo"] = self.slo.status()
+        if self.canary is not None:
+            report = self.canary.report()
+            report["canary_seconds"] = round(self.canary_seconds, 6)
+            report["pack_seconds"] = round(self.pack_seconds, 6)
+            out["canary"] = report
         return out

@@ -250,6 +250,33 @@ class Tracer:
             rec["attrs"] = attrs
         self._append_remote(rec, "")
 
+    def stitch(self, trace_id: str) -> Dict:
+        """One stream's causally-ordered cross-host timeline: every
+        record for the trace, ordered by (causal epoch, timestamp) —
+        NOT timestamp alone, because a survivor's span can carry an
+        earlier wall reading than the dead host's last span — plus
+        the distinct hosts that contributed and whether the timeline
+        actually crossed a handoff (``stitched``)."""
+        recs = self.dump(trace_id=trace_id)
+        recs.sort(key=lambda r: (r.get("epoch", 0), r["ts"]))
+        hosts: List[str] = []
+        for r in recs:
+            h = r.get("host") or (r.get("attrs") or {}).get("host")
+            if h and h not in hosts:
+                hosts.append(h)
+        epochs = sorted({int(r.get("epoch", 0)) for r in recs})
+        handoff = any(r.get("event") and r["name"] == "fleet.handoff"
+                      for r in recs)
+        return {
+            "trace_id": trace_id,
+            "records": recs,
+            "hosts": hosts,
+            "epochs": epochs,
+            "stitched": bool(handoff or len(hosts) > 1
+                             or any(epochs[1:])
+                             or (epochs and epochs[0] > 0)),
+        }
+
     def _note_evictions(self, incoming: int) -> None:
         room = self._ring.maxlen - len(self._ring)
         if incoming > room:

@@ -24,9 +24,10 @@ from cilium_tpu_torch.engine import (
     dfa_oblivious_cuda,
     nfa_cuda,
 )
-from cilium_tpu_torch.engine.compiled import CompiledPolicy
+from cilium_tpu_torch.engine.compiled import CompiledPolicy, encode_strings
 from cilium_tpu_torch.engine.verdict import OUTPUT_LANES, TorchVerdictEngine
 from cilium_tpu_torch.ingest import synth
+from cilium_tpu_torch.weights import arrays_from_reference
 
 pytestmark = pytest.mark.gpu
 
@@ -294,3 +295,65 @@ def test_ring_pack_on_card_equals_direct_step(cuda):
                       for k in ("verdict", "l7_match", "match_spec")])
     for got, want in zip(*lanes):
         np.testing.assert_array_equal(got, want)
+
+
+def test_loader_regenerate_on_card_equals_plain(cuda, tmp_path, monkeypatch):
+    """``Loader()`` stages its engine on the card by default; all ten
+    lanes equal the plain engine of the same compiled policy."""
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.runtime.loader import Loader
+
+    monkeypatch.setenv("CILIUM_TPU_DFA_IMPL", "gather")
+    pi, sc = synth.realize_scenario(synth.scenario_by_name("http", 60, 400))
+    cfg = Config()
+    cfg.loader.cache_dir = str(tmp_path)
+    loader = Loader(cfg)
+    try:
+        _build.reset_launches()
+        engine = loader.regenerate(pi, revision=1)
+        assert engine.device.type == "cuda"
+        got = engine.verdict_flows(sc.flows)
+        assert _build.KERNELS["KD"].launches > 0
+        want = TorchVerdictEngine(engine.policy, device="cpu",
+                                  cfg=cfg.engine).verdict_flows(sc.flows)
+        for lane in OUTPUT_LANES:
+            np.testing.assert_array_equal(got[lane], want[lane], lane)
+    finally:
+        loader.close()
+
+
+def test_kd_at_the_loader_path_stack_equals_plain(cuda):
+    """KD at the content-addressed path stack of the http-1000 policy,
+    (7, 2048, 28) with W = 7 accept words and the group plane: the
+    shared-memory variant with the accept planes read from global
+    memory."""
+    from cilium_tpu_torch.engine import megakernel
+    from cilium_tpu_torch.policy.compiler.bankplan import BankRegistry
+
+    pi, sc = synth.realize_scenario(synth.scenario_by_name("http", 1000,
+                                                           4096))
+    pol = CompiledPolicy.build(pi, EngineConfig(),
+                               bank_registry=BankRegistry())
+    a = pol.arrays
+    assert a["path_trans"].shape == (7, 2048, 28)
+    assert a["path_accept"].shape[2] == 7
+    staged = arrays_from_reference(
+        {k: a[k] for k in ("path_trans", "path_byteclass", "path_start",
+                           "path_accept", "rp_path_gaccept")}, cuda)
+    tables = [staged[f"path_{k}"] for k in ("trans", "byteclass", "start")]
+    acc, extra = staged["path_accept"], staged["rp_path_gaccept"]
+    data, lens, _ = encode_strings(
+        [f.http.path.encode() for f in sc.flows], 256)
+    plan = dfa_dense_cuda.plan_launch(7, 2048, 28, *data.shape, 7,
+                                      extra.shape[2])
+    assert plan.variant == "smem" and not plan.words_smem
+    _build.reset_launches()
+    for ln in (lens, *_length_cases(np.random.default_rng(7), *data.shape)):
+        args = [*tables, _t(data, cuda), _t(ln, cuda)]
+        got = dfa_dense_cuda.dense_scan_cuda(*args, accept=acc, extra=extra)
+        want = dfa_dense_cuda.dense_scan_plain(*args, accept=acc,
+                                               extra=extra)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert _build.KERNELS["KD"].launches_by_variant == {"smem": 4}
+    assert megakernel.plan_for_engine(pol, EngineConfig(), cuda)[0][
+        "path"] == "dfa-dense"

@@ -45,6 +45,12 @@ _EXPECTED = ("cilium_tpu_torch.engine.megakernel",
              "cilium_tpu_torch.engine.replay",
              "cilium_tpu_torch.ingest.binary",
              "cilium_tpu_torch.ingest.columnar",
+             "cilium_tpu_torch.policy.compiler.bankplan",
+             "cilium_tpu_torch.policy.compiler.compilequeue",
+             "cilium_tpu_torch.policy.oracle",
+             "cilium_tpu_torch.runtime.canary",
+             "cilium_tpu_torch.runtime.checkpoint",
+             "cilium_tpu_torch.runtime.loader",
              "cilium_tpu_torch.runtime.metrics")
 
 

@@ -38,7 +38,7 @@ class _Run:
     def __init__(self, pkg, engine, **kw):
         self.pkg = pkg
         self.clock = pkg.simclock.VirtualClock()
-        self.loader = _StubLoader(engine)
+        self.loader = kw.pop("loader", None) or _StubLoader(engine)
         with pkg.simclock.use(self.clock):
             self.loop = pkg.serveloop.ServeLoop(
                 self.loader, lease_ttl_s=kw.pop("ttl", 60.0),
@@ -447,9 +447,32 @@ def test_serve_loop_needs_a_torch_engine_and_refuses_a_canary(engines):
         PORT.serveloop.ServeLoop(_StubLoader(jengine))
     with pytest.raises(RuntimeError, match="TorchVerdictEngine"):
         PORT.serveloop.ServeLoop(_StubLoader(None))
+    # a controller stages and commits through its own loader: one bound
+    # to another loader than the loop's is refused
+    from cilium_tpu_torch.runtime.canary import CanaryController
+
     engine, _ = engines["http", PORT.root]
-    with pytest.raises(NotImplementedError, match="Q4"):
-        PORT.serveloop.ServeLoop(_StubLoader(engine), canary=object())
+    with pytest.raises(ValueError, match="another loader"):
+        PORT.serveloop.ServeLoop(
+            _StubLoader(engine),
+            canary=CanaryController(_StubLoader(engine)))
+
+
+def test_serve_loop_wires_an_inert_canary(engines):
+    """A controller on the loop's own loader is wired; its sampling
+    stays off until a generation is staged, so the loop serves as
+    before."""
+    from cilium_tpu_torch.runtime.canary import CanaryController
+
+    engine, flows = engines["http", PORT.root]
+    loader = _StubLoader(engine)
+    ctrl = CanaryController(loader)
+    with _Run(PORT, engine, loader=loader, canary=ctrl) as r:
+        assert r.loop.canary is ctrl and not ctrl.active()
+        t = r.submit(r.loop.connect("s0"), flows[:30])
+        r.loop.step()
+        assert t.verdicts.tolist() == _direct(engine, flows[:30])
+        assert not t.canary and r.loop.status()["canary"]["chunks"] == 0
 
 
 def test_ring_residency_manifest_equals_reference(engines):
