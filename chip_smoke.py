@@ -106,7 +106,38 @@ Phases, in order (any failure exits non-zero before the result line):
    class: the path stack that the rest of the phase ran, over KD's
    shared-memory budget, so under its global variant). A
    ``loader: {...}`` line carries the numbers;
-9. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+9. the service and stream plane: a fresh ``Loader(Config())`` on the
+   card (content-addressed banks, the http-1000 snapshot, a temporary
+   cache directory) behind the port's ``VerdictService`` on a Unix
+   socket in a temporary directory, ``bench_service.py``'s defaults
+   (micro-batches of up to 256, 2 ms deadline). Every verdict is held
+   against a ``device="cpu"`` engine of the policy it was served under.
+   ``check`` in a closed loop (16 clients x 50 requests at deadlines
+   0.5, 2 and 8 ms, and three times with four drain workers: client
+   p50/p99, requests/s, the micro-batch size histogram and mean
+   micro-batch time); the bulk ``verdict`` op (256 flows, median of
+   25); a stream of the 10000 flows repeated to 200000 records in
+   chunks of 4096 at pipeline depth 8 (records/s, chunk p50/p99; every
+   chunk through the private incremental session, none through the
+   oracle), then depth 1 for 50 chunks with the credit window full,
+   and 50 chunks one at a time (the client waits for each verdict
+   before it sends the next: nothing overlaps); the same
+   records over eight concurrent streams through the serve loop's ring;
+   a hot swap mid-stream (a committed ``/churn0/.*`` rule: zero stale
+   verdicts, the session consumes the bank delta without a reset);
+   Kafka through proxylib (a second loader at ``bench.py``'s 1000 Kafka
+   rules, 1000 ``on_data`` round trips of frames from
+   ``proxylib.kafka.encode_request``, each PASS/DROP equal to the plain
+   engine's verdict); the breaker (the engine's dispatch fault armed
+   three times: one trip, eight checks answered by the oracle while
+   open, one probe after 0.2 s recovers and KD launches again); and a
+   drain (pending checks flushed, warm snapshot, ``ping`` answers). The
+   breaker's counters stay at zero outside its pass, and KD's count
+   rises in every device pass. KD is then held against its plain
+   version and timed at the micro-batcher's B = 1 and 256 and at the
+   stream session's first delta scan. A ``service: {...}`` line
+   carries the numbers;
+10. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -188,6 +219,28 @@ SERVE_PLAIN_SAMPLE, SERVE_THREADS, SERVE_THREAD_S = 2048, 8, 3.0
 LOADER_UPDATES, BYSTANDERS = 20, 2000
 ORACLE_SAMPLE, ORACLE_WORKERS = 500, 4
 CANARY_MIN_SAMPLES, CANARY_KEEP_RULES = 32, 100
+#: phase 9: the verdict service at ``bench_service.py``'s defaults — the
+#: micro-batcher's bound and deadline, the closed loop's client threads,
+#: timed and warm requests a thread and its deadlines, the passes with
+#: four drain workers; the stream's chunk and pipeline depth; the bulk
+#: ``verdict`` op's flows a request and timed requests; the stream's
+#: records (phase 5's capture size); the depth-1 and one-at-a-time
+#: passes' chunks; the serve loop's concurrent streams; the hot
+#: swap's chunks either side of the commit; the Kafka scenario's rules
+#: (``bench.py``'s default) and its on_data round trips over concurrent
+#: clients; the checks answered while the breaker is open and its probe
+#: interval; and the drain pass's pending checks, held by a long deadline
+SVC_BATCH_MAX, SVC_DEADLINE_MS = 256, 2.0
+CHECK_THREADS, CHECK_PER_THREAD, CHECK_WARMUP = 16, 50, 10
+CHECK_DEADLINES_MS = (0.5, 2.0, 8.0)
+DW4_REPEATS = 3
+STREAM_CHUNK, STREAM_DEPTH = 4096, 8
+BULK_FLOWS, BULK_TIMED = 256, 25
+STREAM_RECORDS, DEPTH1_CHUNKS = CAPTURE_RECORDS, 50
+RING_CLIENTS, SWAP_CHUNKS = 8, 10
+KAFKA_RULES, KAFKA_ROUND_TRIPS, KAFKA_CLIENTS = 1000, 1000, 8
+BREAKER_OPEN_CHECKS, BREAKER_PROBE_S = 8, 0.2
+DRAIN_PENDING, DRAIN_DEADLINE_MS = 16, 2000.0
 #: capture arm → (phase-4 configuration it replays on, kernels it must
 #: launch)
 CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
@@ -2399,6 +2452,735 @@ def nfa_fields_of(errs, engine, full):
     return nfa_fields
 
 
+# ------------------------------------------------ the service and stream
+def quantiles_ms(seconds):
+    """p50/p99 in ms (nearest rank) of a list of seconds."""
+    xs = sorted(seconds)
+    check(bool(xs), "no latency samples")
+    q = lambda p: xs[min(len(xs) - 1, int(p * len(xs)))] * 1e3  # noqa
+    return {"p50_ms": q(0.50), "p99_ms": q(0.99), "samples": len(xs)}
+
+
+def run_threads(fn, n, what):
+    """``fn(i)`` on ``n`` threads; fails the run if any raised or hung."""
+    import threading
+
+    errors = []
+
+    def wrap(i):
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    ts = [threading.Thread(target=wrap, args=(i,), daemon=True)
+          for i in range(n)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    check(not errors and not any(t.is_alive() for t in ts),
+          f"[service {what}] a client thread failed: {errors[:3]}")
+
+
+def kd_rose(k0, what):
+    """Fail unless KD launched since its count read ``k0``."""
+    from cilium_tpu_torch.engine import _build
+
+    check(_build.KERNELS["KD"].launches > k0,
+          f"[service {what}] KD never launched: the pass did not reach "
+          f"the card")
+
+
+def breaker_counts():
+    from cilium_tpu_torch.runtime.metrics import (
+        BREAKER_FALLBACK_VERDICTS,
+        BREAKER_RECOVERIES,
+        BREAKER_TRIPS,
+        METRICS,
+    )
+
+    return tuple(METRICS.get(n) for n in (
+        BREAKER_TRIPS, BREAKER_RECOVERIES, BREAKER_FALLBACK_VERDICTS))
+
+
+def route_counts():
+    from cilium_tpu_torch.runtime.metrics import METRICS, STREAM_CHUNKS
+
+    return {r: METRICS.get(STREAM_CHUNKS, {"route": r})
+            for r in ("session", "ring", "oracle", "fallback")}
+
+
+@contextlib.contextmanager
+def verdict_service(loader, path, **kw):
+    from cilium_tpu_torch.runtime.service import VerdictService
+
+    svc = VerdictService(loader, path, **kw)
+    svc.start()
+    try:
+        yield svc
+    finally:
+        svc.stop()
+
+
+def check_pass(loader, path, dicts, want, deadline_ms, drain_workers):
+    """bench_service.py's closed loop: CHECK_THREADS clients, each
+    CHECK_WARMUP warm requests then CHECK_PER_THREAD timed ``check``s
+    of its own flows; every verdict exact."""
+    import threading
+
+    from cilium_tpu_torch.runtime.metrics import (
+        METRICS,
+        MICROBATCH_SECONDS,
+        MICROBATCH_SIZE,
+    )
+    from cilium_tpu_torch.runtime.service import VerdictClient
+
+    n = CHECK_THREADS
+    lat = [[] for _ in range(n)]
+    wrong = []
+    start = threading.Barrier(n + 1, timeout=120)
+    with verdict_service(loader, path, batch_max=SVC_BATCH_MAX,
+                         deadline_ms=deadline_ms,
+                         drain_workers=drain_workers):
+        def worker(t):
+            mine = list(range(t, len(dicts), n))
+            c = VerdictClient(path)
+            try:
+                for i in range(CHECK_WARMUP):
+                    c.call({"op": "check", "flow": dicts[mine[i]]})
+                start.wait()
+                for i in range(CHECK_PER_THREAD):
+                    k = mine[i % len(mine)]
+                    t0 = time.perf_counter()
+                    r = c.call({"op": "check", "flow": dicts[k]})
+                    lat[t].append(time.perf_counter() - t0)
+                    if r.get("verdict") != int(want[k]):
+                        wrong.append((k, r))
+            finally:
+                c.close()
+
+        main = threading.Thread(target=run_threads,
+                                args=(worker, n, "check"), daemon=True)
+        main.start()
+        try:
+            start.wait()
+        except threading.BrokenBarrierError:
+            check(False, "[service check] a client failed before the "
+                         "timed requests")
+        h0 = METRICS.histogram(MICROBATCH_SIZE)
+        s0 = METRICS.histo_sum(MICROBATCH_SIZE)
+        b0 = METRICS.histo_sum(MICROBATCH_SECONDS)
+        t0 = time.perf_counter()
+        main.join(timeout=600)
+        wall = time.perf_counter() - t0
+        h1 = METRICS.histogram(MICROBATCH_SIZE)
+        s1 = METRICS.histo_sum(MICROBATCH_SIZE)
+        b1 = METRICS.histo_sum(MICROBATCH_SECONDS)
+    check(not main.is_alive(), "[service check] the clients hung")
+    check(not wrong, f"[service check] {len(wrong)} verdicts differ from "
+                     f"the plain engine, e.g. {wrong[:2]}")
+    samples = sum(lat, [])
+    check(len(samples) == n * CHECK_PER_THREAD,
+          "[service check] a client thread failed")
+    hist = {k: h1[k] - h0.get(k, 0) for k in h1 if h1[k] - h0.get(k, 0)}
+    batches = sum(hist.values())
+    return {"deadline_ms": deadline_ms, "drain_workers": drain_workers,
+            **quantiles_ms(samples), "rps": len(samples) / wall,
+            "batches": batches, "mean_batch": (s1 - s0) / max(1, batches),
+            "mean_batch_ms": (b1 - b0) * 1e3 / max(1, batches),
+            "batch_size_hist": hist}
+
+
+def stream_pass(path, images, expects, depth, one_at_a_time=False):
+    """One StreamClient (credit on, ``depth`` chunks in the server's
+    pipeline) sends every image while a second thread collects the
+    verdicts as they land: records/s first send to last verdict, chunk
+    send→verdict p50/p99; every verdict exact. ``one_at_a_time``: the
+    client waits for each chunk's verdict before it sends the next, so
+    no two chunks overlap anywhere (the control for the pipeline)."""
+    import threading
+
+    import numpy as np
+
+    from cilium_tpu_torch.runtime.stream import StreamClient
+
+    client = StreamClient(path, pipeline_depth=depth, timeout=300.0)
+    sent, landed, got = {}, {}, {}
+    answered = threading.Condition()
+
+    def collect():
+        for seq, r in client.results():
+            with answered:
+                landed[seq] = time.perf_counter()
+                got[seq] = r
+                answered.notify_all()
+
+    th = threading.Thread(target=collect, daemon=True)
+    try:
+        th.start()
+        t0 = time.perf_counter()
+        for im in images:
+            seq = client.send_image(im, trace_id="")
+            sent[seq] = time.perf_counter()
+            if one_at_a_time:
+                with answered:
+                    check(answered.wait_for(lambda: seq in got,
+                                            timeout=300),
+                          f"[service stream] seq {seq} unanswered")
+        client.finish()
+        th.join(timeout=300)
+    finally:
+        client.close()
+    check(not th.is_alive() and len(got) == len(images),
+          f"[service stream] {len(got)} of {len(images)} chunks answered")
+    for seq, want in enumerate(expects):
+        r = got[seq]
+        check(not isinstance(r, Exception), f"[service stream] seq {seq} "
+                                            f"failed: {r}")
+        check(np.array_equal(r, want), f"[service stream] seq {seq} "
+                                       f"differs from the plain engine")
+    records = sum(len(e) for e in expects)
+    return {"chunks": len(images), "records": records, "depth": depth,
+            "one_at_a_time": one_at_a_time,
+            "records_per_s": records / (max(landed.values()) - t0),
+            **{f"chunk_{k}": v for k, v in quantiles_ms(
+                [landed[s] - sent[s] for s in sent]).items()}}
+
+
+def kafka_frames(kafka, flows):
+    """One request frame per flow, as ``bench.py``'s Kafka lane encodes
+    them, and the flows the parser will verdict for each."""
+    import dataclasses
+
+    from cilium_tpu_torch.core.flow import L7Type
+
+    frames, parsed = [], []
+    for i, f in enumerate(flows):
+        fr = kafka.encode_request(
+            f.kafka.api_key, 0 if f.kafka.api_key == kafka.API_METADATA
+            else 1, i, f.kafka.client_id, f.kafka.topic)
+        frames.append(fr)
+        parsed.append([dataclasses.replace(f, l7=L7Type.KAFKA, kafka=r)
+                       for r in kafka.parse_request_records(fr[4:])])
+    return frames, parsed
+
+
+def service_phase(card):
+    """Phase 9: the port's ``VerdictService`` and stream over a fresh
+    ``Loader(Config())`` on the card (content-addressed banks, the
+    http-1000 snapshot, a temporary cache directory), every verdict held
+    against a ``device="cpu"`` engine of the policy it was served under.
+    Returns the report, the passes' launch counts and KD's variants,
+    and what KD is held and timed at afterwards."""
+    import base64
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.core.flow import Verdict
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.ingest import binary, synth
+    from cilium_tpu_torch.ingest.columnar import flows_to_columns
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.proxylib import kafka
+    from cilium_tpu_torch.runtime.loader import Loader
+    from cilium_tpu_torch.runtime.metrics import (
+        METRICS,
+        VERDICT_MEMO_INVALIDATIONS,
+        VERDICT_MEMO_MISSES,
+    )
+    from cilium_tpu_torch.runtime.service import VerdictClient
+    from cilium_tpu_torch.runtime.stream import StreamClient
+
+    t_phase = time.perf_counter()
+    os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+    world = ChurnWorld()
+    flows = world.scenario.flows
+    out = {"card": card}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_service_")
+    sock = lambda name: os.path.join(tmp.name, f"{name}.sock")  # noqa
+    loaders = []
+    try:
+        cfg = Config()
+        cfg.loader.cache_dir = os.path.join(tmp.name, "http")
+        cfg.breaker.probe_interval = BREAKER_PROBE_S
+        check(cfg.enable_tpu_offload and cfg.loader.bank_isolation
+              and not cfg.serve.enabled,
+              "the port's Config must default to the gate on, "
+              "content-addressed banks and no serve loop")
+        loader = Loader(cfg, device=DEVICE)
+        loaders.append(loader)
+        engine = loader.regenerate(world.snapshot(), revision=1)
+        check(isinstance(engine, TorchVerdictEngine)
+              and engine.device.type == DEVICE,
+              "[service] the loader must stage a TorchVerdictEngine on "
+              "the card")
+        plain = TorchVerdictEngine(engine.policy, device="cpu",
+                                   cfg=cfg.engine)
+        want = np.asarray(plain.verdict_flows(flows)["verdict"])
+        dicts = [flow_to_dict(f) for f in flows[:CHECK_THREADS * 64]]
+        # the Kafka loader is built before any stream opens: a fresh
+        # loader's full delta would reset a live stream's session
+        kcfg = Config()
+        kcfg.loader.cache_dir = os.path.join(tmp.name, "kafka")
+        kper, ksc = synth.realize_scenario(synth.scenario_by_name(
+            "kafka", KAFKA_RULES, KAFKA_ROUND_TRIPS))
+        kloader = Loader(kcfg, device=DEVICE)
+        loaders.append(kloader)
+        kengine = kloader.regenerate(kper, revision=1)
+        frames, parsed = kafka_frames(kafka, ksc.flows)
+        kplain = TorchVerdictEngine(kengine.policy, device="cpu",
+                                    cfg=kcfg.engine)
+        kv = kplain.verdict_flows(sum(parsed, []))["verdict"]
+        passing = {int(Verdict.FORWARDED), int(Verdict.AUDIT),
+                   int(Verdict.REDIRECTED)}
+        allowed, k = [], 0
+        for recs in parsed:
+            allowed.append(all(int(v) in passing
+                               for v in kv[k:k + len(recs)]))
+            k += len(recs)
+        # the stream's chunks: the 10000 flows repeated to
+        # STREAM_RECORDS records, chunks of STREAM_CHUNK
+        cols = flows_to_columns(flows)
+        reps = -(-STREAM_RECORDS // len(flows))
+        rec = np.concatenate([cols.rec] * reps)[:STREAM_RECORDS]
+        l7 = np.concatenate([cols.l7] * reps)[:STREAM_RECORDS]
+        expect = np.tile(want, reps)[:STREAM_RECORDS]
+        bounds = [(a, min(a + STREAM_CHUNK, STREAM_RECORDS))
+                  for a in range(0, STREAM_RECORDS, STREAM_CHUNK)]
+        images = [binary.sections_to_bytes(rec[a:b], l7[a:b], cols.offsets,
+                                           cols.blob) for a, b in bounds]
+        expects = [expect[a:b] for a, b in bounds]
+        out["set_up_s"] = time.perf_counter() - t_phase
+        log(f"[service set-up] http-{N_RULES} and kafka-{KAFKA_RULES} loaders, "
+            f"plain verdicts, {len(images)} stream chunks in "
+            f"{out['set_up_s']:.1f} s")
+
+        torch.cuda.synchronize()
+        m0 = breaker_counts()
+        _build.reset_launches()
+        kd = _build.KERNELS["KD"]
+
+        def unmoved(what):
+            check(breaker_counts() == m0,
+                  f"[service {what}] the breaker moved outside the fault "
+                  f"pass: {m0} -> {breaker_counts()}")
+
+        # -- 1. check, closed loop
+        out["check"] = []
+        for dl, workers in [(d, 1) for d in CHECK_DEADLINES_MS] + [
+                (SVC_DEADLINE_MS, 4)] * DW4_REPEATS:
+            k0 = kd.launches
+            r = check_pass(loader, sock(f"check{len(out['check'])}"),
+                           dicts, want, dl, workers)
+            kd_rose(k0, "check")
+            unmoved("check")
+            out["check"].append(r)
+            log(f"[service check] deadline {dl} ms, {workers} drain "
+                f"worker(s): p50 {r['p50_ms']:.3f} ms, p99 "
+                f"{r['p99_ms']:.3f} ms, {r['rps']:.1f} requests/s, "
+                f"{r['batches']} batches, mean {r['mean_batch']:.2f} "
+                f"flows and {r['mean_batch_ms']:.3f} ms, sizes "
+                f"{r['batch_size_hist']} on {card}")
+
+        # -- 2. verdict, bulk
+        k0 = kd.launches
+        req = {"op": "verdict", "flows": dicts[:BULK_FLOWS]}
+        times = []
+        with verdict_service(loader, sock("bulk"),
+                             batch_max=SVC_BATCH_MAX,
+                             deadline_ms=SVC_DEADLINE_MS) as svc:
+            c = VerdictClient(svc.socket_path)
+            try:
+                for i in range(3 + BULK_TIMED):
+                    t0 = time.perf_counter()
+                    r = c.call(req)
+                    if i >= 3:
+                        times.append(time.perf_counter() - t0)
+                    check(r.get("verdicts") == [int(v) for v in
+                                                want[:BULK_FLOWS]],
+                          f"[service verdict] differs: {str(r)[:200]}")
+            finally:
+                c.close()
+        kd_rose(k0, "verdict")
+        unmoved("verdict")
+        out["verdict"] = {"flows": BULK_FLOWS,
+                          "median_ms": statistics.median(times) * 1e3}
+        log(f"[service verdict] {BULK_FLOWS} flows a request: median "
+            f"{out['verdict']['median_ms']:.3f} ms over {BULK_TIMED} on "
+            f"{card}")
+
+        # -- 3. stream, private session
+        k0, r0 = kd.launches, route_counts()
+        shapes = []
+        with verdict_service(loader, sock("stream"),
+                             batch_max=SVC_BATCH_MAX,
+                             deadline_ms=SVC_DEADLINE_MS) as svc:
+            with delta_scans_noted(engine._arrays, shapes):
+                out["stream"] = stream_pass(svc.socket_path, images,
+                                            expects, STREAM_DEPTH)
+            kd_rose(k0, "stream")
+            cyc = [i % len(images) for i in range(DEPTH1_CHUNKS)]
+            out["stream_depth1"] = stream_pass(
+                svc.socket_path, [images[i] for i in cyc],
+                [expects[i] for i in cyc], 1)
+            out["stream_serial"] = stream_pass(
+                svc.socket_path, [images[i] for i in cyc],
+                [expects[i] for i in cyc], 1, one_at_a_time=True)
+        r1 = route_counts()
+        check(r1["session"] - r0["session"] == len(images)
+              + 2 * DEPTH1_CHUNKS
+              and all(r1[k] == r0[k] for k in ("ring", "oracle",
+                                               "fallback")),
+              f"[service stream] routes {r0} -> {r1}: every chunk must "
+              f"take the session")
+        unmoved("stream")
+        first = next(s for s in shapes if s[0] == "path")
+        out["stream"]["first_delta_scan"] = [first[0], list(first[1]),
+                                             first[2], first[3]]
+        for key in ("stream", "stream_depth1", "stream_serial"):
+            s = out[key]
+            log(f"[service {key}] {s['records']} records in {s['chunks']} "
+                f"chunks at depth {s['depth']}"
+                f"{', one at a time' if s['one_at_a_time'] else ''}: "
+                f"{s['records_per_s']:.0f} "
+                f"records/s, chunk p50 {s['chunk_p50_ms']:.3f} ms, p99 "
+                f"{s['chunk_p99_ms']:.3f} ms on {card}")
+
+        # -- 4. stream through the serve loop's ring
+        k0, r0 = kd.launches, route_counts()
+        cfg.serve.enabled = True
+        try:
+            with verdict_service(loader, sock("ring"),
+                                 batch_max=SVC_BATCH_MAX,
+                                 deadline_ms=SVC_DEADLINE_MS) as svc:
+                ring = {}
+
+                def ring_client(i):
+                    mine = list(range(i, len(images), RING_CLIENTS))
+                    ring[i] = stream_pass(
+                        svc.socket_path, [images[j] for j in mine],
+                        [expects[j] for j in mine], STREAM_DEPTH)
+
+                t0 = time.perf_counter()
+                run_threads(ring_client, RING_CLIENTS, "ring")
+                wall = time.perf_counter() - t0
+                check(svc.serveloop is not None,
+                      "[service ring] the serve loop was not built")
+                st = svc.serveloop.status()
+        finally:
+            cfg.serve.enabled = False
+        r1 = route_counts()
+        kd_rose(k0, "ring")
+        unmoved("ring")
+        check(st["served_records"] == STREAM_RECORDS and st["packs"] > 0
+              and r1["ring"] - r0["ring"] == len(images)
+              and r1["session"] == r0["session"],
+              f"[service ring] served {st['served_records']} records in "
+              f"{st['packs']} packs, routes {r0} -> {r1}")
+        out["ring"] = {"clients": RING_CLIENTS, "records": STREAM_RECORDS,
+                       "records_per_s": STREAM_RECORDS / wall,
+                       "packs": st["packs"],
+                       "chunk_p50_ms": statistics.median(
+                           r["chunk_p50_ms"] for r in ring.values()),
+                       "chunk_p99_ms": max(r["chunk_p99_ms"]
+                                           for r in ring.values())}
+        log(f"[service ring] {RING_CLIENTS} streams, {STREAM_RECORDS} "
+            f"records: {out['ring']['records_per_s']:.0f} records/s, "
+            f"{st['packs']} packs on {card}")
+
+        # -- 5. hot swap mid-stream
+        k0 = kd.launches
+        path = "/churn0/.*"
+        probe = world.probe(path)
+        pcols = flows_to_columns([probe])
+        group = images[:SWAP_CHUNKS] + [binary.sections_to_bytes(
+            pcols.rec, pcols.l7, pcols.offsets, pcols.blob)]
+        before = [*expects[:SWAP_CHUNKS],
+                  plain.verdict_flows([probe])["verdict"]]
+        inv = {r: METRICS.get(VERDICT_MEMO_INVALIDATIONS, {"reason": r})
+               for r in ("policy-swap", "bank-swap")}
+        with verdict_service(loader, sock("swap")) as svc:
+            c = StreamClient(svc.socket_path, timeout=300.0)
+            try:
+                got1 = [c.result(c.send_image(im)) for im in group]
+                m1 = METRICS.get(VERDICT_MEMO_MISSES)
+                t0 = time.perf_counter()
+                engine2 = loader.regenerate(world.snapshot((path,)),
+                                            revision=2)
+                swap_s = time.perf_counter() - t0
+                got2 = [c.result(c.send_image(im)) for im in group]
+                misses = METRICS.get(VERDICT_MEMO_MISSES) - m1
+                c.finish()
+            finally:
+                c.close()
+        plain2 = TorchVerdictEngine(engine2.policy, device="cpu",
+                                    cfg=cfg.engine)
+        want2 = np.asarray(plain2.verdict_flows(flows)["verdict"])
+        after = [np.tile(want2, reps)[a:b]
+                 for a, b in bounds[:SWAP_CHUNKS]] + [
+            plain2.verdict_flows([probe])["verdict"]]
+        stale = sum(int(np.sum(g != w)) for g, w in
+                    zip(got1 + got2, before + after))
+        inv1 = {r: METRICS.get(VERDICT_MEMO_INVALIDATIONS, {"reason": r})
+                - inv[r] for r in inv}
+        kd_rose(k0, "swap")
+        unmoved("swap")
+        check(stale == 0, f"[service swap] {stale} stale verdicts")
+        check(int(before[-1][0]) != int(after[-1][0]),
+              "[service swap] the probe's verdict did not change")
+        check(inv1 == {"policy-swap": 0, "bank-swap": 1},
+              f"[service swap] the session must consume the bank delta, "
+              f"not reset: invalidations {inv1}")
+        http_rows = len({(f.http.method, f.http.path, f.http.host,
+                          f.http.headers) for f in flows}) + 1
+        out["swap"] = {"chunks": len(group), "stale": stale,
+                       "regenerate_s": swap_s, "memo_misses": misses,
+                       "http_rows": http_rows, "invalidations": inv1}
+        log(f"[service swap] {len(group)} chunks either side of the "
+            f"commit, 0 stale; the session refilled {misses:.0f} memo "
+            f"rows ({http_rows} http rows with the probe), invalidations "
+            f"{inv1}, regenerate {swap_s:.3f} s")
+
+        # -- 6. Kafka through proxylib
+        k0 = kd.launches
+        lat, wrong = [], []
+        with verdict_service(kloader, sock("kafka"),
+                             batch_max=SVC_BATCH_MAX,
+                             deadline_ms=SVC_DEADLINE_MS) as svc:
+            def kafka_client(t):
+                c = VerdictClient(svc.socket_path)
+                try:
+                    for i in range(t, len(frames), KAFKA_CLIENTS):
+                        f = ksc.flows[i]
+                        r = c.call({"op": "on_new_connection",
+                                    "proto": "kafka", "conn": i,
+                                    "ingress": True,
+                                    "src": f.src_identity,
+                                    "dst": f.dst_identity,
+                                    "dport": f.dport})
+                        check(r.get("ok"), f"[service kafka] {r}")
+                        t0 = time.perf_counter()
+                        r = c.call({"op": "on_data", "conn": i,
+                                    "data_b64": base64.b64encode(
+                                        frames[i]).decode()})
+                        lat.append(time.perf_counter() - t0)
+                        last = r["ops"][-1]
+                        if last != [1 if allowed[i] else 2,
+                                    len(frames[i])]:
+                            wrong.append((i, r["ops"]))
+                        c.call({"op": "close_connection", "conn": i})
+                finally:
+                    c.close()
+
+            run_threads(kafka_client, KAFKA_CLIENTS, "kafka")
+        kd_rose(k0, "kafka")
+        unmoved("kafka")
+        check(not wrong, f"[service kafka] {len(wrong)} ops differ from "
+                         f"the plain engine, e.g. {wrong[:2]}")
+        out["kafka"] = {"rules": KAFKA_RULES, "round_trips": len(frames),
+                        "clients": KAFKA_CLIENTS,
+                        "pass": int(sum(allowed)), **quantiles_ms(lat)}
+        log(f"[service kafka] {len(frames)} on_data round trips over "
+            f"{KAFKA_CLIENTS} clients ({out['kafka']['pass']} PASS): p50 "
+            f"{out['kafka']['p50_ms']:.3f} ms, p99 "
+            f"{out['kafka']['p99_ms']:.3f} ms on {card}")
+
+        # -- 7. breaker: the engine's dispatch fault, then recovery
+        out["breaker"] = breaker_pass(loader, sock("breaker"), flows,
+                                      want2, m0)
+
+        # -- 8. drain
+        k0 = kd.launches
+        m0 = breaker_counts()
+        with verdict_service(loader, sock("drain"), batch_max=SVC_BATCH_MAX,
+                             deadline_ms=DRAIN_DEADLINE_MS) as svc:
+            got = {}
+
+            def pending(i):
+                c = VerdictClient(svc.socket_path)
+                try:
+                    got[i] = c.call({"op": "check", "flow": dicts[i]})
+                finally:
+                    c.close()
+
+            th = threading.Thread(target=run_threads,
+                                  args=(pending, DRAIN_PENDING, "drain"),
+                                  daemon=True)
+            th.start()
+            # every check queued (the batch waits out its long
+            # deadline) before the drain flushes them
+            t_end = time.perf_counter() + 10.0
+            while (len(svc.bridge.batcher._pending) < DRAIN_PENDING
+                   and time.perf_counter() < t_end):
+                time.sleep(0.005)
+            c = VerdictClient(svc.socket_path)
+            try:
+                drained = c.call({"op": "drain"})
+                th.join(timeout=60)
+                pong = c.call({"op": "ping"})
+                late = c.call({"op": "check", "flow": dicts[0]})
+            finally:
+                c.close()
+        check(not th.is_alive() and len(got) == DRAIN_PENDING
+              and all(got[i].get("verdict") == int(want2[i])
+                      for i in got),
+              f"[service drain] pending checks: {got}")
+        check(drained.get("ok") and drained.get("warm_snapshot") is True
+              and drained.get("flushed") == DRAIN_PENDING and pong.get("ok")
+              and late.get("shed") is True,
+              f"[service drain] drain {drained}, ping {pong}, a check "
+              f"after it {late}")
+        kd_rose(k0, "drain")
+        unmoved("drain")
+        out["drain"] = {"flushed": drained["flushed"],
+                        "warm_snapshot": drained["warm_snapshot"]}
+        log(f"[service drain] flushed {drained['flushed']} pending "
+            f"checks, warm snapshot, ping answers")
+
+        torch.cuda.synchronize()
+        launches = {kid: k.launches for kid, k in _build.KERNELS.items()}
+        variants = kd_variants()
+        out["wall_s"] = time.perf_counter() - t_phase
+        return out, launches, variants, {"engine": engine,
+                                         "flows": flows,
+                                         "delta": first}
+    finally:
+        for ld in loaders:
+            ld.close()
+        tmp.cleanup()
+
+
+def breaker_pass(loader, path, flows, want, m0):
+    """The engine's dispatch fault armed ``failure_threshold`` times:
+    one trip; BREAKER_OPEN_CHECKS checks while open, answered by the
+    oracle; once the probe interval has passed one probe recovers and
+    KD launches again. The breaker's clock is held still from before
+    the first fault until the open checks are answered, so none of them
+    probes however long the oracle takes; then it runs again."""
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.runtime import faults
+    from cilium_tpu_torch.runtime.service import VerdictClient
+
+    kd = _build.KERNELS["KD"]
+    with verdict_service(loader, path, batch_max=SVC_BATCH_MAX,
+                         deadline_ms=SVC_DEADLINE_MS) as svc:
+        br = svc.verdictor.breaker
+        check(br.probe_interval == BREAKER_PROBE_S and br.state == br.CLOSED,
+              "[service breaker] Config.breaker was not read")
+        real = br.clock
+        t_hold = real()
+        held = [t_hold]
+        br.clock = lambda: held[0] if held[0] is not None else real()
+        n = br.failure_threshold
+        dicts = [flow_to_dict(f) for f in flows[:n + 2 * BREAKER_OPEN_CHECKS]]
+        c = VerdictClient(path)
+        try:
+            t0 = time.perf_counter()
+            plan = faults.FaultPlan([faults.FaultRule("engine.dispatch",
+                                                      times=n)])
+            with faults.inject(plan):
+                for i in range(n):
+                    r = c.call({"op": "check", "flow": dicts[i]})
+                    check(r.get("verdict") == int(want[i]),
+                          f"[service breaker] fallback {i}: {r}")
+            check(plan.counts("engine.dispatch")[1] == n
+                  and br.state == br.OPEN,
+                  f"[service breaker] {plan.counts('engine.dispatch')} "
+                  f"faults, state {br.state}")
+            k0 = kd.launches
+            got = {}
+
+            def open_check(j):
+                cc = VerdictClient(path)
+                try:
+                    got[j] = cc.call({"op": "check",
+                                      "flow": dicts[n + j]})
+                finally:
+                    cc.close()
+
+            run_threads(open_check, BREAKER_OPEN_CHECKS, "breaker")
+            check(all(got[j].get("verdict") == int(want[n + j])
+                      for j in got) and kd.launches == k0,
+                  f"[service breaker] open checks {got}, KD "
+                  f"{kd.launches - k0} launches")
+            m_open = breaker_counts()
+            open_s = time.perf_counter() - t0
+            held[0] = None
+            while real() - t_hold < br.probe_interval:
+                time.sleep(0.01)
+            k0 = kd.launches
+            for i in range(n + BREAKER_OPEN_CHECKS,
+                           n + 2 * BREAKER_OPEN_CHECKS):
+                r = c.call({"op": "check", "flow": dicts[i]})
+                check(r.get("verdict") == int(want[i]),
+                      f"[service breaker] after recovery {i}: {r}")
+            kd_rose(k0, "breaker recovery")
+        finally:
+            c.close()
+        m1 = breaker_counts()
+        events = [e for e, _ in br.events]
+    check(events == ["trip", "probe", "recover"] and br.state == br.CLOSED,
+          f"[service breaker] transitions {events}")
+    check((m_open[0] - m0[0], m_open[2] - m0[2]) == (
+        1, n + BREAKER_OPEN_CHECKS)
+          and (m1[0] - m0[0], m1[1] - m0[1], m1[2] - m0[2]) == (
+              1, 1, n + BREAKER_OPEN_CHECKS),
+          f"[service breaker] counters {m0} -> {m_open} -> {m1}: want one "
+          f"trip, one recovery, {n + BREAKER_OPEN_CHECKS} oracle verdicts")
+    rep = {"failure_threshold": n, "probe_interval_s": br.probe_interval,
+           "open_checks": BREAKER_OPEN_CHECKS,
+           "oracle_verdicts": int(m1[2] - m0[2]), "trips": 1,
+           "recoveries": 1, "fault_and_open_s": open_s}
+    log(f"[service breaker] {n} dispatch faults: one trip; "
+        f"{BREAKER_OPEN_CHECKS} open checks answered by the oracle "
+        f"(exact); probe after {br.probe_interval} s recovered, KD "
+        f"launched again")
+    return rep
+
+
+def service_kernels(errs, rows, held, card):
+    """KD at phase 9's shapes, after its counts were read: the fused
+    step's path field at the micro-batcher's B = 1 and B = SVC_BATCH_MAX
+    (on the loader's engine, path stack (7, 2048, 28), L = 32), and the
+    stream session's delta scan at its first chunk's shape — each held
+    against the plain version and timed through phase 4's code."""
+    from cilium_tpu_torch.engine import dfa_dense_cuda
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+
+    engine, flows = held["engine"], held["flows"]
+    labels = []
+    for b in (1, SVC_BATCH_MAX):
+        host = host_batches(engine.policy, flows[:b], engine.cfg)
+        fields = field_inputs_of(engine, batch_to_device(host[0], DEVICE))
+        arr, data, lens = fields["path"]
+        a = (arr["path_trans"], arr["path_byteclass"], arr["path_start"],
+             data, lens)
+        hold(errs, "KD", f"service path {tuple(a[0].shape)} B={b} "
+                         f"L={data.shape[1]}",
+             dfa_dense_cuda.dense_scan_cuda(*a, accept=arr["path_accept"],
+                                            extra=arr["rp_path_gaccept"]),
+             dfa_dense_cuda.dense_scan_plain(*a, accept=arr["path_accept"],
+                                             extra=arr["rp_path_gaccept"]))
+        got = kernel_times({"path": fields["path"]}, {}, {}, {}, card,
+                           tag="service-", suffix=f"-b{b}")
+        rows["KD"].extend(got["KD"])
+        labels.append(f"service-path-b{b}")
+    prefix, _, b, l = held["delta"]
+    inputs = {f"service-stream-{k}": v for k, v in session_inputs_of(
+        engine._arrays, [(prefix, b, l)], seed=9).items()}
+    session_check(errs, inputs)
+    rows["KD"].extend(kernel_times({}, {}, {}, inputs, card)["KD"])
+    labels += list(inputs)
+    return [list(r) for r in rows["KD"] if r[0] in labels]
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -2435,7 +3217,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs) -> int:
-    """Phases 2-9 (see the module docstring)."""
+    """Phases 2-10 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
@@ -2522,18 +3304,27 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
                                       "variants": ran}
     log(f"phase 8 wall {loader_report['wall_s']:.1f} s (serving passes), "
         f"oracle wait {loader_report.get('oracle_wait_s', 0.0):.1f} s")
+    log("phase 9: the service and stream plane")
+    service_report, service_launches, service_variants, service_held = \
+        service_phase(card)
+    log("phase 9: KD at the service's shapes, against its plain version")
+    service_report["kd"] = service_kernels(errs, rows, service_held, card)
+    log(f"phase 9 wall {service_report['wall_s']:.1f} s (passes and "
+        f"set-up)")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
     phase_launches.update(legacy["launches"])
     phase_launches["serve"] = serve["launches"]
     phase_launches["loader"] = loader_launches
+    phase_launches["service"] = service_launches
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
     phase_variants.update(legacy["kd_variants"])
     phase_variants["serve"] = serve["kd_variants"]
     phase_variants["loader"] = loader_variants
+    phase_variants["service"] = service_variants
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -2559,7 +3350,8 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
             **({"variants": {n: v for n, v in phase_variants.items() if v},
                 "edge_variants": edge_variants, "sass": kd_sass,
                 "loader_path": loader_report["kd_path"],
-                "loader_path_retry": loader_report["kd_path_retry"]}
+                "loader_path_retry": loader_report["kd_path_retry"],
+                "service_shapes": service_report["kd"]}
                if kid == "KD" else {}),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
@@ -2580,6 +3372,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
         "card": card}))
     log("serve: " + json.dumps(report))
     log("loader: " + json.dumps(loader_report))
+    log("service: " + json.dumps(service_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,15 @@ dataclasses, environment overrides (``from_env``) and one master
 feature gate ``enable_tpu_offload``.
 
 The port carries ``engine``, ``loader``, ``compile``, ``tenant`` and
-``canary`` (the verdict engine and the loader plane), and ``provenance``
+``canary`` (the verdict engine and the loader plane), ``provenance``
 and ``slo`` (which ``runtime.serveloop.ServeLoop`` reads off its
-loader's config). The reference's other sections (admission, breaker,
-tracing, serve, fleet, dst, parallel), its agent fields, its TOML
+loader's config), and ``admission``, ``breaker`` and ``serve`` (which
+``runtime.service`` and ``runtime.stream`` read). The reference's other
+sections (tracing, fleet, dst, parallel), its agent fields, its TOML
 reader and the environment settings of fields that no ported module
 reads yet (``identity_regen_debounce_s``, the tenant quantum and quota
-TTL) come with the modules that read them.
+TTL, the REST API's ``admission.api_max_inflight``) come with the
+modules that read them.
 
 Two deliberate deviations from the reference, each tested
 (``tests/test_torch_loader.py``):
@@ -179,6 +181,69 @@ class CompileConfig:
 
 
 @dataclasses.dataclass
+class AdmissionConfig:
+    """Overload admission control (runtime/admission.py): bounded
+    verdict-queue occupancy with explicit sheds, two priority classes
+    (control traffic never sheds behind data-path verdicts), deadline
+    feasibility, and the drain/warm-restart sequence's knobs."""
+
+    enabled: bool = True
+    #: verdict-queue occupancy bound: data-path requests shed here
+    max_pending: int = 1024
+    #: control-class headroom above max_pending (policy/config/drain/
+    #: health ops admitted while data traffic sheds)
+    control_reserve: int = 64
+    #: deadline assigned to requests that carry none (deadline_ms on
+    #: the wire overrides per request)
+    default_deadline_ms: float = 5000.0
+    #: per-session chunk credits a stream server advertises (0
+    #: disables credit flow control)
+    stream_credit_window: int = 32
+    #: drain flush budget: pending verdicts still unflushed after this
+    #: resolve as ERROR (the abort tail of a stuck drain)
+    drain_timeout_s: float = 30.0
+
+
+@dataclasses.dataclass
+class BreakerConfig:
+    """TPU-lane circuit breaker (runtime/service.py): after
+    ``failure_threshold`` consecutive device-dispatch failures the
+    verdict path trips to the CPU oracle (correct but slower) and
+    half-open probes the device lane every ``probe_interval`` seconds
+    until a probe succeeds. Mirrors pkg/controller's backoff
+    discipline applied to the datapath itself: degrade gracefully,
+    never wrongly."""
+
+    enabled: bool = True
+    failure_threshold: int = 3
+    probe_interval: float = 5.0
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    """Continuously-batched serving loop (runtime/serveloop.py +
+    engine/ring.py): streams are admitted into verdict-ring slot
+    leases and whatever slots have pending chunks are packed into one
+    fused dispatch per ``pack_interval_ms``. Off by default — the
+    stream path then uses its per-session dispatch (the pre-ring
+    behavior); both are verdict-bit-equal."""
+
+    enabled: bool = False
+    #: verdict-ring slots (= concurrently admitted streams); a new
+    #: stream past this sheds with reason ``ring-full``
+    slot_capacity: int = 1024
+    #: idle lease lifetime: a stream silent this long loses its slot
+    #: (reconnect-with-resume re-grants)
+    lease_ttl_s: float = 30.0
+    #: continuous-batching cadence: the pack thread drains pending
+    #: slots into one fused dispatch this often
+    pack_interval_ms: float = 2.0
+    #: per-slot pending-chunk bound: a producer outrunning the pack
+    #: cycle sheds (``queue-full``) instead of buffering forever
+    max_slot_pending: int = 64
+
+
+@dataclasses.dataclass
 class SLOConfig:
     """Declared service-level objectives (runtime/slo.py): the serve
     loop tracks multi-window error-budget burn rates against these
@@ -288,8 +353,12 @@ class Config:
     policy_audit_mode: bool = False
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
     loader: LoaderConfig = dataclasses.field(default_factory=LoaderConfig)
+    breaker: BreakerConfig = dataclasses.field(default_factory=BreakerConfig)
+    admission: AdmissionConfig = dataclasses.field(
+        default_factory=AdmissionConfig)
     compile: CompileConfig = dataclasses.field(
         default_factory=CompileConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
     provenance: ProvenanceConfig = dataclasses.field(
         default_factory=ProvenanceConfig)
@@ -347,6 +416,24 @@ class Config:
         if env.get("CILIUM_TPU_COMPILE_BANK_ARTIFACTS", "").lower() in (
                 "0", "false", "no", "off"):
             cfg.compile.bank_artifacts = False
+        if "CILIUM_TPU_ADMISSION_MAX_PENDING" in env:
+            cfg.admission.max_pending = int(
+                env["CILIUM_TPU_ADMISSION_MAX_PENDING"])
+        if "CILIUM_TPU_STREAM_CREDIT_WINDOW" in env:
+            cfg.admission.stream_credit_window = int(
+                env["CILIUM_TPU_STREAM_CREDIT_WINDOW"])
+        if env.get("CILIUM_TPU_SERVE_LOOP", "").lower() in (
+                "1", "true", "yes"):
+            cfg.serve.enabled = True
+        if "CILIUM_TPU_SERVE_SLOT_CAPACITY" in env:
+            cfg.serve.slot_capacity = int(
+                env["CILIUM_TPU_SERVE_SLOT_CAPACITY"])
+        if "CILIUM_TPU_SERVE_LEASE_TTL_S" in env:
+            cfg.serve.lease_ttl_s = float(
+                env["CILIUM_TPU_SERVE_LEASE_TTL_S"])
+        if "CILIUM_TPU_SERVE_PACK_INTERVAL_MS" in env:
+            cfg.serve.pack_interval_ms = float(
+                env["CILIUM_TPU_SERVE_PACK_INTERVAL_MS"])
         if "CILIUM_TPU_SLO_SERVE_P99_MS" in env:
             cfg.slo.serve_p99_ms = float(
                 env["CILIUM_TPU_SLO_SERVE_P99_MS"])

@@ -5,8 +5,12 @@ library with a plain C interface under ``cilium_tpu_torch/_build/``
 (git-ignored) at first use, and loaded with ``ctypes``. Every C entry
 point takes its pointers and the stream as ``void*``, launches on the
 stream it is given and returns ``cudaGetLastError()``; :meth:`Kernel.
-launch` raises on anything but 0. A build failure raises too: there is
-no fallback to the plain versions on a CUDA tensor.
+launch` raises :class:`KernelError` on anything but 0. A build failure
+raises it too, and so does a wrapper handed an argument its kernel does
+not take (:class:`KernelArgumentError`): there is no fallback to the
+plain versions on a CUDA tensor, and the service's circuit breaker lets
+these errors through (:func:`is_kernel_failure`) instead of answering
+from the CPU oracle.
 
 The library name carries a hash of its source and of the shared
 headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a stale
@@ -21,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -32,6 +37,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch."""
+
+
+class KernelArgumentError(KernelError, ValueError, TypeError):
+    """A kernel's wrapper was handed a tensor its kernel does not take
+    (on the CPU, of another type, of inconsistent shapes). Also a
+    ``ValueError`` and a ``TypeError``, what such checks raise
+    elsewhere."""
+
+
+def is_kernel_failure(exc: BaseException) -> bool:
+    """Did a kernel fail? A :class:`KernelError`, or an error that CUDA
+    reported to torch (an asynchronous fault, such as an illegal
+    address, surfaces at the next synchronising call, not in the
+    launch that caused it). An out-of-memory error is not one."""
+    if isinstance(exc, KernelError):
+        return True
+    import torch
+
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    return isinstance(exc, RuntimeError) and \
+        str(exc).startswith("CUDA error")
 
 
 def _headers() -> List[str]:
@@ -46,7 +78,7 @@ def nvcc_path() -> str:
                  shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+    raise KernelError("nvcc not found (set CUDA_HOME): the port's CUDA "
                        "kernels are built from engine/csrc at first use")
 
 
@@ -54,7 +86,12 @@ class Kernel:
     """One hand-written kernel: its source, its C symbol and argument
     types, the reference function it replaces (``file:line``), and a
     count of launches (one per call of :meth:`launch`, and nowhere
-    else), also kept per variant for a kernel that has several."""
+    else), also kept per variant for a kernel that has several.
+
+    Several threads launch at once (the service's drain workers, each
+    stream's worker, the serve loop's pack thread): one lock serialises
+    the library's load and the counts' updates, so the counts are
+    exact; the C call itself runs outside it."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -67,6 +104,7 @@ class Kernel:
         self.launches_by_variant: Dict[str, int] = {}
         self._fn = None
         self._lib = None
+        self._lock = threading.Lock()
 
     @property
     def source_path(self) -> str:
@@ -101,16 +139,25 @@ class Kernel:
         ``variant`` names which of the kernel's variants the arguments
         launch, for :attr:`launches_by_variant`."""
         if self._fn is None:
-            self._load()
+            with self._lock:
+                if self._fn is None:
+                    self._load()
         rc = self._fn(*args)
         if rc != 0:
             msg = self._lib.ct_error_string(rc).decode()
-            raise RuntimeError(f"{self.name} kernel launch failed: "
+            raise KernelError(f"{self.name} kernel launch failed: "
                                f"{msg} (cudaError {rc})")
-        self.launches += 1
-        if variant is not None:
-            self.launches_by_variant[variant] = \
-                self.launches_by_variant.get(variant, 0) + 1
+        with self._lock:
+            self.launches += 1
+            if variant is not None:
+                self.launches_by_variant[variant] = \
+                    self.launches_by_variant.get(variant, 0) + 1
+
+    def reset(self) -> None:
+        """Set the counts to 0."""
+        with self._lock:
+            self.launches = 0
+            self.launches_by_variant = {}
 
 
 def build(kernels: Optional[Sequence[Kernel]] = None) -> float:
@@ -136,14 +183,13 @@ def build(kernels: Optional[Sequence[Kernel]] = None) -> float:
             continue
         os.replace(tmp, out)      # atomic: a half-written .so is never seen
     if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(errors))
     return time.perf_counter() - t0
 
 
 def reset_launches() -> None:
     for k in KERNELS.values():
-        k.launches = 0
-        k.launches_by_variant = {}
+        k.reset()
 
 
 KERNELS: Dict[str, Kernel] = {
@@ -168,10 +214,11 @@ def cuda_check(t, dtype, what: str) -> None:
     a CPU tensor or a wrong type — the kernels take nothing else, and
     the wrapper never converts silently."""
     if not getattr(t, "is_cuda", False):
-        raise ValueError(f"{what}: the CUDA kernel takes a CUDA tensor, "
-                         f"got {getattr(t, 'device', type(t))}")
+        raise KernelArgumentError(
+            f"{what}: the CUDA kernel takes a CUDA tensor, got "
+            f"{getattr(t, 'device', type(t))}")
     if t.dtype != dtype:
-        raise TypeError(f"{what}: expected {dtype}, got {t.dtype}")
+        raise KernelArgumentError(f"{what}: expected {dtype}, got {t.dtype}")
 
 
 def cuda_arg(t, dtype, what: str):

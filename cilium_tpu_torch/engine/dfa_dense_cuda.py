@@ -159,7 +159,7 @@ def dense_scan_cuda(trans, byteclass, start, data, lengths,
     B, L = data.shape
     if byteclass.shape != (NB, 256) or start.shape != (NB,) \
             or lengths.shape != (B,):
-        raise ValueError("dense_scan: inconsistent shapes")
+        raise _build.KernelArgumentError("dense_scan: inconsistent shapes")
     row_stride, col_stride = data.stride()
     if L > 1 and col_stride != 1:
         data = data.contiguous()
@@ -172,13 +172,15 @@ def dense_scan_cuda(trans, byteclass, start, data, lengths,
         accept = _table(accept, i32, "accept")
         W = accept.shape[2]
         if accept.shape[:2] != (NB, S):
-            raise ValueError("dense_scan: accept must be [NB, S, W]")
+            raise _build.KernelArgumentError(
+                "dense_scan: accept must be [NB, S, W]")
         words = data.new_empty((B, NB, W), dtype=i32)
         if extra is not None:
             extra = _table(extra, i32, "extra")
             Wg = extra.shape[2]
             if extra.shape[:2] != (NB, S):
-                raise ValueError("dense_scan: extra must be [NB, S, Wg]")
+                raise _build.KernelArgumentError(
+                    "dense_scan: extra must be [NB, S, Wg]")
             xwords = data.new_empty((B, NB, Wg), dtype=i32)
     if B and NB:
         dptr = data.data_ptr()

@@ -32,9 +32,9 @@ def pallas_supported(trans_shape) -> bool:
     return trans_shape[1] <= MAX_STATES
 
 
-def _check_states(S: int) -> None:
+def _check_states(S: int, exc=ValueError) -> None:
     if S > MAX_STATES:
-        raise ValueError(
+        raise exc(
             f"oblivious DFA kernel needs ≤{MAX_STATES} states/bank, got "
             f"{S} (compile with a smaller bank_size)")
 
@@ -72,11 +72,12 @@ def dfa_finals_oblivious_cuda(trans, byteclass, start, data, lengths):
     data = _build.cuda_arg(data, torch.uint8, "data")
     lengths = _build.cuda_arg(lengths, i32, "lengths")
     NB, S, K = trans.shape
-    _check_states(S)
+    _check_states(S, _build.KernelArgumentError)
     B, L = data.shape
     if byteclass.shape != (NB, 256) or start.shape != (NB,) \
             or lengths.shape != (B,):
-        raise ValueError("dfa_finals_oblivious: inconsistent shapes")
+        raise _build.KernelArgumentError(
+            "dfa_finals_oblivious: inconsistent shapes")
     finals = torch.empty((NB, B), dtype=i32, device=trans.device)
     KERNEL.launch(trans.data_ptr(), byteclass.data_ptr(), start.data_ptr(),
                   data.data_ptr(), lengths.data_ptr(), finals.data_ptr(),

@@ -61,12 +61,12 @@ def nfa_finals_cuda(follow, acc_cls, byteclass, start, data, lengths):
     NB, P, K = acc_cls.shape
     B, L = data.shape
     if P > MAX_POSITIONS:
-        raise ValueError(
+        raise _build.KernelArgumentError(
             f"NFA kernel needs ≤{MAX_POSITIONS} positions/bank, got {P} "
             f"(compile with a smaller bank_size)")
     if follow.shape != (NB, P, P) or start.shape != (NB, P) \
             or byteclass.shape != (NB, 256) or lengths.shape != (B,):
-        raise ValueError("nfa_finals: inconsistent shapes")
+        raise _build.KernelArgumentError("nfa_finals: inconsistent shapes")
     finals = torch.empty((NB, B, P), dtype=f32, device=data.device)
     if P == 0:
         return finals            # nothing to scan: no launch

@@ -1,8 +1,10 @@
 """The metric families the port's capture replay, verdict memo,
-online serving path and loader plane report, under the reference's
-names (``runtime/metrics.py``), and the part of its registry they use:
-counters (``inc``/``get``), gauges (``set_gauge``), histograms
-(``observe``/``histo_sum``) and :class:`SpanStat`. No exporter.
+online serving path, loader plane, verdict service and stream report,
+under the reference's names (``runtime/metrics.py``), and the part of
+its registry they use: counters (``inc``/``get``), gauges
+(``set_gauge``), histograms (``observe``/``histo_sum``/``histogram``),
+:class:`SpanStat`, and the Prometheus text the service's ``metrics``
+op returns (``expose``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,47 @@ VERDICT_MEMO_HITS = "cilium_tpu_verdict_memo_hits_total"
 VERDICT_MEMO_MISSES = "cilium_tpu_verdict_memo_misses_total"
 #: verdict-memo drops, by reason
 VERDICT_MEMO_INVALIDATIONS = "cilium_tpu_verdict_memo_invalidations_total"
+
+# -- the TPU-lane circuit breaker (runtime/service.py)
+#: breaker CLOSED->OPEN transitions (N consecutive device failures)
+BREAKER_TRIPS = "cilium_tpu_breaker_trips_total"
+#: breaker HALF_OPEN->CLOSED transitions (a probe succeeded)
+BREAKER_RECOVERIES = "cilium_tpu_breaker_recoveries_total"
+#: verdicts served by the CPU oracle because the device lane was
+#: tripped or the dispatch failed (correct-but-slower path)
+BREAKER_FALLBACK_VERDICTS = "cilium_tpu_breaker_fallback_verdicts_total"
+#: gauge: 0 = CLOSED (device serving), 1 = OPEN (oracle serving),
+#: 2 = HALF_OPEN (probe in flight)
+BREAKER_STATE = "cilium_tpu_breaker_state"
+#: graceful drains completed (admission stopped, pending flushed)
+DRAINS = "cilium_tpu_drains_total"
+
+# -- the verdict service and the chunked stream (runtime/service.py,
+# runtime/stream.py)
+#: records per MicroBatcher flush
+MICROBATCH_SIZE = "cilium_tpu_microbatch_size"
+#: MicroBatcher flush wall seconds
+MICROBATCH_SECONDS = "cilium_tpu_microbatch_seconds"
+#: flows verdicted via the bulk service op
+SERVICE_VERDICTS = "cilium_tpu_service_verdicts_total"
+#: verdicts returned over the chunked binary stream
+STREAM_VERDICTS = "cilium_tpu_stream_verdicts_total"
+#: stream chunks answered, by route (session / ring / oracle /
+#: fallback) — a port addition: which path a chunk took is otherwise
+#: invisible, since every route answers the same verdicts
+STREAM_CHUNKS = "cilium_tpu_stream_chunks_total"
+#: stream frames a client dropped for an unknown kind
+STREAM_UNKNOWN_FRAMES = "cilium_tpu_stream_unknown_frames_total"
+#: stream-client sends that blocked at zero credit (backpressure)
+STREAM_CREDIT_WAITS = "cilium_tpu_stream_credit_waits_total"
+#: credit grants sent by stream servers (one per answered chunk)
+STREAM_CREDITS_GRANTED = "cilium_tpu_stream_credits_granted_total"
+#: stream-client reconnect attempts that re-established the session
+STREAM_RECONNECTS = "cilium_tpu_stream_reconnects_total"
+#: NPDS mapstate pulls served to shims
+NPDS_PULLS = "cilium_tpu_npds_pulls_total"
+#: L7 proxy policy checks, by proto and verdict
+POLICY_L7 = "cilium_tpu_policy_l7_total"
 
 #: faults fired by an armed FaultPlan, by injection point
 FAULTS_INJECTED = "cilium_tpu_faults_injected_total"
@@ -136,7 +179,7 @@ _BUCKETS: Dict[str, Tuple[float, ...]] = {
     CAPTURE_STAGE_SECONDS: (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
                             2.5, 5.0, 10.0, 30.0, 60.0, 120.0),
     SERVE_PACK_RECORDS: SIZE_BUCKETS, SERVE_PACK_STREAMS: SIZE_BUCKETS,
-    SERVE_PACK_OCCUPANCY: SIZE_BUCKETS}
+    SERVE_PACK_OCCUPANCY: SIZE_BUCKETS, MICROBATCH_SIZE: SIZE_BUCKETS}
 
 
 class _Histogram:
@@ -202,6 +245,68 @@ class Metrics:
         with self._lock:
             h = self._histos.get(self._key(name, labels))
             return float(h.sum) if h is not None else 0.0
+
+    def histogram(self, name: str,
+                  labels: Optional[Dict[str, str]] = None
+                  ) -> Dict[str, int]:
+        """One series' observations per bucket, keyed by the bucket's
+        upper bound (``"+Inf"`` last); empty when never observed."""
+        with self._lock:
+            h = self._histos.get(self._key(name, labels))
+            if h is None:
+                return {}
+            return dict(zip([_num(b) for b in h.buckets] + ["+Inf"],
+                            h.counts))
+
+    def expose(self) -> str:
+        """Prometheus text format: one ``# TYPE`` line per family,
+        cumulative ``_bucket{le=...}`` series ending ``+Inf`` plus
+        ``_count``/``_sum`` per histogram series."""
+        out = []
+        with self._lock:
+            series = [(sorted(self._counters.items()), "counter"),
+                      (sorted(self._gauges.items()), "gauge")]
+            histos = sorted(self._histos.items(), key=lambda kv: kv[0])
+        for items, typ in series:
+            last = None
+            for (name, labels), v in items:
+                if name != last:
+                    out.append(f"# TYPE {name} {typ}")
+                    last = name
+                out.append(f"{_fmt(name, labels)} {_num(v)}")
+        last = None
+        for (name, labels), h in histos:
+            if name != last:
+                out.append(f"# TYPE {name} histogram")
+                last = name
+            cum = 0
+            for bound, n in zip(h.buckets, h.counts):
+                cum += n
+                le = labels + (("le", _num(bound)),)
+                out.append(f"{_fmt(name + '_bucket', le)} {cum}")
+            le = labels + (("le", "+Inf"),)
+            out.append(f"{_fmt(name + '_bucket', le)} {h.count}")
+            out.append(f"{_fmt(name + '_count', labels)} {h.count}")
+            out.append(f"{_fmt(name + '_sum', labels)} {_num(h.sum)}")
+        return "\n".join(out) + "\n"
+
+
+def _num(v: float) -> str:
+    """Integers without a trailing .0 (the Prometheus convention)."""
+    f = float(v)
+    return str(int(f)) if f.is_integer() and abs(f) < 1e15 else repr(f)
+
+
+def _escape_label(v) -> str:
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _fmt(name: str, labels: Tuple) -> str:
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in labels)
+    return f"{name}{{{inner}}}"
 
 
 #: the process's registry

@@ -9,8 +9,8 @@ read.
   plus per-tenant fair-queueing weights. Pure and deterministic.
 
 The admission plane's ``TenantQuotas`` and ``FairShareWindow`` arrive
-with the service slice (queue 1, Q4b). The namespace partition of the
-bank plane is built by the loader from this map — see
+with their only reader, the DST slice (queue 1, Q11). The namespace
+partition of the bank plane is built by the loader from this map — see
 ``Loader._tenant_namer`` and ``policy/compiler/bankplan``.
 """
 

@@ -1,5 +1,6 @@
 """Request-scoped tracing: the sampled flight recorder (the part of the
-reference's ``runtime/tracing.py`` the serving path uses).
+reference's ``runtime/tracing.py`` the serving path, the verdict
+service and the stream use).
 
 Every ingress may draw a trace id; the context rides a contextvar
 through the layers, and each layer records **phase-attributed spans**
@@ -17,7 +18,7 @@ import contextvars
 import threading
 import uuid
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from cilium_tpu_torch.runtime import simclock
 from cilium_tpu_torch.runtime.metrics import METRICS, TRACE_SPANS
@@ -66,6 +67,26 @@ class TraceContext:
 
     def members(self) -> Tuple["TraceContext", ...]:
         return (self,)
+
+
+class GroupContext:
+    """A batch's worth of contexts: one measured span fans out to
+    every member (a MicroBatcher flush serves many requests; each
+    request's trace must still show the batch's device phase)."""
+
+    __slots__ = ("_members",)
+
+    def __init__(self, members: Sequence[TraceContext]):
+        self._members = tuple(members)
+
+    @property
+    def trace_id(self) -> str:
+        # a group is not ONE trace: the first member keeps log lines
+        # joinable
+        return self._members[0].trace_id if self._members else ""
+
+    def members(self) -> Tuple[TraceContext, ...]:
+        return self._members
 
 
 class _NoopSpan:
@@ -144,6 +165,21 @@ class Tracer:
             trace_id = new_trace_id()
         return TraceContext(trace_id, name, attrs or None)
 
+    def activate(self, ctx) -> "_Activation":
+        """``with TRACER.activate(ctx): ...`` — contextvar scope (no-op
+        for None, so callers never branch)."""
+        return _Activation(ctx)
+
+    def group(self, ctxs: Sequence[Optional[TraceContext]]):
+        """Collapse a batch's member contexts: None when none are
+        sampled, the single member, or a :class:`GroupContext`."""
+        live = [c for c in ctxs if c is not None]
+        if not live:
+            return None
+        if len(live) == 1:
+            return live[0]
+        return GroupContext(live)
+
     def trace(self, name: str, trace_id: Optional[str] = None,
               **attrs) -> "_RootTrace":
         """start + activate + a root span recorded on exit:
@@ -175,6 +211,14 @@ class Tracer:
         if ctx is None or not self.enabled:
             return _NOOP
         return _SpanCM(self, ctx, name, phase, attrs)
+
+    def add_span(self, ctx, name: str, phase: str,
+                 t0: float, dur: float, **attrs) -> None:
+        """Record a span with explicit timing — for durations measured
+        elsewhere (queue-wait from enqueue stamps)."""
+        if ctx is None or not self.enabled:
+            return
+        self._record(ctx, name, phase, t0, dur, attrs)
 
     def event(self, name: str, ctx=None, **attrs) -> None:
         """Point-in-time annotation attached to the active trace."""
@@ -300,6 +344,23 @@ class Tracer:
             self._ring.clear()
             self.dropped = 0
             self._ingress = 0
+
+
+class _Activation:
+    __slots__ = ("ctx", "_token")
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+
+    def __enter__(self):
+        self._token = (_CURRENT.set(self.ctx)
+                       if self.ctx is not None else None)
+        return self.ctx
+
+    def __exit__(self, *exc):
+        if self._token is not None:
+            _CURRENT.reset(self._token)
+        return False
 
 
 class _RootTrace:

@@ -357,3 +357,74 @@ def test_kd_at_the_loader_path_stack_equals_plain(cuda):
     assert _build.KERNELS["KD"].launches_by_variant == {"smem": 4}
     assert megakernel.plan_for_engine(pol, EngineConfig(), cuda)[0][
         "path"] == "dfa-dense"
+
+
+def test_service_and_stream_on_card_equal_plain(cuda, tmp_path,
+                                                monkeypatch):
+    """The port's ``VerdictService`` over a loader on the card: ``check``
+    requests and a stream, every verdict equal to the plain engine of
+    the same compiled policy, KD launched, the breaker untouched."""
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.runtime.loader import Loader
+    from cilium_tpu_torch.runtime.metrics import METRICS
+    from cilium_tpu_torch.runtime.service import (
+        VerdictClient,
+        VerdictService,
+    )
+    from cilium_tpu_torch.runtime.stream import StreamClient
+
+    monkeypatch.setenv("CILIUM_TPU_DFA_IMPL", "gather")
+    pi, sc = synth.realize_scenario(synth.scenario_by_name("http", 60, 512))
+    cfg = Config()
+    cfg.loader.cache_dir = str(tmp_path / "cache")
+    loader = Loader(cfg)
+    trips = "cilium_tpu_breaker_trips_total"
+    fallback = "cilium_tpu_breaker_fallback_verdicts_total"
+    before = (METRICS.get(trips), METRICS.get(fallback))
+    try:
+        engine = loader.regenerate(pi, revision=1)
+        want = [int(v) for v in TorchVerdictEngine(
+            engine.policy, device="cpu", cfg=cfg.engine).verdict_flows(
+                sc.flows)["verdict"]]
+        svc = VerdictService(loader, str(tmp_path / "v.sock"),
+                             deadline_ms=1.0)
+        svc.start()
+        try:
+            _build.reset_launches()
+            c = VerdictClient(svc.socket_path)
+            got = [c.call({"op": "check", "flow": flow_to_dict(f)})[
+                "verdict"] for f in sc.flows[:32]]
+            c.close()
+            assert got == want[:32]
+            assert _build.KERNELS["KD"].launches > 0
+            _build.reset_launches()
+            s = StreamClient(svc.socket_path)
+            seqs = [s.send_flows(sc.flows[i:i + 128])
+                    for i in range(0, 512, 128)]
+            got = [int(v) for q in seqs for v in s.result(q)]
+            s.finish()
+            s.close()
+            assert got == want
+            assert _build.KERNELS["KD"].launches > 0
+        finally:
+            svc.stop()
+    finally:
+        loader.close()
+    assert (METRICS.get(trips), METRICS.get(fallback)) == before
+
+
+def test_stream_readback_equals_a_blocking_copy(cuda):
+    """The stream's pinned, non-blocking readback returns the bytes a
+    blocking copy does, for a lane written just before it is issued."""
+    from cilium_tpu_torch.runtime.stream import Readback, _host_verdicts
+
+    rng = np.random.default_rng(3)
+    for n, pad in ((1, 32), (1000, 1024), (4096, 4096)):
+        lane = _t(rng.integers(0, 6, pad).astype(np.int32), cuda)
+        lane = lane * 1  # a kernel still in flight when the copy issues
+        rb = Readback(lane, n)
+        assert rb.host.is_pinned()
+        got = _host_verdicts(rb, n)
+        want = lane[:n].cpu().numpy().astype(np.uint8)
+        assert got.dtype == np.uint8 and np.array_equal(got, want)

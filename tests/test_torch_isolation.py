@@ -48,10 +48,15 @@ _EXPECTED = ("cilium_tpu_torch.engine.megakernel",
              "cilium_tpu_torch.policy.compiler.bankplan",
              "cilium_tpu_torch.policy.compiler.compilequeue",
              "cilium_tpu_torch.policy.oracle",
+             "cilium_tpu_torch.proxylib.http",
+             "cilium_tpu_torch.proxylib.kafka",
              "cilium_tpu_torch.runtime.canary",
              "cilium_tpu_torch.runtime.checkpoint",
              "cilium_tpu_torch.runtime.loader",
-             "cilium_tpu_torch.runtime.metrics")
+             "cilium_tpu_torch.runtime.metrics",
+             "cilium_tpu_torch.runtime.npds",
+             "cilium_tpu_torch.runtime.service",
+             "cilium_tpu_torch.runtime.stream")
 
 
 def test_every_module_imports_without_jax_cilium_tpu_or_yaml():

@@ -340,14 +340,18 @@ def test_config_deviations_and_from_env():
     ported = {f.name for f in dataclasses.fields(pc)}
     assert ported == {"enable_tpu_offload", "policy_audit_mode", "engine",
                       "loader", "compile", "slo", "provenance", "tenant",
-                      "canary"}
+                      "canary", "admission", "breaker", "serve"}
 
     def sections(cfg):
         d = dataclasses.asdict(cfg)
         d["loader"].pop("cache_dir")
         return {k: d[k] for k in ported - {"enable_tpu_offload"}}
 
-    assert sections(jc) == sections(pc)
+    # the REST API's bound comes with the API (queue 1's Q13)
+    jsec = sections(jc)
+    assert jsec["admission"].pop("api_max_inflight") == 64
+    assert not hasattr(pc.admission, "api_max_inflight")
+    assert jsec == sections(pc)
     env = {"CILIUM_TPU_COMPILE_WORKERS": "3",
            "CILIUM_TPU_COMPILE_DEADLINE_S": "9.5",
            "CILIUM_TPU_BANK_ISOLATION": "0",
@@ -358,8 +362,15 @@ def test_config_deviations_and_from_env():
            "CILIUM_TPU_CANARY_MIN_SAMPLES": "8",
            "CILIUM_TPU_SLO_SHED_RATE": "0.01",
            "CILIUM_TPU_PROVENANCE": "0",
+           "CILIUM_TPU_ADMISSION_MAX_PENDING": "17",
+           "CILIUM_TPU_STREAM_CREDIT_WINDOW": "5",
+           "CILIUM_TPU_SERVE_LOOP": "1",
+           "CILIUM_TPU_SERVE_SLOT_CAPACITY": "33",
+           "CILIUM_TPU_SERVE_LEASE_TTL_S": "7.5",
+           "CILIUM_TPU_SERVE_PACK_INTERVAL_MS": "0.5",
            "CILIUM_TPU_POLICY_AUDIT_MODE": "1"}
     jd = dataclasses.asdict(JAX.config.Config.from_env(env))
+    jd["admission"].pop("api_max_inflight")
     pd = dataclasses.asdict(PORT.config.Config.from_env(env))
     assert pd["loader"]["cache_dir"] == "/x"
     assert {k: jd[k] for k in ported} == {**pd, "enable_tpu_offload": False}
