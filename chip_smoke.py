@@ -137,7 +137,32 @@ Phases, in order (any failure exits non-zero before the result line):
    version and timed at the micro-batcher's B = 1 and 256 and at the
    stream session's first delta scan. A ``service: {...}`` line
    carries the numbers;
-10. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+10. the cluster-mesh lanes, each through the port's entry points in a
+   spawned process of its own, one after another (each reads its own
+   peak RSS and launch counts): the churn storm (``runtime/fleet.run``
+   at 10000 identities x 5000 CNPs, 200 classes, through the port's
+   ``Loader``, its capture-replay session bit-equal to the serving
+   engine after every update, to the CPU oracle on sampled updates and
+   to a ``device="cpu"`` engine after the cold build and every tenth
+   update, with the probe of every churned rule so far, added or
+   deleted, replayed through a session on the card beside the corpus;
+   compiles per update within 1.1 x 0.929; update to
+   enforcement p50/p99 ms), the serve soak (``runtime/loadmodel`` at
+   100000 virtual streams, the pack thread under an autojumping
+   virtual clock, seeded serve faults; zero violations, concurrency
+   >= 95 %) and the serving fleet (``runtime/fleetserve`` at 1050000
+   streams over four replicas, one loader each, with a host killed,
+   one partitioned, one drained and all rejoined warm: zero
+   violations, zero unrecovered streams, zero survivor and rejoin
+   compiles, explain coverage 1.0). The soak's and the fleet's pools
+   of ground truth are held against a ``device="cpu"`` engine; their
+   p50/p99 are virtual (the 50 ms pack interval on the simulation
+   clock), printed as such beside the wall seconds, records per wall
+   second and a traced pack's device kernels and ms. Then KD is held
+   against its plain version at the storm's path stack (30, 2816, 18)
+   at its corpus's B and the soak's mean pack, under both variants,
+   and timed. A ``fleet: {...}`` line carries the numbers;
+11. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -179,6 +204,13 @@ TENSOR_INT8_OPS_PER_S = 1979e12
 #: times on two batches of one shape
 TIMING_RATIO_MAX = 1.25
 #: what the operation count of each kernel's bound counts
+#: what the byte count of each kernel's bound counts (and the outputs)
+BOUND_BYTES = {
+    "KD": "the live flow bytes, the class tables, each transition entry "
+          "the scan reads and the accept rows of its final states, once",
+    "K1": "the live flow bytes and every table, once",
+    "K2": "the live flow bytes and every table, once",
+}
 BOUND_OPS = {
     "KD": "2 per live byte and bank (one transition), non-tensor peak",
     "K1": "2*NB*B*(L-1)*P*P (D . Follow), int8 tensor-core peak",
@@ -241,6 +273,24 @@ RING_CLIENTS, SWAP_CHUNKS = 8, 10
 KAFKA_RULES, KAFKA_ROUND_TRIPS, KAFKA_CLIENTS = 1000, 1000, 8
 BREAKER_OPEN_CHECKS, BREAKER_PROBE_S = 8, 0.2
 DRAIN_PENDING, DRAIN_DEADLINE_MS = 16, 2000.0
+#: phase 10: the cluster-mesh lanes at the reference's lane settings
+#: (``make churn-fleet``, ``serve-soak``, ``serve-fleet``): the churn
+#: storm's identities, CNPs, committed updates and compile workers; the
+#: soak's streams, virtual seconds and armed serve faults; the fleet's
+#: streams, hosts, virtual seconds, emitting fraction, armed heartbeat
+#: and handoff faults and its handoff floor; and the time the three
+#: lanes, run one after another, may take in all. To keep the three,
+#: run in turn, near 300 s of wall, the soak's virtual seconds are cut
+#: from the reference's 120 to 60 (every stream still arrives within
+#: the 30 s ramp) and the storm's updates from 56 to 28. The fleet keeps
+#: its 120: its wall is its 1.05M arrivals, which fewer virtual seconds
+#: barely shorten, and at 60 its failover replays all but vanish
+CHURN_IDENTITIES, CHURN_CNPS, CHURN_UPDATES, CHURN_WORKERS = \
+    10_000, 5_000, 28, 4
+SOAK_STREAMS, SOAK_VIRTUAL_S, SOAK_FAULTS = 100_000, 60.0, 12
+FLEET_STREAMS, FLEET_HOSTS, FLEET_VIRTUAL_S = 1_050_000, 4, 120.0
+FLEET_ACTIVE, FLEET_FAULTS, FLEET_MIN_HANDOFFS = 0.02, 8, 400
+LANE_TIMEOUT_S = 600.0
 #: capture arm → (phase-4 configuration it replays on, kernels it must
 #: launch)
 CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
@@ -324,17 +374,41 @@ def profile_kernels(fn, reps: int):
     return out
 
 
-def kernel_device_ms(fn, symbol: str, reps: int = 20, tries: int = 3):
+def queued_event_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` (one kernel launch) by CUDA
+    events: the launches and their events are queued behind a sleep
+    kernel, so each event pair brackets the kernel alone and none of
+    the host's time between launches; the median over ``reps``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)      # ~25 ms at 2 GHz
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def kernel_device_ms(fn, symbol: str, reps: int = 20, tries: int = 6):
     """Device time of one launch of the kernel whose symbol contains
-    ``symbol`` (profiler); None when the profiler saw no such kernel in
-    any of ``tries`` traces (a trace now and then comes back without
-    the kernel's events)."""
-    for _ in range(tries):
-        hits = [(n, ms) for k, (n, ms) in profile_kernels(fn, reps).items()
-                if symbol in k]
+    ``symbol`` (profiler). A trace now and then comes back with no
+    device events at all; after ``tries`` such traces (each logged),
+    :func:`queued_event_ms` times it instead."""
+    for i in range(tries):
+        seen = profile_kernels(fn, reps)
+        hits = [(n, ms) for k, (n, ms) in seen.items() if symbol in k]
         if hits:
             return sum(h[1] for h in hits) / sum(h[0] for h in hits)
-    return None
+        log(f"  (trace {i + 1} of {tries} saw no {symbol}; its device "
+            f"events: {sorted(seen)[:4]})")
+    ms = queued_event_ms(fn, reps)
+    log(f"  ({symbol}: device time by queued CUDA events, {ms:.5f} ms)")
+    return ms
 
 
 def bound(n_bytes: float, ops: float, ops_per_s: float = NON_TENSOR_OPS_PER_S):
@@ -348,6 +422,36 @@ def bound(n_bytes: float, ops: float, ops_per_s: float = NON_TENSOR_OPS_PER_S):
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def kd_needed_bytes(a, accept, extra) -> int:
+    """Bytes KD must read for this run's data: the class tables and
+    start states, the live flow bytes (:func:`flow_bytes`), each
+    transition-table entry the scan reads (distinct bank, state and
+    class over the live bytes: at most ``min(S, B·L)`` rows a bank), and
+    the accept-plane rows of the final states (distinct bank and state:
+    at most ``min(S, B)`` rows a bank), each once."""
+    import torch
+
+    trans, byteclass, start, data, lens = a
+    NB, S, K = trans.shape
+    B, L = data.shape
+    dev = trans.device
+    flat = trans.reshape(-1).long()
+    base = (torch.arange(NB, device=dev) * (S * K))[:, None]
+    states = start.long()[:, None].expand(NB, B)
+    live = lens.long()[None, :]
+    seen = torch.zeros(NB * S * K, dtype=torch.bool, device=dev)
+    for t in range(L):
+        idx = base + states * K + byteclass.long()[:, data[:, t].long()]
+        on = (t < live).expand(NB, B)
+        seen[idx[on]] = True
+        states = torch.where(on, flat[idx], states)
+    finals = torch.unique(base // K + states).numel()
+    planes = sum(p.shape[2] * p.element_size() for p in (accept, extra)
+                 if p is not None)
+    return (int(seen.sum()) * trans.element_size() + finals * planes
+            + nbytes(byteclass, start) + flow_bytes(data, lens))
 
 
 def flow_bytes(data, lens) -> int:
@@ -858,15 +962,18 @@ def field_inputs_of(engine, batch):
 
 
 def kernel_times(fields_dense, fields_nfa, capture_inputs, session_inputs,
-                 card, tag="", suffix=""):
+                 card, tag="", suffix="", variant=None):
     """One launch of each kernel at the shape of every field it scans
     on the main path: its device time (profiler), its wall time per
     call from Python (CUDA events, wrapper included), the plain
-    version's wall time per call, and the bound. The bound's operations
-    are KD's transitions over live bytes at the non-tensor peak, and
+    version's wall time per call, and the bound. The bound's bytes are,
+    for KD, what this run's data makes it read (:func:`kd_needed_bytes`)
+    and its outputs; its operations are KD's transitions over live
+    bytes at the non-tensor peak, and
     the one-hot products of K2 (2·NB·B·L·S·(K+1)) and K1
     (2·NB·B·(L−1)·P²) at the int8 tensor-core peak. ``tag`` prefixes
-    and ``suffix`` ends the labels of the field rows."""
+    and ``suffix`` ends the labels of the field rows; ``variant`` names
+    KD's variant (default: the one its plan picks)."""
     import torch
 
     from cilium_tpu_torch.engine import (
@@ -889,12 +996,14 @@ def kernel_times(fields_dense, fields_nfa, capture_inputs, session_inputs,
             and label not in session_inputs else None
         steps = NB * int(live.sum())
         tables = nbytes(*a[:3]) + flow_bytes(data, lens)
-        out = dfa_dense_cuda.dense_scan_cuda(*a, accept=acc, extra=extra)
-        kd_bytes = tables + nbytes(acc, extra, *(out if extra is not None
-                                                 else (out,)))
+        out = dfa_dense_cuda.dense_scan_cuda(*a, accept=acc, extra=extra,
+                                             _variant=variant)
+        kd_bytes = kd_needed_bytes(a, acc, extra) + nbytes(
+            *(out if extra is not None else (out,)))
         def kd():
             return dfa_dense_cuda.dense_scan_cuda(*a, accept=acc,
-                                                  extra=extra)
+                                                  extra=extra,
+                                                  _variant=variant)
         rows["KD"].append((label, tuple(a[0].shape) + tuple(data.shape),
                            kernel_device_ms(kd, "dfa_dense_kernel"),
                            time_launch(kd),
@@ -941,12 +1050,12 @@ def kernel_times(fields_dense, fields_nfa, capture_inputs, session_inputs,
                                   TENSOR_INT8_OPS_PER_S)))
     for kid, rs in rows.items():
         for prefix, shape, dev_ms, ms, plain_ms, bms, by in rs:
-            check(dev_ms is not None, f"{kid} {prefix}: the profiler saw "
-                                      f"no launch of the kernel")
+            check(dev_ms > 0, f"{kid} {prefix}: no device time for "
+                              f"the kernel")
             log(f"  {kid} {prefix:12s} {str(shape):30s} device "
                 f"{dev_ms:.5f} ms, "
                 f"call {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-                f"{bms:.6f} ms by {by}) on {card}")
+                f"{bms:.3g} ms by {by}) on {card}")
     return rows
 
 
@@ -3181,6 +3290,596 @@ def service_kernels(errs, rows, held, card):
     return [list(r) for r in rows["KD"] if r[0] in labels]
 
 
+# ------------------------------------------------ the cluster-mesh lanes
+def lane_log(lane: str, msg: str) -> None:
+    log(f"[fleet {lane}] {msg}")
+
+
+def mem_mb() -> float:
+    """Device memory the process's tensors have held at most, MiB."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def rss_mb() -> float:
+    """The process's own peak resident set so far, MiB (a spawned lane's
+    ``ru_maxrss`` would start at its parent's peak)."""
+    from cilium_tpu_torch.runtime import fleet
+
+    return fleet._peak_rss_mb()
+
+
+def traced_pack(loop, pool, chunks: int, name: str):
+    """One pack of ``chunks`` pool chunks (one a fresh lease, released
+    after) through ``loop.step()``, traced: (device kernels, device ms,
+    wall ms, records). The loop's own pack thread, if any, sleeps on
+    the virtual clock while the caller holds it."""
+    leases = [loop.connect(f"traced-{name}-{i}") for i in range(chunks)]
+    tickets = [loop.submit(lease, *pool[i % len(pool)].sections)
+               for i, lease in enumerate(leases)]
+    kernels, dev_ms, wall_ms = trace_once(loop.step)
+    check(all(t.done and t.error is None for t in tickets),
+          f"[fleet {name}] the traced pack left a chunk unserved")
+    for lease in leases:
+        loop.disconnect(lease)
+    return {"kernels": kernels, "device_ms": dev_ms, "wall_ms": wall_ms,
+            "records": sum(len(t.verdicts) for t in tickets),
+            "busy_share": (dev_ms / wall_ms if dev_ms is not None
+                           else None)}
+
+
+def pool_held_plain(policy, cfg, pool, lane):
+    """Every pool chunk's ground truth (the lane's serving engine on the
+    card) against a ``device="cpu"`` engine of the same policy."""
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+
+    plain = TorchVerdictEngine(policy, device="cpu", cfg=cfg)
+    wrong = 0
+    for chunk in pool:
+        rec, l7, offsets, blob, gen = chunk.sections
+        want = plain.verdict_l7_records(rec, l7, offsets, blob,
+                                        gen=gen)["verdict"]
+        wrong += sum(int(a) != int(b) for a, b in zip(chunk.truth, want))
+    check(wrong == 0, f"[fleet {lane}] {wrong} pool verdicts differ "
+                      f"from the plain engine's")
+    return sum(chunk.n for chunk in pool)
+
+
+def lane_counts():
+    """(launches by kernel, KD's launches by variant) since the counts
+    were set to 0."""
+    from cilium_tpu_torch.engine import _build
+
+    return ({k: v.launches for k, v in _build.KERNELS.items()},
+            kd_variants())
+
+
+def churn_lane(card):
+    """Phase 10 (a), the churn storm: ``fleet.run`` at CHURN_IDENTITIES x
+    CHURN_CNPS through the port's ``Loader`` on the card. The session's
+    verdicts after the cold build, after every tenth update and after
+    the last are held against a ``device="cpu"`` engine of the policy
+    then serving (``run`` itself holds every update against the
+    loader's engine and the sampled ones against the CPU oracle). The
+    corpus keeps the reference's flows, whose verdicts no churned rule
+    changes; so at each of those holds the probe of every churned rule
+    so far (the flow its add enforces) is replayed too, through a
+    session on the card over the loader: the live rules' probes must be
+    allowed, the deleted ones' not, as the plain engine says."""
+    import tempfile
+
+    import numpy as np
+
+    from cilium_tpu_torch.core.flow import Verdict
+    from cilium_tpu_torch.engine import _build, replay
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.ingest.columnar import flows_to_columns
+    from cilium_tpu_torch.runtime import fleet
+    from cilium_tpu_torch.runtime.metrics import METRICS
+
+    held, worlds, mem, stacks, churned = [], [], {}, [], {}
+    inner = replay.CaptureReplay.verdict_chunk
+    World = fleet.FleetWorld
+
+    def probe_verdicts(self, world):
+        """(probes, live flags, verdicts) of every churned rule so far,
+        through a session on the card that follows the loader."""
+        probes = [world._http(world.ids[c], pat.replace("/.*", "/x"))
+                  for c, pat in churned]
+        live = [(("http", pat) in world.rules_of[c]) for c, pat in churned]
+        cols = flows_to_columns(probes)
+        session = replay.CaptureReplay(
+            self.loader.engine, cols.l7, cols.offsets, cols.blob,
+            world.cfg.engine, gen=cols.gen, loader=self.loader)
+        session.stage_rows(cols.rec, cols.l7)
+        session.stage_unique()
+        got = inner(session, cols.rec, cols.l7)["verdict"]
+        return probes, live, np.asarray(got).tolist()
+
+    def noted(self, *a, **k):
+        out = inner(self, *a, **k)
+        engine = self.loader.engine
+        n = len(stacks)
+        stacks.append(tuple(engine.policy.arrays["path_trans"].shape))
+        world = worlds[0]
+        for c, rules in world.rules_of.items():
+            for kind, pat in rules:
+                if "/churn" in pat:
+                    churned.setdefault((c, pat), None)
+        if n % 10 == 0 or n == CHURN_UPDATES:
+            held.append((n, np.asarray(out["verdict"]).tolist(),
+                         engine.policy, engine.cfg,
+                         probe_verdicts(self, world) if churned else None))
+        return out
+
+    class Noted(World):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            worlds.append(self)
+
+    def spans():
+        return {s: METRICS.histo_sum("cilium_tpu_span_seconds",
+                                     {"span": s})
+                for s in ("policy_compile", "policy_stage")}
+
+    def progress(msg):
+        mem.setdefault("after_build_mb", mem_mb())
+        mem.setdefault("rss_after_build_mb", rss_mb())
+        # the first call comes right after the cold build
+        mem.setdefault("spans_t0", spans())
+        lane_log("churn", msg)
+
+    replay.CaptureReplay.verdict_chunk = noted
+    fleet.FleetWorld = Noted
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as cache:
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                result = fleet.run(CHURN_IDENTITIES, CHURN_CNPS,
+                                   CHURN_UPDATES, cache,
+                                   workers=CHURN_WORKERS, gate_p99=False,
+                                   device=DEVICE, progress=progress)
+            except AssertionError as e:
+                raise SmokeFailure(f"[fleet churn] {e}") from e
+            wall = time.perf_counter() - t0
+            launches, variants = lane_counts()
+            # the updates' compile and stage seconds (the loader's
+            # spans), each an update on average
+            split = {s.replace("policy_", "") + "_ms":
+                     (v - mem["spans_t0"][s]) * 1e3 / CHURN_UPDATES
+                     for s, v in spans().items()}
+    finally:
+        replay.CaptureReplay.verdict_chunk = inner
+        fleet.FleetWorld = World
+    world = worlds[0]
+    flows, distinct = world.corpus()
+    probed = {"live": 0, "deleted": 0}
+    for n, got, policy, cfg, probes in held:
+        plain = TorchVerdictEngine(policy, device="cpu", cfg=cfg)
+        want = plain.verdict_flows(flows)["verdict"]
+        stale = sum(int(a) != int(b) for a, b in zip(got, want))
+        check(stale == 0, f"[fleet churn] after update {n}: {stale} of "
+                          f"{len(got)} session verdicts differ from the "
+                          f"plain engine")
+        if probes is None:
+            continue
+        flows_p, live, got_p = probes
+        want_p = [int(v) for v in plain.verdict_flows(flows_p)["verdict"]]
+        check(got_p == want_p, f"[fleet churn] after update {n}: the "
+                               f"churned rules' probes {got_p} through "
+                               f"the session differ from the plain "
+                               f"engine's {want_p}")
+        allowed = [v == int(Verdict.REDIRECTED) for v in want_p]
+        check(allowed == live, f"[fleet churn] after update {n}: probes "
+                               f"allowed {allowed}, rules live {live}")
+        probed["live"] += sum(live)
+        probed["deleted"] += len(live) - sum(live)
+    check(probed["live"] > 0 and probed["deleted"] > 0,
+          f"[fleet churn] the probe holds saw no live or no deleted "
+          f"rule: {probed}")
+    first, final = held[0][2], held[-1][2]
+    stack = stacks[0]
+    out = {k: result[k] for k in (
+        "identities", "cnps", "classes", "updates", "banks_t0",
+        "cold_build_s", "bank_compiles", "compiles_per_update",
+        "odelta_bound", "p50_ms", "memo_hit_ratio", "rss_peak_mb",
+        "rss_bound_mb", "registry_bytes", "artifact_hits",
+        "schedule_digest")}
+    out.update({
+        "p99_ms": result["value"], "wall_s": wall,
+        "stale": 0, "errors": 0, "held_plain": [h[0] for h in held],
+        "probes_held": probed, "update_split_mean": split,
+        "oracle_checks": len(range(0, CHURN_UPDATES, 10))
+        + ((CHURN_UPDATES - 1) % 10 != 0),
+        "corpus": len(flows), "distinct": distinct,
+        # the cold build's path stack, and each committed one after it
+        # (a churned pattern may add byte classes)
+        "path_stack": stack,
+        "path_stacks": sorted(set(stacks)),
+        "first_widened_update": next(
+            (n for n, st in enumerate(stacks) if st != stack), None),
+        "dns_stack": tuple(first.arrays["dns_trans"].shape),
+        "device_mem_mb": {"after_build": mem.get("after_build_mb"),
+                          "end": mem_mb()},
+        "rss_mb": {"after_build": mem["rss_after_build_mb"],
+                   "end": rss_mb()},
+        "launches": launches, "kd_variants": variants,
+        # what the parent holds and times KD at
+        "policies": {"t0": first, "final": final}, "flows": flows})
+    check(launches["KD"] > 0, "[fleet churn] KD never launched")
+    lane_log("churn", f"{CHURN_IDENTITIES} identities x {CHURN_CNPS} CNPs "
+             f"({out['classes']} classes, {out['banks_t0']} banks, path "
+             f"stack {stack}, then {out['path_stacks']} from update "
+             f"{out['first_widened_update']}): cold build "
+             f"{out['cold_build_s']} s; "
+             f"{CHURN_UPDATES} updates, update to enforcement p50 "
+             f"{out['p50_ms']} ms, p99 {out['p99_ms']} ms (of which, "
+             f"an update on average, compile {split['compile_ms']:.1f} "
+             f"ms, stage {split['stage_ms']:.1f} ms); "
+             f"{out['compiles_per_update']} compiles an update (bound "
+             f"{out['odelta_bound']}); memo hit ratio "
+             f"{out['memo_hit_ratio']}; 0 stale, 0 ERROR; churned-rule "
+             f"probes held {probed}; peak RSS "
+             f"{out['rss_peak_mb']} MiB; device memory "
+             f"{out['device_mem_mb']}; wall {wall:.1f} s; KD {variants} "
+             f"on {card}")
+    return out
+
+
+def soak_lane(card):
+    """Phase 10 (b), the serve soak: ``LoadModel`` at SOAK_STREAMS
+    virtual streams in ``thread`` mode (the pack thread under an
+    autojumping clock) with the lane's seeded serve faults, http-only
+    (``protocol_mix=0``)."""
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.runtime import faults, loadmodel, simclock
+
+    built = {}
+    build_world = loadmodel._build_world
+
+    def noted(*a, **k):
+        built["loader"], built["pool"] = out = build_world(*a, **k)
+        built["after_build_mb"] = mem_mb()
+        return out
+
+    class Traced(loadmodel.LoadModel):
+        def _drive(self, loop, pool, clock, autojump):
+            super()._drive(loop, pool, clock, autojump)
+            st = loop.status()
+            chunks = max(1, round(st["records_packed"] / max(1, st["packs"])
+                                  / self.chunk_flows))
+            with simclock.hold():
+                built["traced"] = traced_pack(loop, pool, chunks, "soak")
+
+    rules = [faults.FaultRule("serve.lease", prob=0.0005,
+                              times=SOAK_FAULTS),
+             faults.FaultRule("serve.ring_slot", prob=0.0005,
+                              times=SOAK_FAULTS)]
+    model = Traced(streams=SOAK_STREAMS, virtual_s=SOAK_VIRTUAL_S,
+                   fault_rules=rules, mode="thread", protocol_mix=0.0,
+                   device=DEVICE)
+    loadmodel._build_world = noted
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = model.run()
+        wall = time.perf_counter() - t0
+        launches, variants = lane_counts()
+    finally:
+        loadmodel._build_world = build_world
+    check(not result["violations"],
+          f"[fleet soak] invariant violations: {result['violations'][:3]}")
+    check(result["concurrency_peak"] >= int(0.95 * SOAK_STREAMS),
+          f"[fleet soak] concurrency peak {result['concurrency_peak']} "
+          f"< 95% of {SOAK_STREAMS}")
+    check(result["sampled_checks"] > 0, "[fleet soak] no sampled check")
+    check(launches["KD"] > 0, "[fleet soak] KD never launched")
+    loader = built["loader"]
+    held = pool_held_plain(loader.engine.policy, loader.engine.cfg,
+                           built["pool"], "soak")
+    out = {k: result[k] for k in (
+        "streams", "mode", "virtual_s", "simulated_s", "concurrency_peak",
+        "submissions", "resolved", "served_records", "packs",
+        "records_packed", "grants", "expiries", "releases", "sheds",
+        "shed_rate", "retries", "chunk_errors", "bytes_saved",
+        "bytes_shipped", "memo", "sampled_checks", "explain_coverage",
+        "slo_burn_p99", "slo_burn_shed")}
+    traced = built["traced"]
+    out.update({
+        "wall_s": wall, "records_per_wall_s": result["served_records"] / wall,
+        "virtual_p50_ms": result["p50_ms"],
+        "virtual_p99_ms": result["p99_ms"],
+        "virtual_p99_unloaded_ms": result["p99_unloaded_ms"],
+        "violations": 0, "pool_records_held_plain": held,
+        "pack_records": max(1, round(result["records_packed"]
+                                     / max(1, result["packs"]))),
+        "traced_pack": traced,
+        "device_mem_mb": {"after_build": built["after_build_mb"],
+                          "end": mem_mb()},
+        "launches": launches, "kd_variants": variants})
+    lane_log("soak", f"{SOAK_STREAMS} streams, {SOAK_VIRTUAL_S} virtual s "
+             f"(thread mode): wall {wall:.1f} s, {result['packs']} packs, "
+             f"{result['served_records']} records "
+             f"({out['records_per_wall_s']:.0f} a wall second), "
+             f"{result['sheds']} sheds, 0 violations, concurrency peak "
+             f"{result['concurrency_peak']}; virtual p50 "
+             f"{result['p50_ms']} ms, virtual p99 {result['p99_ms']} ms "
+             f"(pack interval on the simulation clock, not a card time); "
+             f"traced pack of {traced['records']} records: "
+             f"{traced['kernels']} kernels, {traced['device_ms']} device "
+             f"ms in {traced['wall_ms']:.3f} ms; KD {variants} on {card}")
+    return out
+
+
+def fleet_lane(card):
+    """Phase 10 (c), the serving fleet: ``FleetModel`` at FLEET_STREAMS
+    streams over FLEET_HOSTS replicas (one loader each, host 0 compiles,
+    the rest and every warm rejoin served from the shared artifact
+    store) with the lane's host kill, partition, drain and rejoins and
+    its seeded heartbeat and handoff faults. Each replica's packs are
+    counted over every loop it ran (a rejoin starts a fresh one)."""
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.runtime import faults, fleetserve
+
+    loops, held = {}, {}
+    make_loop = fleetserve.HostReplica._make_loop
+
+    def noted(self):
+        loop = make_loop(self)
+        loops.setdefault(self.name, []).append(loop)
+        return loop
+
+    class Held(fleetserve.FleetModel):
+        def _build_fleet(self):
+            router, pool = super()._build_fleet()
+            engine = router.replicas[0].loader.engine
+            held.update(pool=pool, policy=engine.policy, cfg=engine.cfg,
+                        after_build_mb=mem_mb(),
+                        build_compiles=[r.loader.bank_status()["compiles"]
+                                        for r in router.replicas])
+            return router, pool
+
+        def _drive(self, router, pool, clock):
+            index = super()._drive(router, pool, clock)
+            packs = sum(r.loop.status()["packs"] for r in router.replicas
+                        if r.alive) or 1
+            served = sum(r.loop.status()["records_packed"]
+                         for r in router.replicas if r.alive)
+            chunks = max(1, round(served / packs / self.chunk_flows))
+            held["traced"] = {r.name: traced_pack(r.loop, pool, chunks,
+                                                  r.name)
+                              for r in router.replicas if r.alive}
+            return index
+
+    rules = [faults.FaultRule("fleet.heartbeat", prob=0.002,
+                              times=FLEET_FAULTS),
+             faults.FaultRule("fleet.handoff", prob=0.01,
+                              times=FLEET_FAULTS)]
+    model = Held(streams=FLEET_STREAMS, hosts=FLEET_HOSTS,
+                 virtual_s=FLEET_VIRTUAL_S, active_fraction=FLEET_ACTIVE,
+                 fault_rules=rules, trace_sample_every=8, device=DEVICE)
+    fleetserve.HostReplica._make_loop = noted
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = model.run()
+        wall = time.perf_counter() - t0
+        launches, variants = lane_counts()
+    finally:
+        fleetserve.HostReplica._make_loop = make_loop
+    r = result
+    check(not r["violations"],
+          f"[fleet serve] invariant violations: {r['violations'][:3]}")
+    for key, want in (("unrecovered", 0), ("survivor_recompiles", 0),
+                      ("rejoin_compiles", 0), ("explain_coverage", 1.0)):
+        check(r[key] == want, f"[fleet serve] {key} {r[key]} != {want}")
+    check(r["concurrency_peak"] >= int(0.95 * FLEET_STREAMS)
+          and r["host_deaths"] >= 1 and r["rejoins"] >= 1
+          and r["rejoin_warm_restores"] >= 1
+          and r["handoffs"] >= FLEET_MIN_HANDOFFS
+          and r["journal_consistent"] and r["sampled_checks"] > 0,
+          f"[fleet serve] the schedule did not run its course: {r}")
+    check(launches["KD"] > 0, "[fleet serve] KD never launched")
+    # host 0 compiles; the shared artifact store serves every other host
+    built = held["build_compiles"]
+    check(built[0] > 0 and not any(built[1:]),
+          f"[fleet serve] bank compiles by host at the build: {built}")
+    held_n = pool_held_plain(held["policy"], held["cfg"], held["pool"],
+                             "serve")
+    out = {k: r[k] for k in (
+        "streams", "hosts", "capacity_per_host", "concurrency_peak",
+        "virtual_s", "simulated_s", "active_fraction", "submissions",
+        "resolved", "served_records", "packs", "sheds", "shed_rate",
+        "retries", "replays", "unrecovered", "sampled_checks", "handoffs",
+        "partial_handoffs", "host_deaths", "rejoins", "spilled_streams",
+        "handoff_rows_resident", "handoff_bytes_avoided",
+        "survivor_recompiles", "rejoin_compiles", "rejoin_artifact_hits",
+        "rejoin_warm_restores", "explain_coverage", "traced_chunks",
+        "handoff_replays", "stitched_replays", "stitch_coverage",
+        "flows_aggregated", "journal_events", "journal_consistent",
+        "obs_seconds")}
+    out.update({
+        "wall_s": wall, "records_per_wall_s": r["served_records"] / wall,
+        "obs_overhead_pct": 100.0 * r["obs_seconds"] / wall,
+        "virtual_p50_ms": r["p50_ms"], "virtual_p99_ms": r["p99_ms"],
+        "virtual_failover_p99_ms": r["failover_p99_ms"],
+        "violations": 0, "pool_records_held_plain": held_n,
+        "build_compiles": built,
+        "replica_packs": {name: sum(lp.status()["packs"] for lp in ls)
+                          for name, ls in sorted(loops.items())},
+        "traced_packs": held["traced"],
+        "device_mem_mb": {"after_build": held["after_build_mb"],
+                          "end": mem_mb()},
+        "launches": launches, "kd_variants": variants})
+    lane_log("serve", f"{FLEET_STREAMS} streams over {FLEET_HOSTS} hosts, "
+             f"{FLEET_VIRTUAL_S} virtual s: wall {wall:.1f} s, "
+             f"{r['served_records']} records "
+             f"({out['records_per_wall_s']:.0f} a wall second); "
+             f"{r['host_deaths']} deaths, {r['rejoins']} rejoins, "
+             f"{r['handoffs']} handoffs, stitch coverage "
+             f"{r['stitch_coverage']}, 0 unrecovered, 0 survivor and 0 "
+             f"rejoin compiles; packs by replica {out['replica_packs']}; "
+             f"virtual p99 {r['p99_ms']} ms; KD {variants} on {card}")
+    return out
+
+
+def lane_child(name, card):
+    """One lane in a spawned process: its own interpreter, CUDA context,
+    registries and peak RSS. Returns (report, None), or (None, the
+    failure) — the parent raises it."""
+    import traceback
+
+    import torch
+
+    os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+    try:
+        torch.cuda.init()
+        rss0 = rss_mb()                # the interpreter, torch and CUDA
+        report = LANES[name](card)
+        report["rss_start_mb"] = rss0
+        return report, None
+    except SmokeFailure as e:
+        return None, str(e)
+    except Exception:  # noqa: BLE001 — reported by the parent
+        return None, traceback.format_exc()[-4000:]
+
+
+LANES = {"churn": churn_lane, "soak": soak_lane, "serve": fleet_lane}
+
+
+def fleet_phase(card):
+    """Phase 10: the three cluster-mesh lanes, one after another, each
+    in a spawned process of its own (its own interpreter, CUDA context
+    and peak RSS), so that no lane's host clock runs beside another's.
+    Returns the report and each lane's counts."""
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    got, walls = {}, {}
+    for n in LANES:
+        t1 = time.perf_counter()
+        left = LANE_TIMEOUT_S - (t1 - t0)
+        pool = ctx.Pool(1)
+        try:
+            job = pool.apply_async(lane_child, (n, card))
+            try:
+                report, err = job.get(timeout=max(1.0, left))
+            except multiprocessing.TimeoutError:
+                raise SmokeFailure(f"[fleet {n}] the lanes ran past "
+                                   f"{LANE_TIMEOUT_S} s") from None
+        finally:
+            pool.terminate()
+            pool.join()
+        check(err is None, f"[fleet {n}] the lane failed: {err}")
+        got[n] = report
+        # the lane's process, spawn and import included
+        walls[n] = time.perf_counter() - t1
+    wall = time.perf_counter() - t0
+    soak, serve = got["soak"], got["serve"]
+    # the fleet's p99 gate: at most twice the single host's, both read
+    # on the simulation clock of this run
+    check(serve["virtual_p99_ms"] <= 2.0 * soak["virtual_p99_ms"],
+          f"[fleet serve] virtual p99 {serve['virtual_p99_ms']} ms over "
+          f"twice the soak's {soak['virtual_p99_ms']} ms")
+    serve["single_host_virtual_p99_ms"] = soak["virtual_p99_ms"]
+    launches = {n: r.pop("launches") for n, r in got.items()}
+    variants = {n: r.pop("kd_variants") for n, r in got.items()}
+    held = {"policies": got["churn"].pop("policies"),
+            "flows": got["churn"].pop("flows"),
+            "pack_records": soak["pack_records"]}
+    report = {"card": card, "wall_s": wall, "process_wall_s": walls,
+              "churn": got["churn"], "soak": soak, "serve": serve,
+              "cuts": {"churn_updates": (CHURN_UPDATES, 56),
+                       "soak_virtual_s": (SOAK_VIRTUAL_S, 120.0),
+                       "serve_virtual_s": (FLEET_VIRTUAL_S, 120.0),
+                       "protocol_mix": (0.0, 0.2)}}
+    log(f"phase 10 wall {wall:.1f} s (the lanes one after another; each "
+        f"lane's process {', '.join(f'{n} {w:.1f} s' for n, w in walls.items())})")
+    return report, launches, variants, held
+
+
+def gpu_clocks() -> str:
+    """The card's SM clock, power draw and temperature now
+    (``nvidia-smi``), to read beside a timing window."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def fleet_kernels(errs, rows, held, churn_variants, card):
+    """KD at the churn storm's path stacks, after phase 10's counts were
+    read: the cold build's (its table fits in shared memory) and the
+    last update's (churned patterns add byte classes). Every scan field
+    is held against the plain version at the storm's corpus (B = its
+    flows) and at the soak's mean pack (B = records a pack); the path
+    field under each variant its table allows, each timed through phase
+    4's code, the variants in turn twice. Returns the path rows."""
+    from cilium_tpu_torch.engine import dfa_dense_cuda
+    from cilium_tpu_torch.engine.verdict import (
+        TorchVerdictEngine,
+        batch_to_device,
+    )
+
+    flows = held["flows"]
+    labels = []
+    log(f"  SM clock, power, temperature before: {gpu_clocks()}")
+    for when, policy in held["policies"].items():
+        engine = TorchVerdictEngine(policy, device=DEVICE)
+        # the variants the path stack can take: shared memory only when
+        # the table fits
+        timed = ("smem", "global") if dfa_dense_cuda.plan_launch(
+            *policy.arrays["path_trans"].shape, 1, 32).variant == "smem" \
+            else ("global",)
+        for b in (len(flows), held["pack_records"]):
+            sample = (flows * -(-b // len(flows)))[:b]
+            host = host_batches(policy, sample, engine.cfg)
+            check(len(host) == 1, f"[fleet] B={b} is over one batch")
+            fields = field_inputs_of(engine,
+                                     batch_to_device(host[0], DEVICE))
+            for prefix, (arr, data, lens) in fields.items():
+                a = (arr[f"{prefix}_trans"], arr[f"{prefix}_byteclass"],
+                     arr[f"{prefix}_start"], data, lens)
+                acc = arr[f"{prefix}_accept"]
+                extra = (arr.get("rp_path_gaccept") if prefix == "path"
+                         else None)
+                want = dfa_dense_cuda.dense_scan_plain(*a, accept=acc,
+                                                       extra=extra)
+                plan = dfa_dense_cuda.plan_launch(
+                    *a[0].shape, *data.shape, acc.shape[2],
+                    0 if extra is None else extra.shape[2])
+                for variant in (timed if prefix == "path"
+                                else (plan.variant,)):
+                    v0 = kd_variants()
+                    hold(errs, "KD", f"fleet {when} {prefix} "
+                                     f"{tuple(a[0].shape)} B={data.shape[0]} "
+                                     f"L={data.shape[1]} {variant}",
+                         dfa_dense_cuda.dense_scan_cuda(
+                             *a, accept=acc, extra=extra, _variant=variant),
+                         want)
+                    ran = {v: n - v0.get(v, 0)
+                           for v, n in kd_variants().items()
+                           if n - v0.get(v, 0)}
+                    check(ran == {variant: 1},
+                          f"[fleet] KD held as {variant} ran {ran}")
+            # the variants in turn, twice: their order must not decide
+            # which one the card's clocks favour
+            for again in ("", "-again"):
+                for variant in timed:
+                    suffix = f"-b{b}-{variant}{again}"
+                    got = kernel_times({"path": fields["path"]}, {}, {}, {},
+                                       card, tag=f"fleet-{when}-",
+                                       suffix=suffix, variant=variant)
+                    rows["KD"].extend(got["KD"])
+                    labels.append(f"fleet-{when}-path{suffix}")
+    log(f"  SM clock, power, temperature after: {gpu_clocks()}")
+    check(set(churn_variants) >= {"smem"},
+          f"[fleet] the storm ran KD {churn_variants}: no shared-memory "
+          f"launch at its cold build's path stack")
+    return [list(r) for r in rows["KD"] if r[0] in labels]
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -3217,7 +3916,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs) -> int:
-    """Phases 2-10 (see the module docstring)."""
+    """Phases 2-11 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
@@ -3311,6 +4010,23 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     service_report["kd"] = service_kernels(errs, rows, service_held, card)
     log(f"phase 9 wall {service_report['wall_s']:.1f} s (passes and "
         f"set-up)")
+    log("phase 10: the cluster-mesh lanes (churn storm, serve soak, "
+        "serving fleet)")
+    fleet_report, fleet_launches, fleet_variants, fleet_held = \
+        fleet_phase(card)
+    churn = fleet_report["churn"]
+    churn["phase8_enforce_ms"] = {
+        "p50": loader_report["churn"]["enforce_ms_p50"],
+        "p99": loader_report["churn"]["enforce_ms_p99"]}
+    log(f"[fleet churn] update to enforcement p50 / p99 {churn['p50_ms']} / "
+        f"{churn['p99_ms']} ms at {CHURN_IDENTITIES} identities x "
+        f"{CHURN_CNPS} CNPs, beside phase 8's "
+        f"{churn['phase8_enforce_ms']['p50']:.3f} / "
+        f"{churn['phase8_enforce_ms']['p99']:.3f} ms at http-1000 (this run; "
+        f"the storm's p99 gate waits for the 27-bank lane's number)")
+    log("phase 10: KD at the storm's path stack, against its plain version")
+    fleet_report["kd"] = fleet_kernels(errs, rows, fleet_held,
+                                       fleet_variants["churn"], card)
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -3318,6 +4034,8 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     phase_launches["serve"] = serve["launches"]
     phase_launches["loader"] = loader_launches
     phase_launches["service"] = service_launches
+    phase_launches.update({f"fleet-{n}": ln
+                           for n, ln in fleet_launches.items()})
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -3325,6 +4043,8 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     phase_variants["serve"] = serve["kd_variants"]
     phase_variants["loader"] = loader_variants
     phase_variants["service"] = service_variants
+    phase_variants.update({f"fleet-{n}": v
+                           for n, v in fleet_variants.items()})
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -3343,6 +4063,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
             "ms": row[2],
             "call_ms": row[3], "plain_ms": row[4], "bound_ms": row[5],
             "bound_by": row[6], "library_ms": None,
+            "bound_bytes": BOUND_BYTES[kid],
             "bound_ops": BOUND_OPS[kid],
             "sass_tensor_ops": tensor_ops.get(kid),
             # KD: launches by variant in each phase, in phase 3's edge
@@ -3351,7 +4072,8 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
                 "edge_variants": edge_variants, "sass": kd_sass,
                 "loader_path": loader_report["kd_path"],
                 "loader_path_retry": loader_report["kd_path_retry"],
-                "service_shapes": service_report["kd"]}
+                "service_shapes": service_report["kd"],
+                "fleet_shapes": fleet_report["kd"]}
                if kid == "KD" else {}),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
@@ -3373,6 +4095,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     log("serve: " + json.dumps(report))
     log("loader: " + json.dumps(loader_report))
     log("service: " + json.dumps(service_report))
+    log("fleet: " + json.dumps(fleet_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

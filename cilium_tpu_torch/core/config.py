@@ -7,8 +7,10 @@ The port carries ``engine``, ``loader``, ``compile``, ``tenant`` and
 ``canary`` (the verdict engine and the loader plane), ``provenance``
 and ``slo`` (which ``runtime.serveloop.ServeLoop`` reads off its
 loader's config), and ``admission``, ``breaker`` and ``serve`` (which
-``runtime.service`` and ``runtime.stream`` read). The reference's other
-sections (tracing, fleet, dst, parallel), its agent fields, its TOML
+``runtime.service`` and ``runtime.stream`` read), and ``fleet`` (the
+serving fleet's topology and health knobs, which
+``runtime.fleetserve.main`` reads). The reference's other sections
+(tracing, dst, parallel), its agent fields, its TOML
 reader and the environment settings of fields that no ported module
 reads yet (``identity_regen_debounce_s``, the tenant quantum and quota
 TTL, the REST API's ``admission.api_max_inflight``) come with the
@@ -282,6 +284,31 @@ class ProvenanceConfig:
 
 
 @dataclasses.dataclass
+class FleetConfig:
+    """Horizontal serving fleet (runtime/fleetserve.py): N agent
+    replicas behind a stream-affinity rendezvous router with per-host
+    heartbeats. A host that misses heartbeats past ``suspicion_ttl_s``
+    is declared dead and FAILS CLOSED (stops serving rather than
+    answer from stale policy); the router re-grants its leases on
+    survivors and clients replay in-flight chunks through the resume
+    protocol. Every knob moves placement/failover timing only —
+    verdicts stay bit-equal to a single host."""
+
+    #: simulated/managed serving replicas the fleet lane runs
+    replicas: int = 4
+    #: seconds between per-host heartbeats on the installed clock
+    heartbeat_interval_s: float = 1.0
+    #: missed-heartbeat budget: a host silent this long is suspected,
+    #: declared dead, and handed off (it fail-closes itself on the
+    #: same budget, so a partitioned host stops serving first)
+    suspicion_ttl_s: float = 5.0
+    #: occupancy fraction kept free per host: past ``1 - headroom``
+    #: the router spills NEW streams to emptier hosts, and a host
+    #: with no spill target sheds ``host-overloaded``
+    spill_headroom: float = 0.1
+
+
+@dataclasses.dataclass
 class TenantConfig:
     """Multi-tenant control plane (runtime/tenant.py): identity
     ranges partition the policy plane into tenant namespaces carried
@@ -362,6 +389,7 @@ class Config:
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
     provenance: ProvenanceConfig = dataclasses.field(
         default_factory=ProvenanceConfig)
+    fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     tenant: TenantConfig = dataclasses.field(default_factory=TenantConfig)
     canary: CanaryConfig = dataclasses.field(default_factory=CanaryConfig)
 
@@ -445,6 +473,17 @@ class Config:
         if "CILIUM_TPU_EXPLAIN_CAPACITY" in env:
             cfg.provenance.explain_capacity = int(
                 env["CILIUM_TPU_EXPLAIN_CAPACITY"])
+        if "CILIUM_TPU_FLEET_REPLICAS" in env:
+            cfg.fleet.replicas = int(env["CILIUM_TPU_FLEET_REPLICAS"])
+        if "CILIUM_TPU_FLEET_HEARTBEAT_INTERVAL_S" in env:
+            cfg.fleet.heartbeat_interval_s = float(
+                env["CILIUM_TPU_FLEET_HEARTBEAT_INTERVAL_S"])
+        if "CILIUM_TPU_FLEET_SUSPICION_TTL_S" in env:
+            cfg.fleet.suspicion_ttl_s = float(
+                env["CILIUM_TPU_FLEET_SUSPICION_TTL_S"])
+        if "CILIUM_TPU_FLEET_SPILL_HEADROOM" in env:
+            cfg.fleet.spill_headroom = float(
+                env["CILIUM_TPU_FLEET_SPILL_HEADROOM"])
         if env.get("CILIUM_TPU_TENANT_ISOLATION", "").lower() in (
                 "1", "true", "yes"):
             cfg.tenant.enabled = True

@@ -15,6 +15,8 @@ The kernel has two variants, picked from the shapes alone by
 its accept planes, when they fit) in shared memory with a bulk copy,
 ``"global"`` reads tables over the shared-memory budget from global
 memory. ``KERNEL.launches_by_variant`` counts the launches of each.
+A measurement that times the two against each other names one with
+the private ``_variant=``; no caller in the port does.
 """
 
 from __future__ import annotations
@@ -70,19 +72,28 @@ def row_load_width(data_ptr: int, row_stride: int, rows: int, L: int) -> int:
 def plan_launch(NB: int, S: int, K: int, B: int, L: int, W: int = 0,
                 Wg: int = 0, data_ptr: int = 0,
                 row_stride: Optional[int] = None,
-                sms: int = H100_SMS) -> LaunchPlan:
+                sms: int = H100_SMS,
+                _variant: Optional[str] = None) -> LaunchPlan:
     """The launch of KD for these shapes. The shared-memory variant
     when the bank's transition table fits (``S·K·4`` bytes plus the
     header), with the accept planes (``S·W·4``, ``S·Wg·4``) beside it
     when they fit too; its CTAs per bank fill the SMs once (a CTA loops
     over tiles of ``FLOWS_PER_CTA`` flows, and stages its tables once).
     Else the global variant, one CTA per tile. The row load width
-    follows the data's address, row stride and L."""
+    follows the data's address, row stride and L. For measurement
+    only, ``_variant="global"`` takes the global variant whatever the
+    table's size; ``_variant="smem"`` raises when the table does not
+    fit."""
+    if _variant not in (None, "smem", "global"):
+        raise ValueError(f"KD has no variant {_variant!r}")
     tiles = -(-B // FLOWS_PER_CTA)
     vec = row_load_width(data_ptr, L if row_stride is None else row_stride,
                          B, L)
     smem = SMEM_HEADER + staged_bytes(S * K * 4)
-    if smem > SMEM_MAX:
+    if smem > SMEM_MAX and _variant == "smem":
+        raise _build.KernelArgumentError(
+            f"KD: a {S}x{K} table is over the shared-memory budget")
+    if smem > SMEM_MAX or _variant == "global":
         return LaunchPlan("global", (tiles, NB), SMEM_HEADER, False, vec)
     words = sum(staged_bytes(S * w * 4) for w in (W, Wg) if w)
     words_smem = words > 0 and smem + words <= SMEM_MAX
@@ -145,10 +156,12 @@ def _table(t, dtype, what):
 
 
 def dense_scan_cuda(trans, byteclass, start, data, lengths,
-                    accept=None, extra=None):
+                    accept=None, extra=None, _variant=None):
     """KD on the card; same contract as :func:`dense_scan_plain`. The
     data is read in place when its bytes are contiguous within a row
-    (``stride(1) == 1``), the lengths at any stride."""
+    (``stride(1) == 1``), the lengths at any stride. The shapes pick
+    the variant (:func:`plan_launch`; ``_variant`` overrides it for
+    measurement only)."""
     i32 = torch.int32
     trans = _table(trans, i32, "trans")
     byteclass = _table(byteclass, i32, "byteclass")
@@ -186,7 +199,7 @@ def dense_scan_cuda(trans, byteclass, start, data, lengths,
         dptr = data.data_ptr()
         index = data.get_device()
         plan = plan_launch(NB, S, K, B, L, W, Wg, dptr % 16,
-                           row_stride % 16, _sm_count(index))
+                           row_stride % 16, _sm_count(index), _variant)
         args = array.array("q", (
             trans.data_ptr(), byteclass.data_ptr(), start.data_ptr(),
             0 if accept is None else accept.data_ptr(),

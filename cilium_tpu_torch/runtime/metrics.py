@@ -1,6 +1,7 @@
 """The metric families the port's capture replay, verdict memo,
-online serving path, loader plane, verdict service and stream report,
-under the reference's names (``runtime/metrics.py``), and the part of
+online serving path, loader plane, verdict service, stream and serving
+fleet report, under the reference's names (``runtime/metrics.py``),
+and the part of
 its registry they use: counters (``inc``/``get``), gauges
 (``set_gauge``), histograms (``observe``/``histo_sum``/``histogram``),
 :class:`SpanStat`, and the Prometheus text the service's ``metrics``
@@ -167,6 +168,36 @@ CANARY_SAMPLES = "cilium_tpu_canary_samples_total"
 CANARY_COMMITS = "cilium_tpu_canary_commits_total"
 #: gauge: observed verdict-diff fraction of the active canary
 CANARY_DIFF_FRACTION = "cilium_tpu_canary_diff_fraction"
+
+# -- the serving fleet (runtime/fleetserve.py): stream-affinity routing,
+# host-death failover, the fleet-coherent shedding ledger and the fleet
+# observability plane
+#: stream leases migrated off a dead/partitioned host and re-granted
+#: on a survivor (one per stream that moved)
+FLEET_HANDOFFS = "cilium_tpu_fleet_handoffs_total"
+#: hosts declared dead by the suspicion state machine (missed
+#: heartbeats past the TTL) or killed outright
+FLEET_HOST_DEATHS = "cilium_tpu_fleet_host_deaths_total"
+#: dead hosts warm-restored back into the placement ring
+FLEET_REJOINS = "cilium_tpu_fleet_rejoins_total"
+#: new streams the router placed AWAY from their rendezvous owner
+#: because the owner was past its spill headroom
+FLEET_SPILLED_STREAMS = "cilium_tpu_fleet_spilled_streams_total"
+#: gauge: leased-slot occupancy per host, by host — the occupancy
+#: digest the fleet-coherent shed/spill decision reads
+FLEET_HOST_OCCUPANCY = "cilium_tpu_fleet_host_occupancy"
+#: gauge: fleet-wide burn-rate roll-up over the per-replica SLO
+#: trackers, by slo, trailing window, and view (``worst`` = the worst
+#: single host; ``weighted`` = fleet-weighted by request volume)
+FLEET_SLO_BURN_RATE = "cilium_tpu_fleet_slo_burn_rate"
+#: failover latency per handoff, by stage: ``death-to-regrant``,
+#: ``regrant-to-verdict``, ``death-to-verdict``
+FLEET_FAILOVER_SECONDS = "cilium_tpu_fleet_failover_seconds"
+#: fleet event-journal entries appended, by kind
+FLEET_JOURNAL_EVENTS = "cilium_tpu_fleet_journal_events_total"
+#: handoff-replayed chunks that resolved with a STITCHED trace — one
+#: trace id spanning spans from both the dead host and the survivor
+FLEET_TRACE_STITCHES = "cilium_tpu_fleet_trace_stitches_total"
 
 #: latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS: Tuple[float, ...] = (

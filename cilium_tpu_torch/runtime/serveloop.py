@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import heapq
 import threading
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -741,6 +741,15 @@ class ServeLoop:
             self._thread = None
 
     # -- introspection ----------------------------------------------------
+    def lease_books(self) -> Tuple[int, int]:
+        """(grants − expiries − releases, occupancy), read together
+        under the lease lock: the two sides of the lease-accounting
+        invariant without the rest of :meth:`status` (the fleet checks
+        them after every driver event)."""
+        with self._lock:
+            return (self.grants - self.expiries - self.releases,
+                    len(self._leases))
+
     def status(self) -> Dict[str, object]:
         with self._lock:
             occupancy = len(self._leases)

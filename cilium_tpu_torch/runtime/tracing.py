@@ -145,6 +145,19 @@ class Tracer:
         #: span ids for by-id (contextvar-less) remote records
         self._remote_span = 1 << 20
 
+    def configure(self, enabled: Optional[bool] = None,
+                  sample_rate: Optional[float] = None,
+                  capacity: Optional[int] = None) -> None:
+        with self._lock:
+            if enabled is not None:
+                self.enabled = bool(enabled)
+            if sample_rate is not None:
+                self.sample_rate = min(1.0, max(0.0, float(sample_rate)))
+            if capacity is not None and \
+                    int(capacity) != self._ring.maxlen:
+                self._ring = deque(self._ring,
+                                   maxlen=max(1, int(capacity)))
+
     # -- trace lifecycle --------------------------------------------------
     def start(self, name: str, trace_id: Optional[str] = None,
               **attrs) -> Optional[TraceContext]:

@@ -359,6 +359,67 @@ def test_kd_at_the_loader_path_stack_equals_plain(cuda):
         "path"] == "dfa-dense"
 
 
+def test_kd_at_the_fleet_path_stack_equals_plain_in_both_variants(
+        cuda, tmp_path):
+    """KD at the churn storm's stacks at 10k identities x 5k CNPs, built
+    by the port's ``Loader`` on the card: path (30, 2816, 18) with 16
+    accept words and 7 group words (the table fits in shared memory, the
+    planes do not) and dns (2, 1536, 19), over the storm's corpus. The
+    path field is held under both variants, each counted as launched."""
+    from cilium_tpu_torch.engine.compiled import (
+        encode_flows,
+        flowbatch_to_host_dict,
+    )
+    from cilium_tpu_torch.engine.megakernel import SCAN_FIELDS
+    from cilium_tpu_torch.engine.verdict import (
+        batch_field,
+        batch_to_device,
+        unpack_batch,
+    )
+    from cilium_tpu_torch.runtime import fleet
+
+    world = fleet.FleetWorld(10000, 5000, str(tmp_path), workers=4,
+                             device=cuda)
+    try:
+        world.loader.regenerate(world.per_identity(), revision=1)
+        engine = world.loader.engine
+        arr = engine._arrays
+        assert tuple(arr["path_trans"].shape) == (30, 2816, 18)
+        assert tuple(arr["path_accept"].shape) == (30, 2816, 16)
+        assert tuple(arr["rp_path_gaccept"].shape) == (30, 2816, 7)
+        assert tuple(arr["dns_trans"].shape) == (2, 1536, 19)
+        flows, _ = world.corpus()
+        fb = encode_flows(flows, engine.policy.kafka_interns, engine.cfg)
+        batch = unpack_batch(batch_to_device(flowbatch_to_host_dict(fb),
+                                             cuda))
+        for prefix, field in SCAN_FIELDS:
+            data, lens, _ = batch_field(batch, field)
+            a = (arr[f"{prefix}_trans"], arr[f"{prefix}_byteclass"],
+                 arr[f"{prefix}_start"], data.contiguous(),
+                 lens.contiguous())
+            acc = arr[f"{prefix}_accept"]
+            extra = arr.get("rp_path_gaccept") if prefix == "path" \
+                else None
+            want = dfa_dense_cuda.dense_scan_plain(*a, accept=acc,
+                                                   extra=extra)
+            if extra is None:
+                want = (want,)
+            variants = (("smem", "global") if prefix == "path"
+                        else (None,))
+            for variant in variants:
+                _build.reset_launches()
+                got = dfa_dense_cuda.dense_scan_cuda(
+                    *a, accept=acc, extra=extra, _variant=variant)
+                if extra is None:
+                    got = (got,)
+                assert all(torch.equal(g, w) for g, w in zip(got, want))
+                if variant is not None:
+                    assert _build.KERNELS["KD"].launches_by_variant == \
+                        {variant: 1}
+    finally:
+        world.loader.close()
+
+
 def test_service_and_stream_on_card_equal_plain(cuda, tmp_path,
                                                 monkeypatch):
     """The port's ``VerdictService`` over a loader on the card: ``check``

@@ -45,6 +45,7 @@ _EXPECTED = ("cilium_tpu_torch.engine.megakernel",
              "cilium_tpu_torch.engine.replay",
              "cilium_tpu_torch.ingest.binary",
              "cilium_tpu_torch.ingest.columnar",
+             "cilium_tpu_torch.parallel.multihost",
              "cilium_tpu_torch.policy.compiler.bankplan",
              "cilium_tpu_torch.policy.compiler.compilequeue",
              "cilium_tpu_torch.policy.oracle",
@@ -52,9 +53,13 @@ _EXPECTED = ("cilium_tpu_torch.engine.megakernel",
              "cilium_tpu_torch.proxylib.kafka",
              "cilium_tpu_torch.runtime.canary",
              "cilium_tpu_torch.runtime.checkpoint",
+             "cilium_tpu_torch.runtime.fleet",
+             "cilium_tpu_torch.runtime.fleetserve",
              "cilium_tpu_torch.runtime.loader",
+             "cilium_tpu_torch.runtime.loadmodel",
              "cilium_tpu_torch.runtime.metrics",
              "cilium_tpu_torch.runtime.npds",
+             "cilium_tpu_torch.runtime.provenance",
              "cilium_tpu_torch.runtime.service",
              "cilium_tpu_torch.runtime.stream")
 

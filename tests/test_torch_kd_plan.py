@@ -91,6 +91,35 @@ def test_high_cardinality_plan_loops_over_tiles():
     assert per_bank * 8 <= H100_SMS
 
 
+@pytest.mark.parametrize("nb,s,k,w,wg", [(30, 2816, 18, 16, 7),
+                                          (2, 1536, 19, 1, 0)])
+@pytest.mark.parametrize("b", [1, 5880, 8192])
+def test_fleet_stacks_fit_the_table_and_take_either_variant(nb, s, k, w,
+                                                            wg, b):
+    """The churn storm's path and dns stacks at 10k identities x 5k
+    CNPs: the table fits in shared memory (2816 states x 18 classes is
+    202,752 bytes), the accept planes beside it do not. A measurement timing
+    the variants names the global one and gets one CTA per tile."""
+    tiles = -(-b // FLOWS_PER_CTA)
+    p = plan_launch(nb, s, k, b, 32, w, wg)
+    assert p.variant == "smem"
+    assert p.words_smem == (SMEM_HEADER + staged_bytes(s * k * 4) + sum(
+        staged_bytes(s * x * 4) for x in (w, wg) if x) <= SMEM_MAX)
+    assert p.grid == (min(tiles, max(1, H100_SMS // nb)), nb)
+    g = plan_launch(nb, s, k, b, 32, w, wg, _variant="global")
+    assert g == ("global", (tiles, nb), SMEM_HEADER, False, p.vec)
+    assert plan_launch(nb, s, k, b, 32, w, wg, _variant="smem") == p
+    if nb == 30:
+        assert not p.words_smem
+
+
+def test_a_named_variant_must_exist_and_fit():
+    with pytest.raises(_build.KernelArgumentError, match="over the"):
+        plan_launch(1, 8192, 256, 64, 16, _variant="smem")
+    with pytest.raises(ValueError, match="no variant"):
+        plan_launch(1, 2, 1, 1, 1, _variant="registers")
+
+
 @pytest.mark.parametrize("ptr,stride,rows,L,vec", [
     (0, 256, 8192, 256, 16), (0, 32, 5, 32, 16), (4096, 1024, 3, 1024, 16),
     (0, 700, 8192, 256, 4), (0, 33, 2, 33, 1), (0, 12, 7, 12, 4),

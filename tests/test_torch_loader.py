@@ -340,7 +340,7 @@ def test_config_deviations_and_from_env():
     ported = {f.name for f in dataclasses.fields(pc)}
     assert ported == {"enable_tpu_offload", "policy_audit_mode", "engine",
                       "loader", "compile", "slo", "provenance", "tenant",
-                      "canary", "admission", "breaker", "serve"}
+                      "canary", "admission", "breaker", "serve", "fleet"}
 
     def sections(cfg):
         d = dataclasses.asdict(cfg)
@@ -368,7 +368,8 @@ def test_config_deviations_and_from_env():
            "CILIUM_TPU_SERVE_SLOT_CAPACITY": "33",
            "CILIUM_TPU_SERVE_LEASE_TTL_S": "7.5",
            "CILIUM_TPU_SERVE_PACK_INTERVAL_MS": "0.5",
-           "CILIUM_TPU_POLICY_AUDIT_MODE": "1"}
+           "CILIUM_TPU_POLICY_AUDIT_MODE": "1",
+           "CILIUM_TPU_FLEET_SUSPICION_TTL_S": "2.5"}
     jd = dataclasses.asdict(JAX.config.Config.from_env(env))
     jd["admission"].pop("api_max_inflight")
     pd = dataclasses.asdict(PORT.config.Config.from_env(env))
