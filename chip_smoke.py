@@ -149,8 +149,9 @@ Phases, in order (any failure exits non-zero before the result line):
    compiles per update within 1.1 x 0.929; update to
    enforcement p50/p99 ms), the serve soak (``runtime/loadmodel`` at
    100000 virtual streams, the pack thread under an autojumping
-   virtual clock, seeded serve faults; zero violations, concurrency
-   >= 95 %) and the serving fleet (``runtime/fleetserve`` at 1050000
+   virtual clock, seeded serve faults, a fifth of its chunks
+   cassandra, memcache and r2d2 records (``protocol_mix`` 0.2, the
+   reference lane's); zero violations, concurrency >= 95 %) and the serving fleet (``runtime/fleetserve`` at 1050000
    streams over four replicas, one loader each, with a host killed,
    one partitioned, one drained and all rejoined warm: zero
    violations, zero unrecovered streams, zero survivor and rejoin
@@ -162,7 +163,33 @@ Phases, in order (any failure exits non-zero before the result line):
    against its plain version at the storm's path stack (30, 2816, 18)
    at its corpus's B and the soak's mean pack, under both variants,
    and timed. A ``fleet: {...}`` line carries the numbers;
-11. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+11. the protocol-frontend lanes: ``bench_protocols.py``'s throughput
+   leg at its published settings (cassandra, memcache and r2d2 at 40
+   rules x 120000 flows, protocols at 120 x 200000, http at 200 x
+   120000), each through the port's ``Loader`` on the card (compile
+   s), ``flows_to_columns`` (a v3 capture image: the GENERIC section),
+   ``CaptureReplay(..., gen=, loader=)`` with ``stage_rows`` and
+   ``stage_unique`` (stage ms), one whole-capture ``verdict_chunk``
+   to fill the memo and three timed ones (verdicts/s, memo hit ratio,
+   allow fraction): every lane of the output equal to a
+   ``device="cpu"`` engine's replay, 512 flows equal to the CPU
+   oracle, no ``ERROR``. Then the protocols policy (and the memcache
+   one, whose ``l7g`` stack K1 and K2 take) as fused batches of 8192
+   under ``auto``, ``nfa-bitset`` and the oblivious DFA (each batch's
+   ten lanes equal to the plain engine; batch median, device kernels
+   and busy share as in phase 4); the generic pair path (a
+   ``test.lineparser`` policy, proxy-only, so off ``l7g``: fused step
+   and capture replay against the plain engine); proxylib on the card
+   (a ``VerdictService`` on the protocols loader, 200 ``on_data``
+   round trips each of r2d2, memcache and cassandra frames, each
+   PASS/DROP equal to the plain engine's verdict; p50/p99). Launch
+   counts are zeroed before and read after each pass. Then KD, and K2
+   and K1 wherever they take it, held exactly against their plain
+   versions at each frontend policy's ``l7g`` stack and at its lane
+   capture's ``l7g`` table, and timed, each stack's (NB, S, K) and L
+   printed; each fused arm's ``impl_plan["l7g"]`` is checked against
+   the arm's rule. A ``proto: {...}`` line carries the numbers;
+12. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -291,6 +318,26 @@ SOAK_STREAMS, SOAK_VIRTUAL_S, SOAK_FAULTS = 100_000, 60.0, 12
 FLEET_STREAMS, FLEET_HOSTS, FLEET_VIRTUAL_S = 1_050_000, 4, 120.0
 FLEET_ACTIVE, FLEET_FAULTS, FLEET_MIN_HANDOFFS = 0.02, 8, 400
 LANE_TIMEOUT_S = 600.0
+#: phase 10: the soak's protocol mix (the reference lane's default): the
+#: fraction of pool chunks carrying cassandra, memcache and r2d2 records
+SOAK_PROTOCOL_MIX = 0.2
+#: phase 11: ``bench_protocols.py``'s per-protocol throughput lanes at
+#: its published settings (``PROTO_LANES``, not cut): (scenario, rules,
+#: flows); the timed repetitions of a lane's whole capture and the CPU
+#: oracle's sample; the batches of BATCH each fused arm runs and holds;
+#: the generic pair path's test.lineparser rules and records; proxylib's
+#: on_data round trips a frontend and their concurrent clients
+PROTO_LANES = (("cassandra", 40, 120000), ("memcache", 40, 120000),
+               ("r2d2", 40, 120000), ("protocols", 120, 200000),
+               ("http", 200, 120000))
+PROTO_REPS, PROTO_ORACLE_SAMPLE = 3, 512
+PROTO_FUSED_BATCHES = 4
+PAIR_RULES, PAIR_FLOWS = 40, 20000
+ON_DATA_TRIPS, ON_DATA_CLIENTS = 200, 8
+#: phase 11's fused arms: arm → (kernel_impl, CILIUM_TPU_DFA_IMPL)
+PROTO_ARMS = {"auto": ("auto", "gather"),
+              "nfa-bitset": ("nfa-bitset", "gather"),
+              "oblivious-dfa": ("auto", "pallas")}
 #: capture arm → (phase-4 configuration it replays on, kernels it must
 #: launch)
 CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
@@ -3531,8 +3578,8 @@ def churn_lane(card):
 def soak_lane(card):
     """Phase 10 (b), the serve soak: ``LoadModel`` at SOAK_STREAMS
     virtual streams in ``thread`` mode (the pack thread under an
-    autojumping clock) with the lane's seeded serve faults, http-only
-    (``protocol_mix=0``)."""
+    autojumping clock) with the lane's seeded serve faults, a
+    SOAK_PROTOCOL_MIX share of its chunks protocol-frontend records."""
     from cilium_tpu_torch.engine import _build
     from cilium_tpu_torch.runtime import faults, loadmodel, simclock
 
@@ -3558,8 +3605,8 @@ def soak_lane(card):
              faults.FaultRule("serve.ring_slot", prob=0.0005,
                               times=SOAK_FAULTS)]
     model = Traced(streams=SOAK_STREAMS, virtual_s=SOAK_VIRTUAL_S,
-                   fault_rules=rules, mode="thread", protocol_mix=0.0,
-                   device=DEVICE)
+                   fault_rules=rules, mode="thread",
+                   protocol_mix=SOAK_PROTOCOL_MIX, device=DEVICE)
     loadmodel._build_world = noted
     try:
         _build.reset_launches()
@@ -3792,8 +3839,7 @@ def fleet_phase(card):
               "churn": got["churn"], "soak": soak, "serve": serve,
               "cuts": {"churn_updates": (CHURN_UPDATES, 56),
                        "soak_virtual_s": (SOAK_VIRTUAL_S, 120.0),
-                       "serve_virtual_s": (FLEET_VIRTUAL_S, 120.0),
-                       "protocol_mix": (0.0, 0.2)}}
+                       "serve_virtual_s": (FLEET_VIRTUAL_S, 120.0)}}
     log(f"phase 10 wall {wall:.1f} s (the lanes one after another; each "
         f"lane's process {', '.join(f'{n} {w:.1f} s' for n, w in walls.items())})")
     return report, launches, variants, held
@@ -3880,6 +3926,552 @@ def fleet_kernels(errs, rows, held, churn_variants, card):
     return [list(r) for r in rows["KD"] if r[0] in labels]
 
 
+# ------------------------------------------- the protocol-frontend lanes
+def proto_scenario(name: str, n_rules: int, n_flows: int):
+    """``bench_protocols.py``'s lane scenarios: a single frontend
+    reuses the mixed generator at a 1.0 share; http and protocols use
+    their own generators."""
+    from cilium_tpu_torch.ingest import synth
+
+    if name in ("http", "protocols"):
+        return synth.scenario_by_name(name, n_rules, n_flows)
+    return synth.synth_protocols_scenario(
+        n_rules=n_rules, n_flows=n_flows, mix=((name, 1.0),))
+
+
+def proto_loader(per_identity, cache_dir):
+    """The port's ``Loader(Config())`` on the card (gate on,
+    content-addressed banks) over a temporary cache; (loader, compile
+    s of the cold build)."""
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.runtime.loader import Loader
+
+    cfg = Config()
+    cfg.loader.cache_dir = cache_dir
+    loader = Loader(cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    loader.regenerate(per_identity, revision=1)
+    return loader, time.perf_counter() - t0
+
+
+def replay_of(engine, cols, cfg, loader=None):
+    """A ``CaptureReplay`` over a capture's columns, staged (rows and
+    the dedup stream)."""
+    from cilium_tpu_torch.engine.replay import CaptureReplay
+
+    r = CaptureReplay(engine, cols.l7, cols.offsets, cols.blob, cfg,
+                      gen=cols.gen, loader=loader)
+    r.stage_rows(cols.rec, cols.l7)
+    r.stage_unique()
+    return r
+
+
+def l7g_stack(policy):
+    """``(NB, S, K)`` of a policy's l7g automaton, or None."""
+    t = policy.arrays.get("l7g_trans")
+    return tuple(t.shape) if t is not None else None
+
+
+def proto_lane(name, n_rules, n_flows, cache_dir, card):
+    """One throughput lane as ``bench_protocols.run_throughput`` runs
+    it, through the port's entry points: ``Loader`` on the card,
+    ``regenerate`` (compile s), ``flows_to_columns`` (a v3 image when a
+    record is generic), ``CaptureReplay(..., gen=, loader=)`` with
+    ``stage_rows`` and ``stage_unique`` (stage ms), one
+    ``verdict_chunk`` of the whole capture to fill the memo, then
+    PROTO_REPS timed ones. Every lane of the output is held against a
+    ``device="cpu"`` engine's replay of the same capture, the
+    PROTO_ORACLE_SAMPLE first flows against the CPU oracle; no
+    ``ERROR`` verdict. The launch counts are set to 0 just before the
+    replay is built and read just after the timed repetitions, before
+    the oracle sample's fused step."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.core.flow import Verdict
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.ingest import synth
+    from cilium_tpu_torch.ingest.columnar import flows_to_columns
+
+    t_lane = time.perf_counter()
+    per_identity, scenario = synth.realize_scenario(
+        proto_scenario(name, n_rules, n_flows))
+    loader, compile_s = proto_loader(per_identity, cache_dir)
+    engine = loader.engine
+    ecfg = loader.config.engine
+    cols = flows_to_columns(scenario.flows)
+    check((cols.gen is not None) == (name != "http"),
+          f"[proto {name}] the capture's GENERIC section: "
+          f"{cols.gen is not None}")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    replay = replay_of(engine, cols, ecfg, loader=loader)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    out = replay.verdict_chunk(cols.rec, cols.l7)     # the memo fill
+    check(int(Verdict.ERROR) not in out["verdict"],
+          f"[proto {name}] ERROR verdicts")
+    n = len(scenario.flows)
+    t0 = time.perf_counter()
+    for _ in range(PROTO_REPS):
+        out = replay.verdict_chunk(cols.rec, cols.l7)
+    dt = time.perf_counter() - t0
+    launches, variants = lane_counts()
+    check(launches["KD"] > 0, f"[proto {name}] KD never launched")
+    # the oracle sample runs the fused step on the card: after the read
+    sample = scenario.flows[:PROTO_ORACLE_SAMPLE]
+    want = loader.fallback_engine.verdict_flows(sample)["verdict"]
+    got = engine.verdict_flows(sample)["verdict"]
+    check(list(map(int, got)) == list(map(int, want)),
+          f"[proto {name}] the engine disagrees with the CPU oracle on "
+          f"{sum(int(a) != int(b) for a, b in zip(got, want))} of "
+          f"{len(sample)} flows")
+    plain = TorchVerdictEngine(engine.policy, device="cpu", cfg=ecfg)
+    assert_lanes(f"[proto {name}] vs the plain engine's replay", out,
+                 replay_of(plain, cols, ecfg).verdict_chunk(cols.rec,
+                                                            cols.l7))
+    m = replay.memo
+    allowed = float(np.mean(np.asarray(out["verdict"])
+                            == int(Verdict.REDIRECTED)))
+    stack = l7g_stack(engine.policy)
+    line = {
+        "protocol": name, "rules": n_rules, "flows": n,
+        "verdicts_per_s": PROTO_REPS * n / dt,
+        "compile_s": compile_s, "stage_ms": stage_s * 1e3,
+        "memo_hit_ratio": (m.hits / max(1, m.hits + m.misses)
+                           if m is not None else None),
+        "allow_fraction": allowed, "unique_rows": replay.n_unique,
+        "l7g_stack": stack,
+        "l7g_table": (tuple(replay.feat.tables["l7g"][0].shape)
+                      if "l7g" in replay.feat.tables else None),
+        "oracle_sample": len(sample), "errors": 0,
+        "lane_wall_s": time.perf_counter() - t_lane,
+        "launches": launches, "kd_variants": variants}
+    log(f"[proto {name}] {n_rules} rules x {n} flows: "
+        f"{line['verdicts_per_s'] / 1e6:.3f}M verdicts/s (memo-gather "
+        f"replay, {PROTO_REPS} reps), compile {compile_s:.3f} s, stage "
+        f"{line['stage_ms']:.1f} ms, {replay.n_unique} unique rows, memo "
+        f"hit ratio {line['memo_hit_ratio']}, allow {allowed:.4f}; l7g "
+        f"stack {stack}, table {line['l7g_table']}; all 10 lanes equal to "
+        f"the plain engine, {len(sample)} flows to the oracle; launches "
+        f"{launches} on {card}")
+    return line, loader, scenario, cols, replay
+
+
+def proto_fused(name, policy, ecfg, flows, card):
+    """The lane's policy as a fused batch: PROTO_FUSED_BATCHES batches of
+    BATCH of its flows under each of PROTO_ARMS (the l7g field scanned
+    by the arm wherever it can take its stack), every batch held on all
+    ten lanes against the plain engine; then phase 4's batch timing.
+    Counts to 0 just before each arm's batches, read just after."""
+    import dataclasses
+
+    import torch
+
+    from cilium_tpu_torch.engine import _build, nfa_kernel
+    from cilium_tpu_torch.engine.megakernel import IMPL_DENSE, IMPL_NFA
+    from cilium_tpu_torch.engine.verdict import (
+        TorchVerdictEngine,
+        batch_to_device,
+    )
+
+    out, launches, variants = {}, {}, {}
+    env0 = os.environ.get("CILIUM_TPU_DFA_IMPL", "gather")
+    S = l7g_stack(policy)[1]
+    # the arm each mode must give l7g: NFA under nfa-bitset, and under
+    # auto past 128 DFA states, wherever the banks' positions fit
+    nfa_fits = nfa_kernel.banks_from_dfa(policy.l7g_matcher.banked,
+                                         ecfg) is not None
+    try:
+        for arm, (mode, dfa_impl) in PROTO_ARMS.items():
+            tag = f"proto {name} {arm}"
+            cfg = dataclasses.replace(ecfg, kernel_impl=mode)
+            os.environ["CILIUM_TPU_DFA_IMPL"] = dfa_impl
+            engine = TorchVerdictEngine(policy, device=DEVICE, cfg=cfg)
+            plain = TorchVerdictEngine(policy, device="cpu", cfg=cfg)
+            host = host_batches(policy, flows[:PROTO_FUSED_BATCHES * BATCH],
+                                cfg)
+            batches = [batch_to_device(h, DEVICE) for h in host]
+            torch.cuda.synchronize()
+            l7g_impl = engine.impl_plan["l7g"]
+            expect = (IMPL_NFA if nfa_fits and (mode == IMPL_NFA or S > 128)
+                      else IMPL_DENSE)
+            check(l7g_impl == expect,
+                  f"[{tag}] l7g ({S} states) took {l7g_impl}, not {expect}")
+            l7g_kernel = ("K1" if l7g_impl == IMPL_NFA else
+                          "K2" if dfa_impl == "pallas" and S <= 128
+                          else "KD")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always", RuntimeWarning)
+                _build.reset_launches()
+                got = [engine.verdict_batch_arrays(b) for b in batches]
+                torch.cuda.synchronize()
+                launches[arm], variants[arm] = lane_counts()
+                want = [plain.verdict_batch_arrays(batch_to_device(h, "cpu"))
+                        for h in host]
+            check(launches[arm][l7g_kernel] > 0,
+                  f"[{tag}] the l7g field's kernel {l7g_kernel} never "
+                  f"launched: {launches[arm]}")
+            if dfa_impl == "pallas" and S > 128:
+                check(any("constant-time guarantee" in str(w.message)
+                          for w in caught),
+                      f"[{tag}] the {S}-state l7g stack must warn on the "
+                      f"oblivious arm's fallback")
+            for i, (g, w) in enumerate(zip(got, want)):
+                assert_lanes(f"[{tag}] batch {i} vs the plain engine",
+                             {k: v.cpu().numpy() for k, v in g.items()},
+                             {k: v.numpy() for k, v in w.items()})
+            log(f"[{tag}] impl_plan {json.dumps(engine.impl_plan, sort_keys=True)} "
+                f"CILIUM_TPU_DFA_IMPL={dfa_impl}: l7g ({l7g_impl}) on "
+                f"{l7g_kernel}; {len(batches)} batches, all 10 lanes equal "
+                f"to the plain engine; launches {launches[arm]}")
+            med, busy, kernels = batch_timing(engine, batches[0], tag, card)
+            # the device memory one batch takes beyond the staged policy
+            # and batch: the frontend resolve's pair-subset check
+            # broadcasts [B, G, Km, F] (G predicate groups, Km pairs a
+            # group, F pair slots a flow)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            engine.verdict_batch_arrays(batches[0])
+            torch.cuda.synchronize()
+            peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            G, Km = policy.arrays["rp_fe_pairs"].shape
+            F = policy.kafka_interns["gen_fmax"]
+            log(f"[{tag}] one batch's peak device memory above the staged "
+                f"arrays {peak_mb:.1f} MiB; the pair-subset broadcast "
+                f"[{BATCH}, {G}, {Km}, {F}] is "
+                f"{BATCH * G * Km * F / 2 ** 20:.1f} MiB of bool")
+            out[arm] = {"impl_plan": dict(engine.impl_plan),
+                        "l7g_kernel": l7g_kernel, "batch_ms": med,
+                        "busy_share": busy, "device_kernels": kernels,
+                        "batches_held": len(batches),
+                        "peak_batch_mib": peak_mb,
+                        "pair_subset_shape": [BATCH, G, Km, F]}
+    finally:
+        os.environ["CILIUM_TPU_DFA_IMPL"] = env0
+    return out, launches, variants
+
+
+def pair_path_phase(cache_dir, card):
+    """The generic pair path: the lineparser policy through the
+    ``Loader``; its records through the fused step (batches of BATCH)
+    and through capture replay, each held on all ten lanes against the
+    plain engine, and the two paths against each other."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.verdict import (
+        TorchVerdictEngine,
+        batch_to_device,
+    )
+    from cilium_tpu_torch.ingest import synth
+    from cilium_tpu_torch.ingest.columnar import flows_to_columns
+
+    per_identity, sc = synth.realize_scenario(
+        synth.synth_lineparser_scenario(PAIR_RULES, PAIR_FLOWS))
+    loader, compile_s = proto_loader(per_identity, cache_dir)
+    try:
+        engine = loader.engine
+        policy, ecfg = engine.policy, loader.config.engine
+        check("l7g_trans" not in policy.arrays and policy.gen_rules
+              and not policy.fe_rules,
+              "[proto pairs] the lineparser policy must stay on the "
+              "generic pair path")
+        host = host_batches(policy, sc.flows, ecfg)
+        batches = [batch_to_device(h, DEVICE) for h in host]
+        cols = flows_to_columns(sc.flows)
+        plain = TorchVerdictEngine(policy, device="cpu", cfg=ecfg)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = [engine.verdict_batch_arrays(b) for b in batches]
+        replayed = replay_of(engine, cols, ecfg).verdict_chunk(cols.rec,
+                                                               cols.l7)
+        torch.cuda.synchronize()
+        launches, variants = lane_counts()
+        check(launches["KD"] > 0, "[proto pairs] KD never launched")
+        fused = {k: np.concatenate([g[k].cpu().numpy() for g in got])
+                 for k in got[0]}
+        want = plain.verdict_flows(sc.flows)
+        assert_lanes("[proto pairs] fused vs the plain engine", fused, want)
+        assert_lanes("[proto pairs] replay vs the plain engine", replayed,
+                     want)
+        mix = np.bincount(fused["verdict"], minlength=6).tolist()
+        check(mix[2] > 0 and mix[5] > 0,
+              f"[proto pairs] implausible verdict mix {mix}")
+        log(f"[proto pairs] test.lineparser {PAIR_RULES} rules x "
+            f"{len(sc.flows)} records: generic rules "
+            f"{len(policy.gen_rules)}, gen_fmax "
+            f"{policy.kafka_interns['gen_fmax']}, no l7g; fused "
+            f"({len(batches)} batches) and replay all 10 lanes equal to "
+            f"the plain engine; mix {mix}; launches {launches} on {card}")
+        return ({"rules": PAIR_RULES, "records": len(sc.flows),
+                 "generic_rules": len(policy.gen_rules), "mix": mix,
+                 "compile_s": compile_s}, launches, variants)
+    finally:
+        loader.close()
+
+
+def frontend_frame(g) -> bytes:
+    """One request frame of a frontend record: an r2d2 line, a
+    memcached text command, a CQL QUERY frame."""
+    import struct
+
+    f = g.fields
+    if g.proto == "r2d2":
+        return (" ".join([f.get("cmd", "")] + (
+            [f["file"]] if "file" in f else [])) + "\r\n").encode()
+    if g.proto == "memcache":
+        cmd, key = f.get("cmd", "get"), f.get("key", "")
+        if cmd == "set":
+            return f"set {key} 0 0 2\r\nhi\r\n".encode()
+        return (f"{cmd} {key}".rstrip() + "\r\n").encode()
+    action, table = f.get("query_action", ""), f.get("query_table", "")
+    q = {"select": f"SELECT * FROM {table}",
+         "insert": f"INSERT INTO {table} (a) VALUES (1)",
+         "update": f"UPDATE {table} SET a = 1",
+         "drop": f"DROP TABLE {table}"}.get(action, f"{action} {table}")
+    body = struct.pack(">i", len(q.encode())) + q.encode()
+    return struct.pack(">BBhBI", 4, 0, 1, 0x07, len(body)) + body
+
+
+def proxylib_phase(loader, flows, tmpdir, card):
+    """A ``VerdictService`` on the protocols loader answers ``on_data``
+    for r2d2, memcache and cassandra frames, ON_DATA_TRIPS round trips
+    each over ON_DATA_CLIENTS clients; each frame's PASS/DROP equals
+    the plain engine's verdict on the records the parser reads from it.
+    p50/p99 a protocol."""
+    import base64
+    import dataclasses
+
+    from cilium_tpu_torch.core.flow import (
+        Flow,
+        L7Type,
+        Protocol,
+        TrafficDirection,
+        Verdict,
+    )
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.proxylib import Connection, create_parser
+    from cilium_tpu_torch.runtime.service import VerdictClient
+
+    plain = TorchVerdictEngine(loader.engine.policy, device="cpu",
+                               cfg=loader.config.engine)
+    policy_check_flow = Flow(protocol=Protocol.TCP,
+                             direction=TrafficDirection.INGRESS,
+                             l7=L7Type.GENERIC)
+    passing = {int(Verdict.FORWARDED), int(Verdict.AUDIT),
+               int(Verdict.REDIRECTED)}
+    out = {}
+    _build.reset_launches()
+    for p_i, proto in enumerate(("r2d2", "memcache", "cassandra")):
+        mine = [f for f in flows if f.generic is not None
+                and f.generic.proto == proto][:ON_DATA_TRIPS]
+        frames = [frontend_frame(f.generic) for f in mine]
+        # what the parser reads from each frame, as the service's
+        # PolicyBridge turns it into a flow, verdicted by the plain engine
+        parsed = []
+        for f, fr in zip(mine, frames):
+            seen = []
+            conn = Connection(proto=proto, connection_id=0, ingress=True,
+                              src_identity=f.src_identity,
+                              dst_identity=f.dst_identity, dport=f.dport)
+            create_parser(proto, conn, lambda r: seen.append(r) or True)
+            conn.on_data(False, False, fr)
+            check(len(seen) == 1, f"[proto {proto}] {len(seen)} records "
+                                  f"from frame {fr[:40]!r}")
+            parsed.append(dataclasses.replace(
+                policy_check_flow, src_identity=f.src_identity,
+                dst_identity=f.dst_identity, dport=f.dport,
+                generic=seen[0]))
+        allowed = [int(v) in passing for v in plain.verdict_flows(
+            parsed, outputs=("verdict",))["verdict"]]
+        lat, wrong = [], []
+        with verdict_service(loader, os.path.join(tmpdir, f"{proto}.sock"),
+                             batch_max=SVC_BATCH_MAX,
+                             deadline_ms=SVC_DEADLINE_MS) as svc:
+            def client(t):
+                c = VerdictClient(svc.socket_path)
+                try:
+                    for i in range(t, len(frames), ON_DATA_CLIENTS):
+                        f, cid = mine[i], p_i * 100_000 + i
+                        r = c.call({"op": "on_new_connection",
+                                    "proto": proto, "conn": cid,
+                                    "ingress": True,
+                                    "src": f.src_identity,
+                                    "dst": f.dst_identity,
+                                    "dport": f.dport})
+                        check(r.get("ok"), f"[proto {proto}] {r}")
+                        t0 = time.perf_counter()
+                        r = c.call({"op": "on_data", "conn": cid,
+                                    "data_b64": base64.b64encode(
+                                        frames[i]).decode()})
+                        lat.append(time.perf_counter() - t0)
+                        ops = [tuple(o) for o in r["ops"] if o[0] in (1, 2)]
+                        if ops != [(1 if allowed[i] else 2, len(frames[i]))]:
+                            wrong.append((i, r["ops"]))
+                        c.call({"op": "close_connection", "conn": cid})
+                finally:
+                    c.close()
+
+            run_threads(client, ON_DATA_CLIENTS, f"proto {proto}")
+        check(not wrong, f"[proto {proto}] {len(wrong)} on_data ops differ "
+                         f"from the plain engine, e.g. {wrong[:2]}")
+        out[proto] = {"round_trips": len(frames), "pass": sum(allowed),
+                      "clients": ON_DATA_CLIENTS, **quantiles_ms(lat)}
+        log(f"[proto {proto} on_data] {len(frames)} round trips over "
+            f"{ON_DATA_CLIENTS} clients ({sum(allowed)} PASS, each equal to "
+            f"the plain engine): p50 {out[proto]['p50_ms']:.3f} ms, p99 "
+            f"{out[proto]['p99_ms']:.3f} ms on {card}")
+    launches, variants = lane_counts()
+    check(launches["KD"] > 0, "[proto on_data] KD never launched")
+    return out, launches, variants
+
+
+def proto_phase(card):
+    """Phase 11: the protocol-frontend lanes (see the module docstring).
+    Returns (report, launches by pass, KD variants by pass, what the
+    kernel holds need)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_proto_")
+    report = {"card": card, "lanes": {}}
+    launches, variants, held = {}, {}, {"lanes": {}}
+    kept = None          # the protocols lane's loader, for proxylib
+    try:
+        for name, n_rules, n_flows in PROTO_LANES:
+            line, loader, scenario, cols, replay = proto_lane(
+                name, n_rules, n_flows, os.path.join(tmp.name, name), card)
+            launches[f"proto-{name}"] = line.pop("launches")
+            variants[f"proto-{name}"] = line.pop("kd_variants")
+            report["lanes"][name] = line
+            if name != "http":
+                held["lanes"][name] = {
+                    "policy": loader.engine.policy,
+                    "ecfg": loader.config.engine,
+                    "flows": scenario.flows[:PROTO_FUSED_BATCHES * BATCH],
+                    "table": replay.feat.tables.get("l7g")}
+            if name == "protocols":
+                kept = loader
+            else:
+                loader.close()
+        # the fused arms: the protocols policy, and the memcache one,
+        # whose l7g stack K2 and K1 both take
+        report["fused"] = {}
+        for name in ("protocols", "memcache"):
+            lane = held["lanes"][name]
+            out, ln, vr = proto_fused(name, lane["policy"], lane["ecfg"],
+                                      lane["flows"], card)
+            report["fused"][name] = out
+            launches.update({f"proto-fused-{name}-{a}": v
+                             for a, v in ln.items()})
+            variants.update({f"proto-fused-{name}-{a}": v
+                             for a, v in vr.items()})
+        report["pairs"], launches["proto-pairs"], variants["proto-pairs"] = \
+            pair_path_phase(os.path.join(tmp.name, "pairs"), card)
+        report["on_data"], launches["proto-on_data"], \
+            variants["proto-on_data"] = proxylib_phase(
+                kept, held["lanes"]["protocols"]["flows"], tmp.name, card)
+    finally:
+        if kept is not None:
+            kept.close()
+        tmp.cleanup()
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["cuts"] = {"repetitions": (PROTO_REPS, 3)}
+    return report, launches, variants, held
+
+
+def proto_kernels(errs, rows, held, card):
+    """Each kernel that takes a frontend policy's l7g stack held exactly
+    against its plain version at the stack and the lane's first BATCH
+    records' scan values (KD always; K2 where S <= 128; K1 where the
+    banks' positions fit), and KD at the lane capture's l7g table;
+    then timed, with bounds, through phase 4's code. Prints each stack's
+    (NB, S, K) and L."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import (
+        dfa_dense_cuda,
+        dfa_oblivious_cuda,
+        nfa_cuda,
+    )
+    from cilium_tpu_torch.engine.verdict import (
+        TorchVerdictEngine,
+        batch_field,
+        batch_to_device,
+        unpack_batch,
+    )
+
+    out = {}
+    for name, lane in held["lanes"].items():
+        policy = lane["policy"]
+        engine = TorchVerdictEngine(policy, device=DEVICE, cfg=lane["ecfg"])
+        b = unpack_batch(batch_to_device(
+            host_batches(policy, lane["flows"][:BATCH], engine.cfg)[0],
+            DEVICE))
+        data, lens, _ = batch_field(b, "l7g")
+        data, lens = data.contiguous(), lens.contiguous()
+        arr = engine._arrays
+        a = (arr["l7g_trans"], arr["l7g_byteclass"], arr["l7g_start"],
+             data, lens)
+        NB, S, K = a[0].shape
+        shape = f"{(NB, S, K)} B={data.shape[0]} L={data.shape[1]}"
+        hold(errs, "KD", f"proto {name} l7g {shape}",
+             dfa_dense_cuda.dense_scan_cuda(*a, accept=arr["l7g_accept"]),
+             dfa_dense_cuda.dense_scan_plain(*a, accept=arr["l7g_accept"]))
+        takes = ["KD"]
+        if S <= 128:
+            hold(errs, "K2", f"proto {name} l7g {shape}",
+                 dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a),
+                 dfa_oblivious_cuda.dfa_finals_oblivious_plain(*a))
+            takes.append("K2")
+        nfa = TorchVerdictEngine(policy, device=DEVICE, cfg=dataclasses.replace(
+            engine.cfg, kernel_impl="nfa-bitset"))
+        nfa_fields = {}
+        if "l7g_nfa_follow" in nfa._arrays:
+            n = [nfa._arrays[f"l7g_nfa_{k}"] for k in
+                 ("follow", "acc_cls", "byteclass", "start")] + [data, lens]
+            hold(errs, "K1", f"proto {name} l7g {tuple(n[1].shape)} "
+                             f"B={data.shape[0]} L={data.shape[1]}",
+                 nfa_cuda.nfa_finals_cuda(*n), nfa_cuda.nfa_finals_plain(*n))
+            nfa_fields["l7g"] = (nfa._arrays, data, lens)
+            takes.append("K1")
+        capture = {}
+        if lane["table"] is not None:
+            tdata, tlens = (torch.from_numpy(np.ascontiguousarray(t))
+                            .to(DEVICE) for t in lane["table"][:2])
+            ta = a[:3] + (tdata, tlens)
+            hold(errs, "KD", f"proto {name} capture l7g table {(NB, S, K)} "
+                             f"B={tdata.shape[0]} L={tdata.shape[1]}",
+                 dfa_dense_cuda.dense_scan_cuda(*ta, accept=arr["l7g_accept"]),
+                 dfa_dense_cuda.dense_scan_plain(*ta,
+                                                 accept=arr["l7g_accept"]))
+            capture[f"proto-{name}-capture-l7g"] = ("l7g", arr, tdata,
+                                                     tlens)
+        log(f"[proto {name}] l7g stack (NB, S, K) = {(NB, S, K)}, L = "
+            f"{data.shape[1]}: taken by {takes}"
+            + ("" if S <= 128 else f"; K2 cannot take it ({S} states > "
+               f"128)") + ("" if "K1" in takes else
+                           "; K1 cannot take it (the banks' NFA positions "
+                           "do not fit 128)"))
+        got = kernel_times({"l7g": (arr, data, lens)}, nfa_fields, capture,
+                           {}, card, tag=f"proto-{name}-")
+        for kid, rs in got.items():
+            rows[kid].extend(rs)
+        out[name] = {"stack": (NB, S, K), "L": int(data.shape[1]),
+                     "B": int(data.shape[0]), "taken_by": takes,
+                     "rows": {kid: [list(r) for r in rs]
+                              for kid, rs in got.items() if rs}}
+    return out
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -3916,7 +4508,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs) -> int:
-    """Phases 2-11 (see the module docstring)."""
+    """Phases 2-12 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
@@ -4027,6 +4619,14 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     log("phase 10: KD at the storm's path stack, against its plain version")
     fleet_report["kd"] = fleet_kernels(errs, rows, fleet_held,
                                        fleet_variants["churn"], card)
+    log("phase 11: the protocol-frontend lanes (cassandra, memcache, r2d2, "
+        "protocols, http) through the port's Loader and CaptureReplay")
+    proto_report, proto_launches, proto_variants, proto_held = \
+        proto_phase(card)
+    log("phase 11: the kernels at the l7g stacks, against their plain "
+        "versions")
+    proto_report["kernels"] = proto_kernels(errs, rows, proto_held, card)
+    log(f"phase 11 wall {proto_report['wall_s']:.1f} s")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -4036,6 +4636,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     phase_launches["service"] = service_launches
     phase_launches.update({f"fleet-{n}": ln
                            for n, ln in fleet_launches.items()})
+    phase_launches.update(proto_launches)
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -4045,6 +4646,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     phase_variants["service"] = service_variants
     phase_variants.update({f"fleet-{n}": v
                            for n, v in fleet_variants.items()})
+    phase_variants.update(proto_variants)
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -4075,6 +4677,10 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
                 "service_shapes": service_report["kd"],
                 "fleet_shapes": fleet_report["kd"]}
                if kid == "KD" else {}),
+            # the l7g stacks of phase 11: the rows of this kernel
+            "l7g_shapes": {n: r["rows"].get(kid, [])
+                           for n, r in proto_report["kernels"].items()
+                           if kid in r["taken_by"]},
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -4096,6 +4702,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     log("loader: " + json.dumps(loader_report))
     log("service: " + json.dumps(service_report))
     log("fleet: " + json.dumps(fleet_report))
+    log("proto: " + json.dumps(proto_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,25 +57,20 @@ FAMILY_NAMES = {int(L7Type.HTTP): "http", int(L7Type.KAFKA): "kafka",
 _FE_FAMILIES = frozenset((int(L7Type.CASSANDRA), int(L7Type.MEMCACHE),
                           int(L7Type.R2D2)))
 
-#: the protocol-frontend ``l7proto`` names (their engine families are
-#: cassandra / memcache / r2d2)
-_FRONTEND_PROTOS = frozenset(("cassandra", "memcache", "r2d2"))
-
-#: frontends are not ported yet
-_FRONTENDS_SLICE = ("the protocol frontends' families (cassandra, "
-                    "memcache, r2d2) come with the frontends (queue 1, Q5)")
-
-
 def flow_family(flow) -> int:
     """The ENGINE family of a flow object — what the attribution lane's
     code is scoped to. Frontend records carry ``l7 == GENERIC`` on the
-    wire and verdict on their frontend family, which needs the
-    frontends: those raise."""
+    wire; the engine normalizes their l7-type lane to the frontend
+    family, so flow-side decoders apply the same mapping (else a
+    cassandra code would resolve through the generic pair table)."""
+    from cilium_tpu_torch.policy.compiler import frontends
+
     l7 = int(flow.l7)
     g = getattr(flow, "generic", None)
-    if l7 == int(L7Type.GENERIC) and g is not None \
-            and g.proto in _FRONTEND_PROTOS:
-        raise NotImplementedError(_FRONTENDS_SLICE)
+    if l7 == int(L7Type.GENERIC) and g is not None:
+        fam = frontends.family_of(g.proto)
+        if fam:
+            return fam
     return l7
 
 

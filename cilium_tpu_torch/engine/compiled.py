@@ -7,17 +7,20 @@ A copy of the numpy half of the reference's ``engine/verdict.py``
 ``compile_patterns`` path or, with a ``bank_registry``, on the
 content-addressed partition of ``policy/compiler/bankplan.py`` (the
 loader's default), plus the capture featurizers
-(``encode_records``, ``encode_l7_records``, ``CaptureFeaturizer``)
-and the single-blob transport's host half (``pack_blob_host``). Its
-arrays are byte-equal to the reference's for the same resolved policy
-(``tests/test_torch_compile.py``); ``weights.arrays_from_reference``
+(``encode_records``, ``encode_l7_records``, ``CaptureFeaturizer``, with
+a v3 capture's GENERIC section through ``_gen_intern_rows`` and
+``_gen_l7g_cols``) and the single-blob transport's host half
+(``pack_blob_host``). Its arrays are byte-equal to the reference's for
+the same resolved policy (``tests/test_torch_compile.py``,
+``tests/test_torch_frontends.py``); ``weights.arrays_from_reference``
 stages either package's arrays.
 
-Not ported yet (queue 1, Q5): ``l7proto`` rules (generic pairs and
-protocol frontends), generic flow records and the GENERIC section of
-a v3 capture raise ``NotImplementedError``; the empty ``gen_*`` arrays
-are still built exactly as the reference builds them, so the staged
-shapes match.
+``l7proto`` rules take one of two paths. A proto with an engine
+frontend (``policy/compiler/frontends``: cassandra, memcache, r2d2)
+lowers onto the ``l7g`` banked automaton (its scan field) plus interned
+enum pairs; any other registered proxy parser's rules stay on the
+generic pair path (interned ``(proto, key, value)`` pair subsets). An
+unknown proto raises ``frontends.UnknownL7ProtoError``.
 """
 
 from __future__ import annotations
@@ -48,12 +51,6 @@ from cilium_tpu_torch.engine.mapstate_kernel import (
     PackedMapState,
     pack_mapstate,
 )
-
-#: the slice that will port l7proto rules and generic records
-_L7PROTO_SLICE = ("l7proto/frontend rules are not ported yet; they "
-                  "arrive with the frontends/l7proto slice (queue 1, "
-                  "Q5)")
-
 
 # --------------------------------------------------------------- helpers --
 def encode_strings(
@@ -197,6 +194,8 @@ class CompiledPolicy:
     http_rules: List[PortRuleHTTP]
     kafka_rules: List[PortRuleKafka]
     dns_rules: List[PortRuleDNS]
+    #: generic l7proto rules: (proto, sorted (key, value) pairs)
+    gen_rules: List[Tuple[str, Tuple[Tuple[str, str], ...]]]
     kafka_interns: Dict[str, Dict]          # intern tables (kafka + generic)
     path_matcher: _FieldMatcher
     method_matcher: _FieldMatcher
@@ -222,8 +221,13 @@ class CompiledPolicy:
     resolve_meta: Optional[Dict] = None
     #: field → scan-impl pick, written at engine staging
     kernel_plan: Dict[str, str] = dataclasses.field(default_factory=dict)
-    #: the frontend (l7g) automaton: never built in this slice, kept so
-    #: ``plan_for_engine`` reads the same attribute as the reference's
+    #: protocol-frontend rules: (l7proto, sorted (key, value) pairs) per
+    #: rule, compiled onto the ``l7g`` banked automaton
+    fe_rules: List[Tuple[str, Tuple[Tuple[str, str], ...]]] = \
+        dataclasses.field(default_factory=list)
+    #: the ``l7g`` field matcher over the frontend pattern universe;
+    #: None when no frontend rules exist (the ``l7g_*`` arrays are then
+    #: absent and every l7g code path is skipped)
     l7g_matcher: Optional[_FieldMatcher] = None
 
     @classmethod
@@ -253,10 +257,25 @@ class CompiledPolicy:
         dns_rules: List[PortRuleDNS] = []
         dns_index: Dict[PortRuleDNS, int] = {}
 
+        # generic (l7proto) rules: (proto, sorted (key, value) pairs);
+        # an l7proto with no l7 constraints is the 0-pair allow-all rule
+        gen_rules: List[Tuple[str, Tuple[Tuple[str, str], ...]]] = []
+        gen_index: Dict[Tuple, int] = {}
+        # protocol-FRONTEND rules: the same shape, routed to the l7g
+        # banked automaton; an unknown proto fails loudly here
+        from cilium_tpu_torch.policy.compiler import frontends as _fe
+
+        fe_rules: List[Tuple[str, Tuple[Tuple[str, str], ...]]] = []
+        fe_index: Dict[Tuple, int] = {}
+
         ruleset_key_to_id: Dict[Tuple, int] = {}
+        # per ruleset: member rule ids in each family's space (a merged
+        # entry can carry several families)
         ruleset_http: List[List[int]] = []
         ruleset_kafka: List[List[int]] = []
         ruleset_dns: List[List[int]] = []
+        ruleset_gen: List[List[int]] = []
+        ruleset_fe: List[List[int]] = []
 
         def intern_rule(table, index, rule):
             if rule not in index:
@@ -266,6 +285,7 @@ class CompiledPolicy:
 
         def ruleset_of(l7_rules_tuple: Tuple[L7Rules, ...]) -> int:
             http_ids, kafka_ids, dns_ids = [], [], []
+            gen_ids, fe_ids = [], []
             for lr in l7_rules_tuple:
                 for h in lr.http:
                     http_ids.append(intern_rule(http_rules, http_index, h))
@@ -274,14 +294,30 @@ class CompiledPolicy:
                 for d in lr.dns:
                     dns_ids.append(intern_rule(dns_rules, dns_index, d))
                 if lr.l7proto:
-                    raise NotImplementedError(_L7PROTO_SLICE)
-            if not (http_ids or kafka_ids or dns_ids):
+                    # an l7proto that is neither an engine frontend nor
+                    # a registered proxy parser fails the compile
+                    _fe.validate_l7proto(lr.l7proto)
+                    fe = _fe.get(lr.l7proto)
+                    table, index, ids = (
+                        (fe_rules, fe_index, fe_ids) if fe is not None
+                        else (gen_rules, gen_index, gen_ids))
+                    if not lr.l7:
+                        ids.append(intern_rule(
+                            table, index, (lr.l7proto, ())))
+                    for g in lr.l7:
+                        pairs = tuple(sorted(g.items()))
+                        if fe is not None:
+                            fe.validate_rule(pairs)
+                        ids.append(intern_rule(
+                            table, index, (lr.l7proto, pairs)))
+            if not (http_ids or kafka_ids or dns_ids or gen_ids
+                    or fe_ids):
                 return -1
-            # the reference keys rulesets by five families; the generic
-            # and frontend members are always empty here
             key = (tuple(sorted(set(http_ids))),
                    tuple(sorted(set(kafka_ids))),
-                   tuple(sorted(set(dns_ids))), (), ())
+                   tuple(sorted(set(dns_ids))),
+                   tuple(sorted(set(gen_ids))),
+                   tuple(sorted(set(fe_ids))))
             rid = ruleset_key_to_id.get(key)
             if rid is None:
                 rid = len(ruleset_http)
@@ -289,6 +325,8 @@ class CompiledPolicy:
                 ruleset_http.append(list(key[0]))
                 ruleset_kafka.append(list(key[1]))
                 ruleset_dns.append(list(key[2]))
+                ruleset_gen.append(list(key[3]))
+                ruleset_fe.append(list(key[4]))
             return rid
 
         # per-build memo keyed by the l7-rules tuple's OBJECT identity
@@ -421,11 +459,63 @@ class CompiledPolicy:
         for i in range(len(dns_rules)):
             dns_lane[i] = dns_matcher.lane(dns_pats[i])
 
-        # -- generic l7proto rules: none in this slice, so the tables
-        # are the reference's empty ones (one inert row) -------------
-        Rg = _rbucket(0)
+        # -- generic l7proto rules: proto + (key,value)-pair interning --
+        # A rule matches a record when the record's pair-id set holds
+        # every required pair id. Flows emit (proto,key,value) ids plus
+        # (proto,key,"") presence ids; an empty rule value requires only
+        # presence.
+        gen_proto_intern: Dict[str, int] = {}
+        gen_pair_intern: Dict[Tuple[str, str, str], int] = {}
+        for proto, pairs in gen_rules:
+            gen_proto_intern.setdefault(proto, len(gen_proto_intern))
+            for k, v in pairs:
+                gen_pair_intern.setdefault((proto, k, v),
+                                           len(gen_pair_intern))
+        Rg = _rbucket(len(gen_rules))
+        gen_max_pairs = max([len(p) for _, p in gen_rules] + [1])
         gen_rule_proto = np.full(Rg, -1, dtype=np.int32)
-        gen_rule_pairs = np.full((Rg, 1), -1, dtype=np.int32)
+        gen_rule_pairs = np.full((Rg, gen_max_pairs), -1, dtype=np.int32)
+        for i, (proto, pairs) in enumerate(gen_rules):
+            gen_rule_proto[i] = gen_proto_intern[proto]
+            for j, (k, v) in enumerate(pairs):
+                gen_rule_pairs[i, j] = gen_pair_intern[(proto, k, v)]
+
+        # -- protocol-frontend rules: scan-field patterns + predicates --
+        # Each rule lowers (frontends.lower_rule) into one full-match
+        # pattern over its protocol's scan field, compiled through the
+        # same bank pipeline as the HTTP/DNS fields and read off the
+        # l7g scan as a lane, plus interned enum/presence pairs matched
+        # by the generic pair-subset check. An unsatisfiable rule (two
+        # exact scan values) compiles DEAD.
+        l7g_matcher: Optional[_FieldMatcher] = None
+        fe_lane = np.full(max(1, _rbucket(len(fe_rules))), -1,
+                          dtype=np.int32)
+        fe_family = np.full(len(fe_lane), -1, dtype=np.int32)
+        fe_dead = np.zeros(len(fe_lane), dtype=bool)
+        fe_dead[len(fe_rules):] = True       # padding is inert
+        fe_pairs = np.full((len(fe_lane), 1), -1, dtype=np.int32)
+        if fe_rules:
+            lowered = [_fe.get(proto).lower_rule(pairs)
+                       for proto, pairs in fe_rules]
+            for lo in lowered:
+                for t in lo.pairs:
+                    gen_pair_intern.setdefault(t, len(gen_pair_intern))
+            fe_max_pairs = max([len(lo.pairs) for lo in lowered] + [1])
+            fe_pairs = np.full((len(fe_lane), fe_max_pairs), -1,
+                               dtype=np.int32)
+            l7g_matcher = _FieldMatcher.build(
+                [lo.pattern for lo in lowered if lo.pattern is not None],
+                cfg, field="l7g", **banks)
+            for i, ((proto, _pairs), lo) in enumerate(
+                    zip(fe_rules, lowered)):
+                fe_family[i] = _fe.family_of(proto)
+                if lo.dead:
+                    fe_dead[i] = True
+                    continue
+                if lo.pattern is not None:
+                    fe_lane[i] = l7g_matcher.lane(lo.pattern)
+                for j, t in enumerate(lo.pairs):
+                    fe_pairs[i, j] = gen_pair_intern[t]
 
         arrays: Dict[str, np.ndarray] = {
             "audit_mode": np.array(audit, dtype=bool),
@@ -442,8 +532,7 @@ class CompiledPolicy:
             "rs_http_mask": _masks_to_array(ruleset_http or [[]], Rh),
             "rs_kafka_mask": _masks_to_array(ruleset_kafka or [[]], Rk),
             "rs_dns_mask": _masks_to_array(ruleset_dns or [[]], Rd),
-            "rs_gen_mask": _masks_to_array(
-                [[] for _ in ruleset_http] or [[]], Rg),
+            "rs_gen_mask": _masks_to_array(ruleset_gen or [[]], Rg),
             "gen_rule_proto": gen_rule_proto,
             "gen_rule_pairs": gen_rule_pairs,
             "http_path_lane": http_path_lane,
@@ -458,15 +547,33 @@ class CompiledPolicy:
             "kafka_topic": kafka_topic,
             "dns_lane": dns_lane,
         }
-        matcher_stacks = (("path", path_matcher),
+        matcher_stacks = [("path", path_matcher),
                           ("method", method_matcher),
                           ("host", host_matcher),
                           ("hdr", header_matcher),
-                          ("dns", dns_matcher))
+                          ("dns", dns_matcher)]
+        if l7g_matcher is not None:
+            # the l7g stack and the fe rule arrays exist ONLY when
+            # frontend rules do: policies without them stage the same
+            # arrays as before ("l7g_trans" is the one gate)
+            matcher_stacks.append(("l7g", l7g_matcher))
+            arrays["rs_fe_mask"] = _masks_to_array(
+                ruleset_fe or [[]], len(fe_lane))
+            arrays["fe_lane"] = fe_lane
+            arrays["fe_family"] = fe_family
+            arrays["fe_dead"] = fe_dead
+            arrays["fe_pairs"] = fe_pairs
         for prefix, m in matcher_stacks:
             for k, v in m.arrays.items():
                 if k != "lane_of":
                     arrays[f"{prefix}_{k}"] = v
+
+        # fixed per-flow pair-slot width: a flow emits at most two ids a
+        # field (value + presence) and never more than the interned
+        # universe; derived from the POLICY so batch shapes stay fixed
+        gen_fmax = max(4, min(len(gen_pair_intern),
+                              2 * cfg.max_generic_fields))
+        gen_fmax = -(-gen_fmax // 4) * 4
 
         bank_plan: Dict[str, Tuple[str, ...]] = {}
         bank_quarantined: List[str] = []
@@ -483,7 +590,9 @@ class CompiledPolicy:
         resolve_meta = None
         plan = _mk.build_resolve_plan(arrays, len(http_rules),
                                       len(dns_rules),
-                                      n_kafka=len(kafka_rules))
+                                      n_kafka=len(kafka_rules),
+                                      n_gen=len(gen_rules),
+                                      n_fe=len(fe_rules))
         if plan is not None:
             rp_arrays, resolve_meta = plan
             arrays.update(rp_arrays)
@@ -494,11 +603,11 @@ class CompiledPolicy:
             http_rules=http_rules,
             kafka_rules=kafka_rules,
             dns_rules=dns_rules,
-            # gen_fmax: the reference's max(4, min(#pairs, …)) with no
-            # interned pairs
+            gen_rules=gen_rules,
             kafka_interns={"client_id": client_intern, "topic": topic_intern,
-                           "gen_protos": {}, "gen_pairs": {},
-                           "gen_fmax": 4},
+                           "gen_protos": gen_proto_intern,
+                           "gen_pairs": gen_pair_intern,
+                           "gen_fmax": gen_fmax},
             path_matcher=path_matcher,
             method_matcher=method_matcher,
             host_matcher=host_matcher,
@@ -509,6 +618,8 @@ class CompiledPolicy:
             bank_plan=bank_plan,
             bank_quarantined=tuple(bank_quarantined),
             resolve_meta=resolve_meta,
+            fe_rules=fe_rules,
+            l7g_matcher=l7g_matcher,
         )
 
 
@@ -534,7 +645,8 @@ class FlowBatch:
     kafka_topic: np.ndarray
     gen_proto: np.ndarray     # [B] interned l7proto id, -2 = none/unknown
     gen_pairs: np.ndarray     # [B, F] interned (proto,key,value) ids, -2 pad
-    #: serialized frontend record bytes (always empty in this slice)
+    #: a frontend record's scan-field bytes (the l7g automaton's input;
+    #: empty for every other flow) — (data, len, valid)
     l7g: Tuple[np.ndarray, np.ndarray, np.ndarray] = None
 
     @property
@@ -567,9 +679,14 @@ def encode_flows(
     k_top = np.full(B, -2, dtype=np.int32)
     cintern = interns.get("client_id", {})
     tintern = interns.get("topic", {})
+    gproto_intern = interns.get("gen_protos", {})
+    gpair_intern = interns.get("gen_pairs", {})
+    g_proto = np.full(B, -2, dtype=np.int32)
+    g_pair_lists: List[List[int]] = [[] for _ in range(B)]
+    from cilium_tpu_torch.policy.compiler import frontends as _fe
+
+    l7g_strings: List[bytes] = []
     for i, f in enumerate(flows):
-        if f.generic is not None:
-            raise NotImplementedError(_L7PROTO_SLICE)
         ingress = f.direction == TrafficDirection.INGRESS
         ep[i] = f.dst_identity if ingress else f.src_identity
         peer[i] = f.src_identity if ingress else f.dst_identity
@@ -592,7 +709,37 @@ def encode_flows(
             k_ver[i] = k.api_version
             k_cli[i] = cintern.get(k.client_id, -2)
             k_top[i] = tintern.get(k.topic, -2)
+        g = f.generic
+        fam = _fe.family_of(g.proto) if g is not None else 0
+        if fam:
+            # frontend record: the l7-type lane NORMALIZES to the
+            # frontend family (the memo row mirror, the per-family
+            # invalidation and the fe family gate key on it) and the
+            # scan field's value feeds the l7g automaton; gen_proto
+            # stays -2 so generic rules never see it
+            l7t[i] = fam
+            l7g_strings.append(_fe.scan_value(g.proto, g.fields))
+        else:
+            l7g_strings.append(b"")
+        if g is not None:
+            if not fam:
+                g_proto[i] = gproto_intern.get(g.proto, -2)
+            # only interned ids matter; a field emits at most one value
+            # id and one presence id. Sorted key order: the capture
+            # path (_gen_intern_rows) reproduces this id sequence, so
+            # the Fmax cut selects the same subset live and on replay.
+            # Frontend records probe the same table.
+            seen: set = set()
+            for key, val in sorted(g.fields.items()):
+                for probe in ((g.proto, key, val), (g.proto, key, "")):
+                    pid = gpair_intern.get(probe)
+                    if pid is not None and pid not in seen:
+                        seen.add(pid)
+                        g_pair_lists[i].append(pid)
     Fmax = int(interns.get("gen_fmax", 4))
+    g_pairs = np.full((B, Fmax), -2, dtype=np.int32)
+    for i, pl in enumerate(g_pair_lists):
+        g_pairs[i, :min(len(pl), Fmax)] = pl[:Fmax]
     bucket = max(cfg.http_path_buckets)
     return FlowBatch(
         ep_ids=ep, peer_ids=peer, dports=dport, protos=proto,
@@ -604,9 +751,8 @@ def encode_flows(
         qname=encode_strings(qnames, cfg.dns_name_len),
         kafka_api_key=k_api, kafka_api_version=k_ver,
         kafka_client=k_cli, kafka_topic=k_top,
-        gen_proto=np.full(B, -2, dtype=np.int32),
-        gen_pairs=np.full((B, Fmax), -2, dtype=np.int32),
-        l7g=encode_strings([b""] * B, cfg.l7g_len),
+        gen_proto=g_proto, gen_pairs=g_pairs,
+        l7g=encode_strings(l7g_strings, cfg.l7g_len),
     )
 
 
@@ -781,9 +927,106 @@ def _pad_rows_pow2(*arrays):
     return out if len(out) > 1 else out[0]
 
 
-#: a v3 capture's GENERIC section needs the protocol frontends
-_GENERIC_SECTION = ("replaying a v3 capture's GENERIC section needs the "
-                    "protocol frontends (queue 1, Q5)")
+def _table_str(offsets: np.ndarray, blob: np.ndarray, i: int) -> str:
+    return blob[int(offsets[i]):int(offsets[i + 1])] \
+        .tobytes().decode("utf-8", "replace")
+
+
+def _gen_intern_rows(gen, offsets: np.ndarray, blob: np.ndarray,
+                     interns: Dict[str, Dict]) -> np.ndarray:
+    """v3 GENERIC section → row-aligned engine columns: one
+    ``[N, 1 + gen_fmax]`` int32 block (col 0 = interned l7proto id,
+    then the interned pair ids, -2 pad). Each unique (proto, key,
+    value) triple resolves once; the per-row assembly is vectorized
+    and reproduces ``encode_flows``' value-id + presence-id probing."""
+    N = len(gen)
+    Fe = int(interns.get("gen_fmax", 4))
+    out = np.full((N, 1 + Fe), -2, dtype=np.int32)
+    if N == 0:
+        return out
+    gproto = interns.get("gen_protos", {})
+    gpair = interns.get("gen_pairs", {})
+    proto_idx = np.asarray(gen["proto"], dtype=np.int64)
+    out[:, 0] = _intern_lut(offsets, blob, proto_idx, gproto)
+    pairs = np.asarray(gen["pairs"], dtype=np.int64)     # [N, F, 2]
+    F = pairs.shape[1]
+    triples = np.concatenate(
+        [np.repeat(proto_idx, F)[:, None], pairs.reshape(-1, 2)],
+        axis=1)                                          # [N*F, 3]
+    uniq, inv = np.unique(triples, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    vid = np.full(len(uniq), -2, dtype=np.int32)
+    pid = np.full(len(uniq), -2, dtype=np.int32)
+    for j, (p, k, v) in enumerate(uniq):
+        if k == 0:
+            continue  # string 0 = "" = unused pair slot
+        ps, ks, vs = (_table_str(offsets, blob, int(x)) for x in (p, k, v))
+        vid[j] = gpair.get((ps, ks, vs), -2)
+        pid[j] = gpair.get((ps, ks, ""), -2)
+    # value id then presence id per pair slot: the capture writes pairs
+    # in sorted-key order and encode_flows probes (value, presence) per
+    # sorted key, so first-occurrence dedup + left-pack + the Fe cap
+    # select the same subset as the live path
+    cand = np.empty((N, 2 * F), dtype=np.int32)
+    cand[:, 0::2] = vid[inv].reshape(N, F)
+    cand[:, 1::2] = pid[inv].reshape(N, F)
+    dup = np.zeros_like(cand, dtype=bool)
+    for j in range(1, 2 * F):
+        dup[:, j] = (cand[:, :j] == cand[:, j:j + 1]).any(axis=1)
+    c = np.where(dup, -2, cand)
+    order = np.argsort(c == -2, axis=1, kind="stable")
+    packed = np.take_along_axis(c, order, axis=1)
+    if packed.shape[1] < Fe:
+        packed = np.pad(packed, ((0, 0), (0, Fe - packed.shape[1])),
+                        constant_values=-2)
+    out[:, 1:] = packed[:, :Fe]
+    return out
+
+
+def _gen_l7g_cols(gen, offsets: np.ndarray, blob: np.ndarray):
+    """v3 GENERIC section → the frontend columns every capture path
+    shares: ``(fam [N] int32, uniq_scan List[bytes], row [N] int32)``:
+    the frontend family id (0 = not a frontend record), the deduped
+    scan-field values (``frontends.scan_value``; index 0 is always
+    empty) and each record's index into that list. The work runs once
+    per UNIQUE section row."""
+    from cilium_tpu_torch.policy.compiler import frontends as _fe
+
+    N = len(gen)
+    fam = np.zeros(N, dtype=np.int32)
+    row = np.zeros(N, dtype=np.int32)
+    uniq_serialized: List[bytes] = [b""]
+    if N == 0:
+        return fam, uniq_serialized, row
+    proto_idx = np.asarray(gen["proto"], dtype=np.int64)
+    pairs = np.asarray(gen["pairs"], dtype=np.int64)    # [N, F, 2]
+    whole = np.concatenate(
+        [proto_idx[:, None], pairs.reshape(N, -1)], axis=1)
+    uniq, inv = np.unique(whole, axis=0, return_inverse=True)
+    inv = inv.reshape(-1)
+    ser_of = np.zeros(len(uniq), dtype=np.int32)
+    fam_of = np.zeros(len(uniq), dtype=np.int32)
+    index: Dict[bytes, int] = {b"": 0}
+    for j, u in enumerate(uniq):
+        proto = _table_str(offsets, blob, int(u[0]))
+        f = _fe.family_of(proto)
+        if not f:
+            continue
+        fields = {}
+        for k_idx, v_idx in u[1:].reshape(-1, 2):
+            if k_idx:           # string 0 = "" = unused pair slot
+                fields[_table_str(offsets, blob, int(k_idx))] = \
+                    _table_str(offsets, blob, int(v_idx))
+        ser = _fe.scan_value(proto, fields)
+        rid = index.get(ser)
+        if rid is None:
+            rid = index[ser] = len(uniq_serialized)
+            uniq_serialized.append(ser)
+        ser_of[j] = rid
+        fam_of[j] = f
+    fam[:] = fam_of[inv]
+    row[:] = ser_of[inv]
+    return fam, uniq_serialized, row
 
 
 def encode_l7_records(rec, l7, offsets, blob,
@@ -791,12 +1034,11 @@ def encode_l7_records(rec, l7, offsets, blob,
                       cfg: Optional[EngineConfig] = None,
                       widths: Optional[Dict[str, int]] = None,
                       gen=None) -> FlowBatch:
-    """FlowBatch straight from a v2 capture (base records + L7
-    sidecar): string fields gather from the capture's string table,
-    kafka strings resolve to engine intern ids. Chunked callers pass
-    whole-capture ``widths`` (:func:`capture_field_widths`)."""
-    if gen is not None:
-        raise NotImplementedError(_GENERIC_SECTION)
+    """FlowBatch straight from a v2/v3 capture (base records + L7
+    sidecar, + the GENERIC section of v3): string fields gather from
+    the capture's string table, kafka strings and generic pairs resolve
+    to engine intern ids. Chunked callers pass whole-capture ``widths``
+    (:func:`capture_field_widths`)."""
     cfg = cfg or EngineConfig()
     B = len(rec)
     ingress = rec["direction"] == int(TrafficDirection.INGRESS)
@@ -806,6 +1048,22 @@ def encode_l7_records(rec, l7, offsets, blob,
                     rec["dst_identity"]).astype(np.int32)
     fmax = int(interns.get("gen_fmax", 4))
     w = widths or {}
+    gen_rows = (_gen_intern_rows(gen, offsets, blob, interns)
+                if gen is not None else None)
+    l7_types = rec["l7_type"].astype(np.int32)
+    if gen is not None:
+        fam, uniq_ser, l7g_row = _gen_l7g_cols(gen, offsets, blob)
+        # frontend records: the l7-type lane normalizes to the family,
+        # and the scan values encode (a chunked caller's fixed width is
+        # the l7g cap itself: the values are derived, not tabled)
+        l7_types = np.where(fam > 0, fam, l7_types)
+        l7g_field = encode_strings(
+            [uniq_ser[r] for r in l7g_row], cfg.l7g_len,
+            pad_multiple=cfg.l7g_len if w else 32)
+    else:
+        l7g_field = (np.zeros((B, 32), dtype=np.uint8),
+                     np.zeros(B, dtype=np.int32),
+                     np.ones(B, dtype=bool))
 
     def field(name: str, cap: int):
         return _gather_table_field(blob, offsets, l7[name], cap,
@@ -816,7 +1074,7 @@ def encode_l7_records(rec, l7, offsets, blob,
         dports=rec["dport"].astype(np.int32),
         protos=rec["proto"].astype(np.int32),
         directions=rec["direction"].astype(np.int32),
-        l7_types=rec["l7_type"].astype(np.int32),
+        l7_types=l7_types,
         path=field("path", max(cfg.http_path_buckets)),
         method=field("method", cfg.http_method_len),
         host=field("host", cfg.http_host_len),
@@ -828,11 +1086,11 @@ def encode_l7_records(rec, l7, offsets, blob,
                                  interns.get("client_id", {})),
         kafka_topic=_intern_lut(offsets, blob, l7["kafka_topic"],
                                 interns.get("topic", {})),
-        gen_proto=np.full(B, -2, dtype=np.int32),
-        gen_pairs=np.full((B, fmax), -2, dtype=np.int32),
-        l7g=(np.zeros((B, 32), dtype=np.uint8),
-             np.zeros(B, dtype=np.int32),
-             np.ones(B, dtype=bool)),
+        gen_proto=(gen_rows[:, 0] if gen_rows is not None
+                   else np.full(B, -2, dtype=np.int32)),
+        gen_pairs=(gen_rows[:, 1:] if gen_rows is not None
+                   else np.full((B, fmax), -2, dtype=np.int32)),
+        l7g=l7g_field,
     )
 
 
@@ -846,12 +1104,14 @@ _ROW_COLS = (
 
 
 class CaptureFeaturizer:
-    """Chunked-replay featurizer over one v2 capture: the string work
-    is paid ONCE per file, then each chunk is pure row gathers. Every
-    string each field references is encoded into a padded per-field
-    table ([S_used → pow2, L] u8 + lengths + valid), kafka strings
-    resolve to engine intern ids, and a string-table → row LUT is
-    built per field."""
+    """Chunked-replay featurizer over one v2/v3 capture: the string
+    work is paid ONCE per file, then each chunk is pure row gathers.
+    Every string each field references is encoded into a padded
+    per-field table ([S_used → pow2, L] u8 + lengths + valid), kafka
+    strings resolve to engine intern ids, and a string-table → row LUT
+    is built per field. A v3 capture's GENERIC section becomes
+    :attr:`gen_rows` and one more table, ``"l7g"``, of the frontend
+    records' scan values."""
 
     _FIELD_CAPS = (("path", "http_path_buckets"),
                    ("method", "http_method_len"),
@@ -861,9 +1121,21 @@ class CaptureFeaturizer:
 
     def __init__(self, l7, offsets, blob, interns: Dict[str, Dict],
                  cfg: Optional[EngineConfig] = None, gen=None):
-        if gen is not None:
-            raise NotImplementedError(_GENERIC_SECTION)
+        cfg = cfg or EngineConfig()
         self.widths = capture_field_widths(l7, offsets, cfg)
+        #: v3 captures: whole-capture generic columns, row-aligned
+        #: ([N, 3 + fmax] int32: interned proto id, frontend family id
+        #: (0 = not a frontend record), row into the ``"l7g"`` table,
+        #: then the interned pair ids); chunk callers pass the slice
+        #: matching their records to :meth:`encode_rows`
+        self.gen_rows = None
+        l7g_uniq = None
+        if gen is not None:
+            gen_block = _gen_intern_rows(gen, offsets, blob, interns)
+            fam, l7g_uniq, l7g_row = _gen_l7g_cols(gen, offsets, blob)
+            self.gen_rows = np.concatenate(
+                [gen_block[:, :1], fam[:, None], l7g_row[:, None],
+                 gen_block[:, 1:]], axis=1).astype(np.int32)
         n_strings = len(offsets) - 1
         self.tables: Dict[str, tuple] = {}
         self.luts: Dict[str, np.ndarray] = {}
@@ -880,6 +1152,12 @@ class CaptureFeaturizer:
             lut[used] = np.arange(len(used), dtype=np.int32)
             self.tables[field] = (data, lens, valid)
             self.luts[field] = lut
+        if l7g_uniq is not None:
+            # the frontend scan values as one more staged table (scanned
+            # through the l7g automaton when the policy has frontend
+            # rules); no LUT: the gen block's l7g column indexes it
+            self.tables["l7g"] = _pad_rows_pow2(
+                *encode_strings(l7g_uniq, cfg.l7g_len))
         for col, key in (("kafka_client", "client_id"),
                          ("kafka_topic", "topic")):
             used = np.unique(l7[col])
@@ -888,9 +1166,11 @@ class CaptureFeaturizer:
             lut[used] = ids
             self.luts[col] = lut
 
-    def encode_rows(self, rec, l7) -> np.ndarray:
+    def encode_rows(self, rec, l7, gen_rows=None) -> np.ndarray:
         """Chunk → ONE [B, 15] int32 block: per-flow scalars plus
-        per-field ROW indices into the staged table match words."""
+        per-field ROW indices into the staged table match words.
+        ``gen_rows`` (the chunk's slice of :attr:`gen_rows`, v3
+        captures) appends the generic columns → [B, 18 + gen_fmax]."""
         rec = np.asarray(rec)
         B = len(rec)
         out = np.empty((B, len(_ROW_COLS)), dtype=np.int32)
@@ -912,4 +1192,12 @@ class CaptureFeaturizer:
             self.luts["kafka_topic"][l7["kafka_topic"]]
         for name, _ in self._FIELD_CAPS:
             out[:, col[f"{name}_row"]] = self.luts[name][l7[name]]
+        if gen_rows is not None:
+            gen_rows = np.asarray(gen_rows, dtype=np.int32)
+            # frontend records normalize the l7-type lane to their
+            # family (gen column 1), as encode_flows does live
+            fam = gen_rows[:, 1]
+            out[:, col["l7_types"]] = np.where(
+                fam > 0, fam, out[:, col["l7_types"]])
+            out = np.concatenate([out, gen_rows], axis=1)
         return out

@@ -1,8 +1,9 @@
 """The fused verdict step (counterpart of the reference's
 ``engine/megakernel.py``).
 
-One call per verdict batch: the L3/L4 mapstate lookup, the five
-per-field byte scans, and the priority resolve in rule-signature GROUP
+One call per verdict batch: the L3/L4 mapstate lookup, the per-field
+byte scans (five, and the protocol-frontend ``l7g`` field when the
+policy has frontend rules), and the priority resolve in rule-signature GROUP
 space. The host half — ``build_resolve_plan`` and its dedup helpers,
 ``plan_for_engine``'s per-field arm pick, ``_nfa_group_plane`` — is the
 reference's code, copied, so the staged arrays are byte-equal. The
@@ -11,8 +12,8 @@ K1, K2) for CUDA tensors and on their plain versions for CPU tensors.
 
 A policy whose plan degenerated (no ``rp_*`` arrays) resolves per
 rule through the shared ``verdict._verdict_core``, as the reference's
-does. Not ported yet: the ``autotune`` pick (queue 1, Q6) and the
-protocol-frontend ``l7g`` field (Q5) raise ``NotImplementedError``.
+does. Not ported yet: the ``autotune`` pick (queue 1, Q6) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,17 +38,21 @@ GROUP_CAP = 2048
 SCAN_FIELDS = (("path", "path"), ("method", "method"),
                ("host", "host"), ("hdr", "headers"), ("dns", "qname"))
 
-#: the slices that carry what this one leaves out
+#: the l7g (protocol-frontend) field stack, present only on policies
+#: with frontend rules — words slot 5 by convention
+L7G_FIELD = ("l7g", "l7g")
+
+#: the slice that carries what this one leaves out
 _AUTOTUNE_SLICE = ("kernel_impl='autotune' arrives with the autotune "
                    "slice (queue 1, Q6)")
-_L7G_SLICE = ("protocol-frontend (l7g) fields arrive with the "
-              "frontends/l7proto slice (queue 1, Q5)")
 
 
 def scan_fields(arrays) -> tuple:
-    """The policy's scanned fields, in ``words``-tuple order."""
+    """The policy's scanned fields, in ``words``-tuple order: the five
+    string fields, plus the l7g field when the policy staged a frontend
+    automaton (``l7g_trans``)."""
     if "l7g_trans" in arrays:
-        raise NotImplementedError(_L7G_SLICE)
+        return SCAN_FIELDS + (L7G_FIELD,)
     return SCAN_FIELDS
 
 
@@ -452,15 +457,40 @@ def _fused_l7_generic(arrays, ruleset, gen_cols, l7t):
     return ok, _first_lane(g_words & gmask)
 
 
+def _fused_l7_frontend(arrays, ruleset, l7g_w, gen_pairs, l7t):
+    """Group-space protocol-frontend matching over the deduped
+    (family, scan lane, enum pair-set) predicate table (``rp_fe_*``):
+    one scan-lane bit, one pair-subset check and one family equality
+    per distinct predicate."""
+    from cilium_tpu_torch.engine.verdict import (
+        _bools_to_words,
+        _first_lane,
+        _pair_subset_ok,
+        _rule_bit,
+    )
+
+    fam = arrays["rp_fe_family"]
+    g_ok = (_rule_bit(l7g_w, arrays["rp_fe_lane"])
+            & _pair_subset_ok(gen_pairs, arrays["rp_fe_pairs"])
+            & (fam[None, :] == l7t[:, None])
+            & (fam >= 0)[None, :])
+    gmask = arrays["rp_rs_femask"][ruleset]
+    g_words = _bools_to_words(g_ok, gmask.shape[1])
+    ok = ((g_words & gmask) != 0).any(dim=1)
+    return ok, _first_lane(g_words & gmask)
+
+
 def fused_verdict_core(arrays, ms, l7t, words, gwords, kafka_cols,
                        auth_src_dst, batch, gen_cols=None):
     """The factored-resolve back half; shares the precedence/auth/audit
-    assembly (``verdict._assemble_verdict``). Kafka/generic use their
-    deduped predicate groups when the plan staged them, else the
-    per-rule helpers — bit-equal either way."""
+    assembly (``verdict._assemble_verdict``). Kafka/generic/frontend
+    use their deduped predicate groups when the plan staged them, else
+    the per-rule helpers — bit-equal either way. ``words[5]``, when
+    present, is the l7g field's match words."""
     from cilium_tpu_torch.engine.verdict import (
         _assemble_verdict,
         _combine_l7_match,
+        _l7_frontend,
         _l7_generic,
         _l7_kafka,
     )
@@ -486,9 +516,19 @@ def fused_verdict_core(arrays, ms, l7t, words, gwords, kafka_cols,
         else:
             gen_ok, gen_win = _l7_generic(arrays, ruleset, gen_cols, l7t)
         l7_ok = l7_ok | gen_ok
+    fe_ok = fe_win = None
+    if len(words) > 5 and gen_cols is not None and "fe_lane" in arrays:
+        if "rp_rs_femask" in arrays:
+            fe_ok, fe_win = _fused_l7_frontend(arrays, ruleset, words[5],
+                                               gen_cols[1], l7t)
+        else:
+            fe_ok, fe_win = _l7_frontend(arrays, ruleset, words[5],
+                                         gen_cols[1], l7t)
+        l7_ok = l7_ok | fe_ok
     l7_match = _combine_l7_match(
         (http_ok, http_win), (kafka_ok, kafka_win), (dns_ok, dns_win),
-        (gen_ok, gen_win) if gen_ok is not None else None)
+        (gen_ok, gen_win) if gen_ok is not None else None,
+        fe=(fe_ok, fe_win) if fe_ok is not None else None)
     return _assemble_verdict(arrays, ms, l7_ok, l7_log_http,
                              auth_src_dst, batch, l7_match=l7_match)
 
@@ -645,7 +685,8 @@ def plan_for_engine(policy, cfg, device) -> Tuple[
                 "hdr": policy.header_matcher,
                 "dns": policy.dns_matcher}
     if getattr(policy, "l7g_matcher", None) is not None:
-        raise NotImplementedError(_L7G_SLICE)
+        # the protocol-frontend automaton: armed like any field
+        matchers["l7g"] = policy.l7g_matcher
     lane_groups = (policy.resolve_meta or {}).get("lane_groups") \
         if getattr(policy, "resolve_meta", None) is not None else None
     impl_plan: Dict[str, str] = {}

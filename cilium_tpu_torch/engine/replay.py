@@ -2,9 +2,12 @@
 reference's ``CaptureReplay`` (``engine/verdict.py:2180``) and its
 staging-phase timer ``_StagePhase`` (``:1956``).
 
-A session over one v2 capture: the per-field string tables are scanned
-once on the device (``verdict.stage_capture_tables``), the whole
-capture is featurized into one row block (:meth:`stage_rows`), deduped
+A session over one v2 or v3 capture: the per-field string tables (and,
+for a v3 capture under a policy with frontend rules, the ``l7g`` table
+of frontend scan values) are scanned once on the device
+(``verdict.stage_capture_tables``), the whole capture is featurized
+into one row block (:meth:`stage_rows`; a v3 capture's GENERIC section
+rides it as the generic columns), deduped
 by row hash into a unique-row table and a per-flow id stream
 (:meth:`stage_unique`), every unique row is verdicted once into the
 device memo (:meth:`stage_verdict_memo`), and each chunk is then one
@@ -73,7 +76,8 @@ def _ids_to_device(idx: np.ndarray, device: torch.device,
 
 
 class CaptureReplay:
-    """Replay session over one v2 capture (see the module docstring).
+    """Replay session over one v2/v3 capture (see the module
+    docstring); ``gen`` is a v3 capture's whole GENERIC section.
 
     ``loader`` (optional; any object with an ``.engine``) makes the
     session swap-safe: every verdict entry point checks the port's
@@ -98,7 +102,7 @@ class CaptureReplay:
                                           cfg, gen=gen)
             self.table_words = stage_capture_tables(engine, self.feat)
         self._step = verdict_step_capture
-        #: whole-capture row block ([N, 15] int32) once staged
+        #: whole-capture row block ([N, 15(+gen)] int32) once staged
         self.rows_all: Optional[np.ndarray] = None
         self._staged_records = None
         #: device unique-row table + per-flow ids (dedup stream)
@@ -202,10 +206,11 @@ class CaptureReplay:
 
     # -- staging ----------------------------------------------------------
     def stage_rows(self, rec, l7) -> np.ndarray:
-        """Featurize the WHOLE capture once ([N, 15] int32)."""
+        """Featurize the WHOLE capture once ([N, 15(+gen)] int32)."""
         self._staged_records = (rec, l7)
         with _StagePhase("featurize"):
-            self.rows_all = self.feat.encode_rows(np.asarray(rec), l7)
+            self.rows_all = self.feat.encode_rows(
+                np.asarray(rec), l7, gen_rows=self.feat.gen_rows)
         return self.rows_all
 
     def stage_unique(self, drop_if_ratio_at_least: Optional[float]
@@ -357,7 +362,8 @@ class CaptureReplay:
 
     def verdict_chunk(self, rec, l7, authed_pairs=None, start: int = 0
                       ) -> Dict[str, np.ndarray]:
-        """``start`` is the chunk's GLOBAL record index. With the dedup
+        """``start`` is the chunk's GLOBAL record index (it also picks
+        a v3 capture's generic rows). With the dedup
         stream staged the chunk rides :meth:`verdict_idx`, and the NEXT
         chunk's id copy is issued before this one's outputs are read
         back."""
@@ -383,6 +389,8 @@ class CaptureReplay:
                     f"staged capture ({len(self.rows_all)} rows) — "
                     f"wrong start, or staged from different records")
         else:
-            rows = self.feat.encode_rows(rec, l7)
+            gen_rows = (self.feat.gen_rows[start:start + n]
+                        if self.feat.gen_rows is not None else None)
+            rows = self.feat.encode_rows(rec, l7, gen_rows=gen_rows)
         out = self.verdict_rows(rows, authed_pairs)
         return {k: v.cpu().numpy() for k, v in out.items()}

@@ -40,7 +40,11 @@ import torch
 from cilium_tpu_torch.core.config import EngineConfig
 from cilium_tpu_torch.core.flow import TrafficDirection
 from cilium_tpu_torch.engine import memo as memo_mod
-from cilium_tpu_torch.engine.compiled import _GENERIC_SECTION, _ROW_COLS
+from cilium_tpu_torch.engine.compiled import (
+    _ROW_COLS,
+    _gen_intern_rows,
+    _gen_l7g_cols,
+)
 from cilium_tpu_torch.engine.dfa_kernel import dfa_scan_banked
 from cilium_tpu_torch.engine.replay import _ids_to_device
 from cilium_tpu_torch.engine.verdict import (
@@ -322,8 +326,6 @@ class IncrementalSession:
         return out[inv]
 
     def _encode_rows(self, rec, l7, offsets, blob, gen) -> np.ndarray:
-        if gen is not None:
-            raise NotImplementedError(_GENERIC_SECTION)
         B = len(rec)
         out = np.full((B, self.row_width), -2, dtype=np.int32)
         col = {c: i for i, c in enumerate(_ROW_COLS)}
@@ -345,11 +347,32 @@ class IncrementalSession:
         for f in _FIELDS:
             out[:, col[f"{f}_row"]] = self._string_lut(
                 f, l7[f], offsets, blob)
-        # no generic section: proto/pair slots stay -2 ("absent"), the
-        # family/l7g columns read "no frontend record"
         ncols = len(_ROW_COLS)
-        out[:, ncols + 1] = 0
-        out[:, ncols + 2] = 0
+        if gen is not None:
+            gen_block = _gen_intern_rows(
+                gen, offsets, blob, self.engine.policy.kafka_interns)
+            fam, uniq_ser, l7g_row = _gen_l7g_cols(gen, offsets, blob)
+            # frontend scan values intern into the session's l7g table
+            # (delta-scanned like any string); other records keep id 0
+            # (the empty string)
+            tbl = self.tables["l7g"]
+            ser_ids = np.zeros(len(uniq_ser), dtype=np.int32)
+            for j, s in enumerate(uniq_ser[1:], start=1):
+                ser_ids[j] = tbl.intern(s)
+            out[:, ncols] = gen_block[:, 0]
+            out[:, ncols + 1] = fam
+            out[:, ncols + 2] = ser_ids[l7g_row]
+            out[:, ncols + 3:] = gen_block[:, 1:]
+            # frontend records normalize the l7-type lane to their
+            # family, as encode_flows does: it keys the fe lane on the
+            # device and the (ep, l7type, dport) memo mirror
+            out[:, col["l7_types"]] = np.where(
+                fam > 0, fam, out[:, col["l7_types"]])
+        else:
+            # no generic section: proto/pair slots stay -2 ("absent"),
+            # the family/l7g columns read "no frontend record"
+            out[:, ncols + 1] = 0
+            out[:, ncols + 2] = 0
         return out
 
     def _row_idx(self, rows: np.ndarray) -> np.ndarray:

@@ -130,9 +130,11 @@ def _masked_min(matched: torch.Tensor, values: torch.Tensor
     return torch.where(m == _ATTR_NONE, torch.full_like(m, -1), m)
 
 
-def _combine_l7_match(http, kafka, dns, gen=None) -> torch.Tensor:
+def _combine_l7_match(http, kafka, dns, gen=None, fe=None
+                      ) -> torch.Tensor:
     """Per-family (ok, win) pairs → ONE [B] int32 attribution lane
-    (families are mutually exclusive per flow, so this is a select)."""
+    (families are mutually exclusive per flow — frontend families are
+    distinct l7-type values — so this is a select)."""
     http_ok, http_win = http
     kafka_ok, kafka_win = kafka
     dns_ok, dns_win = dns
@@ -144,6 +146,9 @@ def _combine_l7_match(http, kafka, dns, gen=None) -> torch.Tensor:
     if gen is not None:
         gen_ok, gen_win = gen
         out = torch.where((out < 0) & gen_ok, gen_win, out)
+    if fe is not None:
+        fe_ok, fe_win = fe
+        out = torch.where((out < 0) & fe_ok, fe_win, out)
     return out.to(torch.int32)
 
 
@@ -211,6 +216,30 @@ def _l7_generic(arrays, ruleset, gen_cols, l7t):
     return ok, _masked_min(g_ok & _words_bit(gen_mask, r_idx), values)
 
 
+def _l7_frontend(arrays, ruleset, l7g_w, gen_pairs, l7t):
+    """Per-rule protocol-frontend matching → (ruleset-any, winner).
+    Per rule: one l7g automaton lane bit over the scan-field value
+    (``fe_lane``; -1 = unconstrained, read True by ``_rule_bit``) AND
+    the pair subset of its interned enum/presence predicates
+    (``fe_pairs``), gated on the rule's family equal to the flow's
+    normalized l7-type lane; dead rules (unsatisfiable or padding)
+    never match."""
+    fam = arrays["fe_family"]
+    f_ok = (_rule_bit(l7g_w, arrays["fe_lane"])
+            & _pair_subset_ok(gen_pairs, arrays["fe_pairs"])
+            & (fam[None, :] == l7t[:, None])
+            & (fam >= 0)[None, :]
+            & ~arrays["fe_dead"][None, :])
+    fe_mask = arrays["rs_fe_mask"][ruleset]
+    f_words = _bools_to_words(f_ok, fe_mask.shape[1])
+    ok = ((f_words & fe_mask) != 0).any(dim=1)
+    Rf = f_ok.shape[1]
+    r_idx = torch.arange(Rf, device=f_ok.device)
+    values = (arrays["rp_fe_rule_group"] if "rp_fe_rule_group" in arrays
+              else r_idx.to(torch.int32))
+    return ok, _masked_min(f_ok & _words_bit(fe_mask, r_idx), values)
+
+
 def _assemble_verdict(arrays, ms, l7_ok, l7_log_http, auth_src_dst,
                       batch, l7_match=None):
     """Precedence + auth + audit assembly → the ten output lanes."""
@@ -260,10 +289,14 @@ def _verdict_core(arrays, ms, l7t, words, kafka_cols, auth_src_dst,
     ``kafka_cols`` = (api_key, api_version, client, topic);
     ``auth_src_dst`` = (src, dst) for the authed-pairs check;
     ``gen_cols`` = (gen_proto, gen_pairs) or None when the caller's
-    format carries no generic records (v2 captures)."""
+    format carries no generic records (v2 captures). A sixth entry in
+    ``words`` is the l7g (protocol-frontend) match words: present
+    exactly when the policy staged an l7g automaton and the caller's
+    format carries frontend records."""
     ruleset = ms["ruleset"].clamp(
         0, arrays["rs_http_mask"].shape[0] - 1).long()
     path_w, method_w, host_w, hdr_w, dns_w = words[:5]
+    l7g_w = words[5] if len(words) > 5 else None
 
     # HTTP: conjunction of per-field pattern bits per rule; the header
     # lanes [R, H] broadcast through _rule_bit to [B, R, H]
@@ -315,9 +348,17 @@ def _verdict_core(arrays, ms, l7t, words, kafka_cols, auth_src_dst,
         gen_ok, gen_win = _l7_generic(arrays, ruleset, gen_cols, l7t)
         l7_ok = l7_ok | gen_ok
         gen_pair = (gen_ok, gen_win)
+    fe_pair = None
+    if l7g_w is not None and gen_cols is not None and "fe_lane" in arrays:
+        # protocol-frontend records: scan-field lane + enum pair subset
+        # + family equality
+        fe_ok, fe_win = _l7_frontend(arrays, ruleset, l7g_w, gen_cols[1],
+                                     l7t)
+        l7_ok = l7_ok | fe_ok
+        fe_pair = (fe_ok, fe_win)
     l7_match = _combine_l7_match((http_ok, http_win),
                                  (kafka_ok, kafka_win),
-                                 (dns_ok, dns_win), gen_pair)
+                                 (dns_ok, dns_win), gen_pair, fe=fe_pair)
     return _assemble_verdict(arrays, ms, l7_ok, l7_log_http,
                              auth_src_dst, batch, l7_match=l7_match)
 
@@ -361,8 +402,8 @@ def unpack_blob(blob: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
 
 def verdict_step(arrays: Dict[str, torch.Tensor],
                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The legacy (unfused) step: mapstate lookup, the five byte scans
-    on the gather arm (kernel KD on the card), and the per-rule
+    """The legacy (unfused) step: mapstate lookup, the byte scans (five,
+    and ``l7g`` when the policy staged it) on the gather arm (kernel KD on the card), and the per-rule
     resolve, whatever plan or arm is staged — as the reference's
     ``verdict_step`` does."""
     from cilium_tpu_torch.engine.megakernel import (
@@ -393,14 +434,19 @@ _TABLE_FIELDS = (("path", "path"), ("method", "method"),
 def _stage_tables_step(arrays: Dict[str, torch.Tensor],
                        tables: Dict[str, tuple], impl: str = "gather"
                        ) -> Dict[str, torch.Tensor]:
-    """The five per-field table scans on the ``impl`` arm (KD, or K2
-    for the oblivious arm) → {field: match words [S, NW]} with invalid
-    rows zeroed. With a resolve plan staged (``rp_path_gaccept``) the
-    path table also yields bank-ORed GROUP words, ``"path_groups"``."""
+    """The per-field table scans on the ``impl`` arm (KD, or K2 for the
+    oblivious arm) → {field: match words [S, NW]} with invalid rows
+    zeroed: the five string fields, and the frontend scan-value table
+    ``"l7g"`` when the policy staged an l7g automaton and the capture
+    has one. With a resolve plan staged (``rp_path_gaccept``) the path
+    table also yields bank-ORed GROUP words, ``"path_groups"``."""
     from cilium_tpu_torch.engine.megakernel import fused_scan_field
 
     tw: Dict[str, torch.Tensor] = {}
-    for field, prefix in _TABLE_FIELDS:
+    table_fields = _TABLE_FIELDS
+    if "l7g_trans" in arrays and "l7g" in tables:
+        table_fields = table_fields + (("l7g", "l7g"),)
+    for field, prefix in table_fields:
         want_groups = field == "path" and "rp_path_gaccept" in arrays
         words, gwords = fused_scan_field(
             arrays, prefix, *tables[field], dfa_impl=impl,
@@ -418,8 +464,11 @@ def stage_capture_tables(engine: "TorchVerdictEngine",
     keep the match words on the device; replay chunks then only GATHER
     words by row index (:func:`verdict_step_capture`), so the scan cost
     scales with unique strings, not flows."""
+    fields = [field for field, _ in _TABLE_FIELDS]
+    if "l7g" in feat.tables and "l7g_trans" in engine._arrays:
+        fields.append("l7g")
     tables = {}
-    for field, _ in _TABLE_FIELDS:
+    for field in fields:
         data, lens, valid = feat.tables[field]
         tables[field] = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(engine.device)
@@ -435,9 +484,11 @@ def verdict_step_capture(arrays: Dict[str, torch.Tensor],
     staged per-file tables, gathered by row index, then the fused
     group-space resolve (plan staged) or the per-rule resolve.
 
-    ``batch["rows"]`` is a [B, 15] row block (``_ROW_COLS``); with
-    ``batch["idx"]`` it is the capture's UNIQUE-row table and ``idx``
-    the per-flow row ids, expanded here by a device gather."""
+    ``batch["rows"]`` is a [B, 15] row block (``_ROW_COLS``), or
+    [B, 18 + gen_fmax] with a v3 capture's or a session's generic block
+    (proto id, frontend family, l7g table row, pair ids); with
+    ``batch["idx"]`` it is the UNIQUE-row table and ``idx`` the
+    per-flow row ids, expanded here by a device gather."""
     from cilium_tpu_torch.engine import megakernel as _mk
     from cilium_tpu_torch.engine.memo import as_index
 
@@ -461,15 +512,23 @@ def verdict_step_capture(arrays: Dict[str, torch.Tensor],
              words_of("host", "host_row"),
              words_of("headers", "headers_row"),
              words_of("qname", "qname_row"))
+    n = len(_ROW_COLS)
+    gen_cols = None
+    if rows.shape[1] > n:
+        # gen block: [proto id, frontend family, l7g table row, pairs]
+        gen_cols = (rows[:, n], rows[:, n + 3:])
+        if "l7g_trans" in arrays and "l7g" in table_words:
+            words = words + (table_words["l7g"].index_select(
+                0, rows[:, n + 2].long()),)
     kafka_cols = (c("kafka_api_key"), c("kafka_api_version"),
                   c("kafka_client"), c("kafka_topic"))
     if "rp_g_method" in arrays and "path_groups" in table_words:
         return _mk.fused_verdict_core(
             arrays, ms, c("l7_types"), words,
             words_of("path_groups", "path_row"), kafka_cols,
-            auth_src_dst, batch)
+            auth_src_dst, batch, gen_cols=gen_cols)
     return _verdict_core(arrays, ms, c("l7_types"), words, kafka_cols,
-                         auth_src_dst, batch)
+                         auth_src_dst, batch, gen_cols=gen_cols)
 
 
 def batch_to_device(host: Dict[str, np.ndarray], device
@@ -603,8 +662,8 @@ class TorchVerdictEngine:
                            authed_pairs: Optional[np.ndarray] = None,
                            widths: Optional[Dict[str, int]] = None,
                            gen=None) -> Dict[str, np.ndarray]:
-        """A v2 capture's records (base records + L7 sidecar) → full
-        HTTP/Kafka/DNS verdicts. Chunked callers pass whole-capture
+        """A v2/v3 capture's records (base records + L7 sidecar, + the
+        GENERIC section) → full verdicts. Chunked callers pass whole-capture
         ``widths`` (``ingest.binary.capture_field_widths``)."""
         fb = encode_l7_records(rec, l7, offsets, blob,
                                self.policy.kafka_interns, cfg,

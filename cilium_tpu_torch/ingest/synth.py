@@ -1,9 +1,12 @@
 """Synthetic scenario generators — a copy of the reference's
 ``ingest/synth.py`` for the scenarios the port runs: ``fqdn`` (DNS
 names × toFQDNs patterns), ``http`` (1k path/header regex rules × 10k
-flows) and ``kafka`` (topic/API-key ACLs), with ``scenario_by_name``
-and ``realize_scenario``. The ``generic`` and ``protocols`` scenarios
-need ``l7proto`` rules, which arrive with the frontends slice.
+flows), ``kafka`` (topic/API-key ACLs), ``generic`` (r2d2 key/value
+ACLs) and ``protocols`` (cassandra, memcache and r2d2 records against
+per-protocol rule sets), with ``scenario_by_name`` and
+``realize_scenario``; and one of the port's own, ``lineparser``
+(``test.lineparser`` ACLs on the generic pair path), which the
+reference has no scenario for.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from cilium_tpu_torch.policy.api import (
     PortRuleDNS,
     PortRuleHTTP,
     PortRuleKafka,
+    PortRuleL7,
     Rule,
 )
 
@@ -224,12 +228,196 @@ def synth_kafka_scenario(n_rules: int = 20, n_records: int = 100000,
     )
 
 
+# ------------------------------------------------- generic l7proto lane --
+def synth_generic_scenario(n_rules: int = 200, n_flows: int = 100000,
+                           seed: int = 0) -> SynthScenario:
+    """Generic ``l7proto`` ACLs (the proxylib r2d2 template shape):
+    key/value field constraints matched by the engine's pair-subset
+    path; ``r2d2`` has an engine frontend, so the rules compile onto
+    the ``l7g`` field."""
+    from cilium_tpu_torch.core.flow import GenericL7Info
+
+    rng = random.Random(seed)
+    gen_rules = []
+    for i in range(n_rules):
+        if i % 3 == 0:
+            gen_rules.append({"cmd": "READ", "file": f"f{i}.txt"})
+        elif i % 3 == 1:
+            gen_rules.append({"cmd": "WRITE", "file": f"f{i}.txt"})
+        else:
+            gen_rules.append({"cmd": "HALT"})
+    rule = Rule(
+        endpoint_selector=_sel(app="r2d2"),
+        ingress=(IngressRule(
+            from_endpoints=(_sel(app="droid"),),
+            to_ports=(PortRule(
+                ports=(PortProtocol(4242, Protocol.TCP),),
+                rules=L7Rules(l7proto="r2d2", l7=tuple(gen_rules)),
+            ),),
+        ),),
+        labels=("synth=generic",),
+    )
+    flows = []
+    for _ in range(n_flows):
+        i = rng.randrange(n_rules + n_rules // 4 + 1)  # some unmatched
+        cmd = ("READ", "WRITE", "HALT")[i % 3]
+        fields = {"cmd": cmd}
+        if cmd != "HALT":
+            fields["file"] = f"f{i}.txt"
+        flows.append(Flow(
+            src_identity=0, dst_identity=0, dport=4242,
+            protocol=Protocol.TCP, direction=ING, l7=L7Type.GENERIC,
+            generic=GenericL7Info(proto="r2d2", fields=fields),
+        ))
+    return SynthScenario(
+        name="generic", rules=[rule],
+        endpoints={"r2d2": {"app": "r2d2"},
+                   "droid": {"app": "droid"}},
+        flows=flows,
+    )
+
+
+# ------------------------------------------- protocol-frontend lane --
+#: per-protocol traffic shares of the mixed protocols scenario (and
+#: the serve-soak load model's protocol-mix knob default)
+PROTOCOL_MIX = (("cassandra", 0.4), ("memcache", 0.4), ("r2d2", 0.2))
+
+#: dports per frontend protocol (the well-known service ports)
+PROTOCOL_PORTS = {"cassandra": 9042, "memcache": 11211, "r2d2": 4040}
+
+
+def synth_protocols_scenario(n_rules: int = 120, n_flows: int = 100000,
+                             seed: int = 0,
+                             mix=PROTOCOL_MIX) -> SynthScenario:
+    """Mixed protocol-frontend traffic: cassandra,
+    memcached, and r2d2 records against per-protocol rule sets on one
+    endpoint — every record compiles through the frontend registry
+    onto the l7g banked automaton and rides the same fused dispatch.
+    ``mix`` weights the per-protocol traffic shares (the serve-soak
+    protocol-mix knob reuses it)."""
+    from cilium_tpu_torch.core.flow import GenericL7Info
+
+    rng = random.Random(seed)
+    protos = [p for p, _ in mix]
+    weights = [w for _, w in mix]
+    per = max(1, n_rules // max(1, len(protos)))
+    rules_of: Dict[str, list] = {}
+    for proto in protos:
+        rr = []
+        for i in range(per):
+            if proto == "cassandra":
+                rr.append({"query_action":
+                           ("select", "insert", "update")[i % 3],
+                           "query_table": f"ks.t{i}"})
+            elif proto == "memcache":
+                rr.append({"cmd": ("get", "set", "delete")[i % 3],
+                           "key": f"k{i}"})
+            else:
+                rr.append({"cmd": ("READ", "WRITE")[i % 2],
+                           "file": f"f{i}.dat"})
+        rules_of[proto] = rr
+    ports = tuple(
+        PortRule(ports=(PortProtocol(PROTOCOL_PORTS[p], Protocol.TCP),),
+                 rules=L7Rules(l7proto=p,
+                               l7=tuple(PortRuleL7.from_dict(r)
+                                        for r in rules_of[p])))
+        for p in protos)
+    rule = Rule(
+        endpoint_selector=_sel(app="polysvc"),
+        ingress=(IngressRule(from_endpoints=(_sel(app="client"),),
+                             to_ports=ports),),
+        labels=("synth=protocols",),
+    )
+    flows = []
+    for _ in range(n_flows):
+        proto = rng.choices(protos, weights=weights)[0]
+        rr = rules_of[proto]
+        i = rng.randrange(len(rr) + len(rr) // 4 + 1)  # some unmatched
+        if i < len(rr):
+            fields = dict(rr[i])
+            if rng.random() < 0.25 and len(fields) > 1:
+                # matched command, wrong second field → denied
+                k = sorted(fields)[-1]
+                fields[k] = fields[k] + ".nope"
+        else:
+            fields = ({"query_action": "drop",
+                       "query_table": "forbidden"}
+                      if proto == "cassandra" else
+                      {"cmd": "flush_all"} if proto == "memcache"
+                      else {"cmd": "HALT"})
+        flows.append(Flow(
+            src_identity=0, dst_identity=0,
+            dport=PROTOCOL_PORTS[proto],
+            protocol=Protocol.TCP, direction=ING, l7=L7Type.GENERIC,
+            generic=GenericL7Info(proto=proto, fields=fields),
+        ))
+    return SynthScenario(
+        name="protocols", rules=[rule],
+        endpoints={"polysvc": {"app": "polysvc"},
+                   "client": {"app": "client"}},
+        flows=flows,
+    )
+
+
+# ------------------------------------------- generic pair-path lane --
+#: ports of the lineparser scenario: exact lines, a presence rule, an
+#: allow-all l7proto
+LINE_PORT, PRESENCE_PORT, ANY_PORT = 7000, 7001, 7002
+
+
+def synth_lineparser_scenario(n_rules: int = 40, n_flows: int = 20000,
+                              seed: int = 0) -> SynthScenario:
+    """``test.lineparser`` ACLs: a proxy-only ``l7proto`` (no engine
+    frontend), so its records stay on the generic pair path and off
+    ``l7g``. Exact lines on LINE_PORT, a presence rule on
+    PRESENCE_PORT, an allow-all on ANY_PORT; a tenth of the records
+    carry no line."""
+    from cilium_tpu_torch.core.flow import GenericL7Info
+
+    rng = random.Random(seed)
+    lines = [f"cmd{i} arg" for i in range(n_rules)]
+
+    def port(p, l7):
+        return PortRule(ports=(PortProtocol(p, Protocol.TCP),),
+                        rules=L7Rules(l7proto="test.lineparser", l7=l7))
+
+    rule = Rule(
+        endpoint_selector=_sel(app="liner"),
+        ingress=(IngressRule(
+            from_endpoints=(_sel(app="client"),),
+            to_ports=(
+                port(LINE_PORT, tuple(PortRuleL7.from_dict({"line": ln})
+                                      for ln in lines)),
+                port(PRESENCE_PORT, (PortRuleL7.from_dict({"line": ""}),)),
+                port(ANY_PORT, ()))),),
+        labels=("synth=lineparser",))
+    flows = []
+    for _ in range(n_flows):
+        i = rng.randrange(n_rules + n_rules // 3 + 1)   # some unmatched
+        fields = ({"line": lines[i]} if i < n_rules
+                  else {"line": f"other{i}"})
+        if rng.random() < 0.1:
+            fields = {}
+        flows.append(Flow(
+            src_identity=0, dst_identity=0,
+            dport=rng.choice((LINE_PORT, LINE_PORT, PRESENCE_PORT,
+                              ANY_PORT)),
+            protocol=Protocol.TCP, direction=ING, l7=L7Type.GENERIC,
+            generic=GenericL7Info(proto="test.lineparser", fields=fields),
+        ))
+    return SynthScenario(
+        name="lineparser", rules=[rule],
+        endpoints={"liner": {"app": "liner"},
+                   "client": {"app": "client"}},
+        flows=flows,
+    )
+
+
 # ----------------------------------------------------------- harness ----
 def scenario_by_name(name: str, n_rules: int, n_flows: int,
                      seed: int = 0) -> "SynthScenario":
     """Scenario dispatch (the reference's, including fqdn's 100-name
-    universe). ``generic`` and ``protocols`` raise: their ``l7proto``
-    rules arrive with the frontends slice (queue 1, Q5)."""
+    universe)."""
     if n_rules < 1:
         raise ValueError("n_rules must be >= 1")
     if name == "http":
@@ -241,9 +429,12 @@ def scenario_by_name(name: str, n_rules: int, n_flows: int,
     if name == "kafka":
         return synth_kafka_scenario(n_rules=n_rules, n_records=n_flows,
                                     seed=seed)
-    if name in ("generic", "protocols"):
-        raise NotImplementedError(
-            f"scenario {name!r} needs l7proto rules (queue 1, Q5)")
+    if name == "generic":
+        return synth_generic_scenario(n_rules=n_rules, n_flows=n_flows,
+                                      seed=seed)
+    if name == "protocols":
+        return synth_protocols_scenario(n_rules=n_rules,
+                                        n_flows=n_flows, seed=seed)
     raise ValueError(f"unknown scenario {name!r}")
 
 
@@ -303,4 +494,8 @@ def realize_scenario(scenario: SynthScenario, resolve: bool = True):
         for f in scenario.flows:
             f.src_identity = ids["crawler"]
             f.dst_identity = ids["peer"]
+    elif scenario.name == "lineparser":
+        for f in scenario.flows:
+            f.src_identity = ids["client"]
+            f.dst_identity = ids["liner"]
     return per_identity, scenario

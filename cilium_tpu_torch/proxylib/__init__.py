@@ -4,10 +4,12 @@ policy's ``l7proto`` name, ``OnData`` returns PASS/DROP/MORE/INJECT/
 ERROR ops, and every parsed record is verdicted through the
 ``policy_check`` the verdict service injects.
 
-The HTTP and Kafka parsers are registered. The reference's r2d2,
-memcache and cassandra parsers and its test parsers yield
-``GenericL7Info`` records, which need the ``l7g`` field (queue 1, Q5):
-``create_parser`` raises ``NotImplementedError`` naming Q5 for them.
+Registered: HTTP, Kafka, r2d2, memcache, cassandra and the test
+parsers (``test.passer``, ``test.lineparser``, ``test.blockparser``).
+The last four kinds yield ``GenericL7Info`` records: a frontend
+protocol's verdict on the ``l7g`` field, a proxy-only one's on the
+generic pair path. Every ``register_parser`` name joins the compiler's
+``l7proto`` registry (``policy/compiler/frontends``).
 """
 
 from cilium_tpu_torch.proxylib.parser import (
@@ -21,6 +23,10 @@ from cilium_tpu_torch.proxylib.parser import (
 )
 from cilium_tpu_torch.proxylib.http import HTTPParser
 from cilium_tpu_torch.proxylib.kafka import KafkaParser
+from cilium_tpu_torch.proxylib.r2d2 import R2D2Parser
+from cilium_tpu_torch.proxylib.memcached import MemcachedParser
+from cilium_tpu_torch.proxylib.cassandra import CassandraParser
+from cilium_tpu_torch.proxylib import testparsers  # noqa: F401  (registers)
 
 __all__ = [
     "OpType",
@@ -32,4 +38,7 @@ __all__ = [
     "registered_parsers",
     "KafkaParser",
     "HTTPParser",
+    "R2D2Parser",
+    "MemcachedParser",
+    "CassandraParser",
 ]

@@ -108,23 +108,20 @@ class Parser:
 _REGISTRY: Dict[str, Callable[..., Parser]] = {}
 
 
-#: the reference's parsers whose records are ``GenericL7Info`` (they
-#: need the ``l7g`` field and the frontend compiler, queue 1's Q5)
-UNPORTED_PARSERS = ("cassandra", "memcache", "r2d2", "test.blockparser",
-                    "test.lineparser", "test.passer")
-
-
 def register_parser(name: str, factory: Callable[..., Parser]) -> None:
     _REGISTRY[name] = factory
+    # one l7proto registry: the compiler validates a policy's
+    # ``l7proto`` against the engine frontends and these names, so a
+    # parser the proxy can dispatch is always a name the compiler
+    # accepts, and an unknown name fails at compile
+    from cilium_tpu_torch.policy.compiler import frontends as _fe
+
+    _fe.register_proxy_parser(name)
 
 
 def create_parser(name: str, connection: Connection,
                   policy_check: Callable[[object], bool]) -> Parser:
     if name not in _REGISTRY:
-        if name in UNPORTED_PARSERS:
-            raise NotImplementedError(
-                f"the {name!r} parser yields generic L7 records, which "
-                f"arrive with the frontends/l7proto slice (queue 1, Q5)")
         raise KeyError(f"no parser registered for l7proto {name!r}")
     p = _REGISTRY[name](connection, policy_check)
     connection.parser = p

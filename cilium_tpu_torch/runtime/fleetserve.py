@@ -1007,7 +1007,7 @@ class FleetModel:
         )
         from cilium_tpu_torch.runtime.loader import Loader
 
-        per_identity, scenario_flows = _build_policy(
+        per_identity, scenario_flows, _proto = _build_policy(
             self.n_rules, self.chunk_flows)
         self._per_identity = per_identity
         self._cache_dir = tempfile.mkdtemp(prefix="ct_fleet_")

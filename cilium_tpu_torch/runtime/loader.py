@@ -614,6 +614,14 @@ class Loader:
                 engine = TorchVerdictEngine(policy, device=self.device,
                                             cfg=self.config.engine)
         self._record_kernel_plan(policy, engine)
+        # serving frontend-rule counts per proto (zeroed protos stop
+        # being reported)
+        fe_counts: Dict[str, int] = {}
+        for proto, _pairs in getattr(policy, "fe_rules", ()) or ():
+            fe_counts[proto] = fe_counts.get(proto, 0) + 1
+        for proto, n in fe_counts.items():
+            METRICS.set_gauge("cilium_tpu_frontend_rules", n,
+                              labels={"proto": proto})
         new_plan = dict(getattr(policy, "bank_plan", {}) or {})
         fam_fps = fam_fps_all
         delta = self._delta_for(fps, globals_fp, new_plan,

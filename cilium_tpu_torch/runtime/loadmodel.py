@@ -40,11 +40,10 @@ under an autojumping VirtualClock) and ``driven`` (inline
 clock, never a time the card took. The lane prints one
 provenance-stamped line (``--out`` appends it to a file too).
 
-The reference blends protocol-frontend traffic into the pool
-(``protocol_mix``, its lane default 0.2); the cassandra, memcache and
-r2d2 frontends are not ported yet (queue 1, Q5), so any
-``protocol_mix`` other than 0 raises ``NotImplementedError`` naming
-Q5.
+``protocol_mix`` (the lane default 0.2, as the reference's) blends
+protocol-frontend traffic into the pool: that fraction of the chunks
+carries cassandra, memcache and r2d2 records, served by the same
+loader's merged policy through the frontends' ``l7g`` field.
 
     python -m cilium_tpu_torch.runtime.loadmodel --streams 100000
 """
@@ -92,18 +91,11 @@ class Violation(AssertionError):
         self.detail = detail
 
 
-def _require_http_only(protocol_mix: float) -> None:
-    if protocol_mix != 0:
-        raise NotImplementedError(
-            f"protocol_mix={protocol_mix}: the protocol frontends "
-            f"(cassandra, memcache, r2d2) arrive with queue 1, Q5; "
-            f"this port serves protocol_mix=0 only")
-
-
 def _build_policy(n_rules: int, chunk_flows: int,
                   protocol_mix: float = 0.0):
-    """The policy half of the world: the http synth scenario → realized
-    per-identity rule sets + the flow pool chunks draw from. Split out of
+    """The policy half of the world: synth scenario(s) → realized
+    per-identity rule sets + the flow pools chunks draw from (http, and
+    the protocol-frontend pool when ``protocol_mix`` > 0). Split out of
     :func:`_build_world` so the serving FLEET (runtime/fleetserve.py)
     can regenerate the SAME policy on every replica loader — identical
     rules per host is the precondition for cross-host handoff serving
@@ -111,21 +103,43 @@ def _build_policy(n_rules: int, chunk_flows: int,
     every host after the first without a recompile."""
     from cilium_tpu_torch.ingest import synth
 
-    _require_http_only(protocol_mix)
     n_flows = max(1024, chunk_flows * 8)
     sc_http = synth.scenario_by_name("http", n_rules, n_flows)
-    per_identity, sc_http = synth.realize_scenario(sc_http)
-    return per_identity, list(sc_http.flows)
+    proto_flows: List = []
+    if protocol_mix > 0:
+        sc_proto = synth.scenario_by_name(
+            "protocols", max(12, n_rules // 2), n_flows)
+        merged = synth.SynthScenario(
+            name="servemix",
+            rules=sc_http.rules + sc_proto.rules,
+            endpoints={**sc_http.endpoints, **sc_proto.endpoints},
+            flows=[])
+        per_identity, merged = synth.realize_scenario(merged)
+        ids = merged.ids
+        for f in sc_http.flows:
+            f.src_identity, f.dst_identity = (ids["client"],
+                                              ids["server"])
+        for f in sc_proto.flows:
+            f.src_identity, f.dst_identity = (ids["client"],
+                                              ids["polysvc"])
+        proto_flows = list(sc_proto.flows)
+        scenario_flows = list(sc_http.flows)
+    else:
+        per_identity, sc_http = synth.realize_scenario(sc_http)
+        scenario_flows = list(sc_http.flows)
+    return per_identity, scenario_flows, proto_flows
 
 
 def _build_world(seed: int, n_rules: int, pool_chunks: int,
                  chunk_flows: int, protocol_mix: float = 0.0,
                  device=None):
     """A real compiled serving slice: synth policy → loader →
-    chunk pool with engine ground truth. ``protocol_mix`` > 0 (the
-    reference blends protocol-frontend chunks into the pool at that
-    fraction) raises naming Q5. The loader stages its engine on
-    ``device`` (``cuda`` unless named)."""
+    chunk pool with engine ground truth. ``protocol_mix`` > 0 blends
+    protocol-frontend traffic (cassandra/memcache/r2d2) into the pool
+    at that chunk fraction: ONE loader serves a merged policy (http +
+    frontend rule sets), so mixed-family packs ride one fused step.
+    The loader stages its engine on ``device`` (``cuda`` unless
+    named)."""
     from cilium_tpu_torch.core.config import Config
     from cilium_tpu_torch.ingest.binary import (
         capture_from_bytes,
@@ -133,7 +147,7 @@ def _build_world(seed: int, n_rules: int, pool_chunks: int,
     )
     from cilium_tpu_torch.runtime.loader import Loader
 
-    per_identity, scenario_flows = _build_policy(
+    per_identity, scenario_flows, proto_flows = _build_policy(
         n_rules, chunk_flows, protocol_mix=protocol_mix)
     cfg = Config()
     cfg.enable_tpu_offload = True
@@ -143,7 +157,9 @@ def _build_world(seed: int, n_rules: int, pool_chunks: int,
     rng = random.Random(seed ^ 0x5EED)
     pool: List[_Chunk] = []
     for _ in range(pool_chunks):
-        flows = [scenario_flows[rng.randrange(len(scenario_flows))]
+        src = (proto_flows if proto_flows
+               and rng.random() < protocol_mix else scenario_flows)
+        flows = [src[rng.randrange(len(src))]
                  for _ in range(chunk_flows)]
         sections = capture_from_bytes(capture_to_bytes(flows))
         truth = [int(v) for v in
@@ -168,7 +184,6 @@ class LoadModel:
                  fault_rules: Optional[Sequence] = None,
                  sample_every: int = 64, mode: str = "thread",
                  protocol_mix: float = 0.0, device=None):
-        _require_http_only(protocol_mix)
         self.seed = seed
         self.streams = int(streams)
         self.virtual_s = float(virtual_s)
@@ -189,7 +204,7 @@ class LoadModel:
         self.sample_every = max(1, int(sample_every))
         self.mode = mode
         #: fraction of pool chunks carrying protocol-frontend traffic
-        #: (cassandra/memcache/r2d2) instead of http; 0 only (Q5)
+        #: (cassandra/memcache/r2d2) instead of http
         self.protocol_mix = float(protocol_mix)
         #: the loader's device (``cuda`` unless named)
         self.device = device
@@ -307,11 +322,16 @@ class LoadModel:
         l7m = np.asarray(prov.l7_match)
         gens = np.asarray(prov.gens)
         l7t = np.asarray(chunk.sections[0]["l7_type"])
-        if chunk.sections[4] is not None:
-            # protocol-frontend records decode on their FAMILY lane
-            raise NotImplementedError(
-                "explaining protocol-frontend records needs the "
-                "frontends (queue 1, Q5)")
+        gen = chunk.sections[4]
+        if gen is not None:
+            # protocol-frontend records carry the GENERIC code in the
+            # capture; the engine verdicts them on their FAMILY lane —
+            # decode the attribution code in that space
+            from cilium_tpu_torch.engine.compiled import _gen_l7g_cols
+
+            fam, _uniq, _row = _gen_l7g_cols(
+                gen, chunk.sections[2], chunk.sections[3])
+            l7t = np.where(fam > 0, fam, l7t)
         gen_now = policy_generation()
         for r in range(min(len(l7m), len(l7t))):
             code = int(l7m[r])
@@ -620,10 +640,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--max-burn", type=float, default=1.0,
                     help="whole-run SLO burn-rate ceiling "
                          "(1.0 = exactly the declared budget)")
-    ap.add_argument("--protocol-mix", type=float, default=0.0,
+    ap.add_argument("--protocol-mix", type=float, default=0.2,
                     help="fraction of traffic chunks carrying "
-                         "protocol-frontend records (0 only: the "
-                         "frontends are queue 1, Q5)")
+                         "protocol-frontend records")
     ap.add_argument("--target-concurrency", type=int, default=0,
                     help="gate floor (default: 95%% of --streams)")
     ap.add_argument("--device", default=None,

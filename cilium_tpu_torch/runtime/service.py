@@ -29,8 +29,8 @@ Where the port differs from the reference:
   the breaker, the serve loop and the stream's session route all key on
   it;
 * two kinds of error pass the breaker (:func:`passes_breaker`): a
-  ``NotImplementedError`` — an input the port does not serve yet, a
-  generic (l7proto) record, queue 1's Q5 — and a kernel failure (a
+  ``NotImplementedError`` — what the port does not serve yet, such as
+  the ``autotune`` scan-arm pick (queue 1's Q6) — and a kernel failure (a
   hand-written kernel that did not build, load or launch, or a fault
   CUDA reported). Each is an error response (a ``check``'s included),
   never a trip or an oracle verdict: the CPU does not answer for a
@@ -57,7 +57,9 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from cilium_tpu_torch.core.flow import (
+    DNSInfo,
     Flow,
+    GenericL7Info,
     HTTPInfo,
     KafkaInfo,
     L7Type,
@@ -66,7 +68,6 @@ from cilium_tpu_torch.core.flow import (
     Verdict,
 )
 from cilium_tpu_torch.engine import _build
-from cilium_tpu_torch.engine.compiled import _L7PROTO_SLICE
 from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
 from cilium_tpu_torch.ingest.hubble import flow_from_dict
 from cilium_tpu_torch.proxylib.parser import Connection, create_parser
@@ -135,14 +136,6 @@ def verdict_outputs_padded(engine, flows: Sequence[Flow],
     fn = getattr(engine, "verdict_flows_blob", engine.verdict_flows)
     out = fn(flows, authed_pairs=authed_pairs, outputs=outputs)
     return {k: np.asarray(v)[:n] for k, v in out.items()}
-
-
-def require_ported(flow: Flow) -> None:
-    """Raise the engine's own ``NotImplementedError`` for a generic
-    (l7proto) record before it joins a micro-batch it would fail
-    whole."""
-    if flow.generic is not None:
-        raise NotImplementedError(_L7PROTO_SLICE)
 
 
 def passes_breaker(exc: BaseException) -> bool:
@@ -681,6 +674,10 @@ class PolicyBridge:
             f.l7, f.http = L7Type.HTTP, record
         elif isinstance(record, KafkaInfo):
             f.l7, f.kafka = L7Type.KAFKA, record
+        elif isinstance(record, DNSInfo):
+            f.l7, f.dns = L7Type.DNS, record
+        elif isinstance(record, GenericL7Info):
+            f.l7, f.generic = L7Type.GENERIC, record
         return f
 
     def http_proxy_actions(self, flow: Flow):
@@ -924,7 +921,6 @@ class VerdictService:
             # (requests coalesce across connections into one batch);
             # the wire deadline rides the queue entry
             flow = flow_from_dict(req.get("flow", {}))
-            require_ported(flow)
             v, status = self.bridge.batcher.check_ex(
                 flow, deadline=deadline)
             resp = {"verdict": v}

@@ -37,10 +37,11 @@ Credits survive reconnect-with-resume (fresh window minus the re-sent
 unacked chunks).
 
 A poisoned frame (bad magic, truncated image) fails ONLY its sequence
-number, and so does a chunk the port does not serve yet (a v3 GENERIC
-section, queue 1's Q5: ``NotImplementedError``) or one whose kernel
-failed on the card: errors the breaker lets through
-(``service.passes_breaker``), never a trip or an oracle verdict.
+number, and so does a chunk that meets what the port does not serve yet
+(``NotImplementedError``) or one whose kernel failed on the card:
+errors the breaker lets through (``service.passes_breaker``), never a
+trip or an oracle verdict. A v3 image's GENERIC section (frontend and
+proxy-only ``l7proto`` records) is served like any other chunk.
 
 Where the port differs from the reference: the session route is taken
 for a ``TorchVerdictEngine`` (``isinstance``, where the reference tests

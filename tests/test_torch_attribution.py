@@ -8,7 +8,7 @@ mirroring the engine-side half of ``tests/test_provenance.py``.
 * ``AttributionMap.resolve`` and ``rule_label`` equal for every
   (l7 type, code) of each scenario, and every code the direct step
   emits resolves;
-* ``flow_family``, with frontend records raising naming Q5;
+* ``flow_family``, frontend records mapped to their engine family;
 * ``ServedPack`` lanes (verdict, ``l7_match``, ``match_spec``), cited
   generations and memo-hit masks across a hot swap, equal to the
   reference session's; ``ServedPack.host`` reads back once;
@@ -132,22 +132,23 @@ def test_attribution_map_resolves_as_the_reference(worlds, name):
 
 
 def test_flow_family_frontend_records_raise_naming_q5():
+    """A frontend record (``l7 == GENERIC`` on the wire) maps to its
+    engine family, as in the reference; any other proto stays
+    GENERIC."""
     fl = PORT.flow
-    for proto, want in (("r2d2", None), ("cassandra", None),
+    for proto, want in (("r2d2", int(fl.L7Type.R2D2)),
+                        ("cassandra", int(fl.L7Type.CASSANDRA)),
+                        ("memcache", int(fl.L7Type.MEMCACHE)),
                         ("x-custom", int(fl.L7Type.GENERIC))):
         f = fl.Flow(src_identity=1, dst_identity=2, dport=9000,
                     l7=fl.L7Type.GENERIC,
                     generic=fl.GenericL7Info(proto=proto, fields={}))
-        if want is None:
-            with pytest.raises(NotImplementedError, match="Q5"):
-                PORT.attribution.flow_family(f)
-        else:
-            assert PORT.attribution.flow_family(f) == want
-            jf = JAX.flow.Flow(src_identity=1, dst_identity=2, dport=9000,
-                               l7=JAX.flow.L7Type.GENERIC,
-                               generic=JAX.flow.GenericL7Info(
-                                   proto=proto, fields={}))
-            assert JAX.attribution.flow_family(jf) == want
+        assert PORT.attribution.flow_family(f) == want
+        jf = JAX.flow.Flow(src_identity=1, dst_identity=2, dport=9000,
+                           l7=JAX.flow.L7Type.GENERIC,
+                           generic=JAX.flow.GenericL7Info(
+                               proto=proto, fields={}))
+        assert JAX.attribution.flow_family(jf) == want
 
 
 def _pack(pack, n, gen_marks):

@@ -10,8 +10,9 @@ package's, exact on every byte, row, id and lane.
 * ``CaptureFeaturizer`` tables, LUTs and ``encode_rows``, and the
   ``FlowBatch`` of ``encode_records`` and ``encode_l7_records``, equal
   the reference's;
-* a v3 capture with generic records raises ``NotImplementedError``
-  naming Q5 on every replay path of the port.
+* a v3 capture with generic records: the featurizer's ``gen_rows`` and
+  ``l7g`` table, ``encode_l7_records`` and the replay's verdicts equal
+  the reference's.
 
 Inputs: the synth scenarios at 12 rules × 240 flows (http), 6 × 180
 (fqdn) and 12 × 200 (kafka), realized in both packages from the same
@@ -158,23 +159,63 @@ def test_v3_capture_bytes_and_generic_section(tmp_path):
 
 
 def test_v3_generic_replay_raises_naming_q5(both, tmp_path):
-    """The GENERIC section's l7g columns need the protocol frontends:
-    every replay path refuses a v3 capture, naming queue 1's Q5."""
+    """A v3 capture's GENERIC section on every replay path of the port,
+    held against the reference: the featurizer's generic columns and
+    ``l7g`` table, the record encoder, and the verdicts (direct, and
+    through a ``CaptureReplay``) under the generic scenario's policy and
+    under the http policy (frontend records it has no rules for)."""
     _, flows = _v3_flows()
     path = str(tmp_path / "v3.bin")
     binary.write_capture_l7(path, flows)
-    rec = binary.map_capture(path)
+    rec = np.asarray(binary.map_capture(path))
     l7, offsets, blob = binary.read_l7_sidecar(path)
     gen = binary.read_gen_sidecar(path)
-    pol = both["http"][1][2]
-    engine = TorchVerdictEngine(pol, device="cpu")
-    with pytest.raises(NotImplementedError, match="Q5"):
-        CaptureReplay(engine, l7, offsets, blob, gen=gen)
-    with pytest.raises(NotImplementedError, match="Q5"):
-        engine.verdict_l7_records(rec, l7, offsets, blob, gen=gen)
-    with pytest.raises(NotImplementedError, match="Q5"):
-        compiled.CaptureFeaturizer(l7, offsets, blob, pol.kafka_interns,
-                                   gen=gen)
+    jpi, _ = jax_synth.realize_scenario(
+        jax_synth.scenario_by_name("generic", 6, 40))
+    pi, _ = synth.realize_scenario(synth.scenario_by_name("generic", 6, 40))
+    pols = {"generic": (jax_verdict.CompiledPolicy.build(jpi),
+                        CompiledPolicy.build(pi)),
+            "http": (both["http"][0][2], both["http"][1][2])}
+    for name, (jpol, pol) in pols.items():
+        assert jpol.kafka_interns == pol.kafka_interns
+        want = jax_verdict.CaptureFeaturizer(l7, offsets, blob,
+                                             jpol.kafka_interns, gen=gen)
+        got = compiled.CaptureFeaturizer(l7, offsets, blob,
+                                         pol.kafka_interns, gen=gen)
+        assert sorted(got.tables) == sorted(want.tables)
+        assert "l7g" in got.tables
+        for field in want.tables:
+            for w, g in zip(want.tables[field], got.tables[field]):
+                _assert_arrays_equal(w, g)
+        _assert_arrays_equal(want.gen_rows, got.gen_rows)
+        _assert_arrays_equal(
+            want.encode_rows(rec, l7, gen_rows=want.gen_rows),
+            got.encode_rows(rec, l7, gen_rows=got.gen_rows))
+        for w in (None, binary.capture_field_widths(l7, offsets)):
+            _assert_host_dicts_equal(
+                jax_verdict.flowbatch_to_host_dict(
+                    jax_verdict.encode_l7_records(
+                        rec, l7, offsets, blob, jpol.kafka_interns,
+                        widths=w, gen=gen)),
+                compiled.flowbatch_to_host_dict(
+                    compiled.encode_l7_records(
+                        rec, l7, offsets, blob, pol.kafka_interns,
+                        widths=w, gen=gen)))
+        jeng = jax_verdict.VerdictEngine(jpol)
+        engine = TorchVerdictEngine(pol, device="cpu")
+        want_out = jeng.verdict_l7_records(rec, l7, offsets, blob, gen=gen)
+        got_out = engine.verdict_l7_records(rec, l7, offsets, blob,
+                                            gen=gen)
+        for lane in want_out:
+            _assert_arrays_equal(want_out[lane], got_out[lane])
+        r = CaptureReplay(engine, l7, offsets, blob, gen=gen)
+        r.stage_rows(rec, l7)
+        r.stage_unique()
+        replayed = r.verdict_chunk(rec, l7, start=0)
+        for lane in want_out:
+            _assert_arrays_equal(want_out[lane], replayed[lane])
+        if name == "generic":
+            assert len(set(got_out["verdict"].tolist())) > 1
 
 
 def _sections(tmp_path, flows):

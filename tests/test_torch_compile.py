@@ -106,15 +106,26 @@ def test_encoded_flows_byte_equal(n_flows):
 
 
 def test_l7proto_rules_name_the_later_slice():
-    from cilium_tpu_torch.policy.api import L7Rules
-    from cilium_tpu_torch.policy.mapstate import (
-        MapState,
-        MapStateEntry,
-        MapStateKey,
-    )
+    """An ``l7proto`` rule with no key/value constraint compiles as the
+    reference compiles it: a frontend proto (r2d2) to one ``l7g``-family
+    rule with no scan lane, a proxy-only proto (test.lineparser) to the
+    0-pair generic rule — the same arrays and interns either way."""
+    import cilium_tpu.policy.api as jax_api
+    import cilium_tpu.policy.mapstate as jax_ms
+    import cilium_tpu_torch.policy.api as port_api
+    import cilium_tpu_torch.policy.mapstate as port_ms
 
-    ms = MapState()
-    ms.insert(MapStateKey(0, 80, 6, 0), MapStateEntry(
-        l7_rules=(L7Rules(l7proto="r2d2"),)))
-    with pytest.raises(NotImplementedError, match="l7proto"):
-        CompiledPolicy.build({1: ms})
+    def policy(api, msm, proto):
+        ms = msm.MapState()
+        ms.insert(msm.MapStateKey(0, 80, 6, 0), msm.MapStateEntry(
+            l7_rules=(api.L7Rules(l7proto=proto),)))
+        return {1: ms}
+
+    for proto in ("r2d2", "test.lineparser"):
+        want = JaxCompiledPolicy.build(policy(jax_api, jax_ms, proto))
+        got = CompiledPolicy.build(policy(port_api, port_ms, proto))
+        _assert_same_arrays(want.arrays, got.arrays)
+        assert want.kafka_interns == got.kafka_interns
+        assert (got.fe_rules, got.gen_rules) == \
+            (want.fe_rules, want.gen_rules)
+        assert ("l7g_trans" in got.arrays) == (proto == "r2d2")

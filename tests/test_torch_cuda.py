@@ -10,7 +10,10 @@ Each kernel is held exactly against its plain version on the same CUDA
 tensors (random, all-zero and all-full lengths; the tile edges of the
 tensor-core kernels), and the fused step, capture replay (memo route)
 and the legacy step on the card against the same paths on the CPU (the
-plain versions), at a small size.
+plain versions), at a small size. The protocol frontends' ``l7g``
+stacks: KD, and K2 and K1 wherever they take the stack, at each lane
+policy's l7g automaton, and the memcache policy (whose l7g stack both
+take) through the fused step and v3 capture replay on each arm.
 """
 
 import numpy as np
@@ -489,3 +492,102 @@ def test_stream_readback_equals_a_blocking_copy(cuda):
         got = _host_verdicts(rb, n)
         want = lane[:n].cpu().numpy().astype(np.uint8)
         assert got.dtype == np.uint8 and np.array_equal(got, want)
+
+
+# ------------------------------------------------- protocol frontends (l7g)
+def _frontend_policy(name, n_rules=40, n_flows=2048):
+    """A frontend lane's policy through the content-addressed banks, as
+    the loader builds it, and its flows."""
+    from cilium_tpu_torch.policy.compiler.bankplan import BankRegistry
+
+    sc = (synth.scenario_by_name(name, n_rules, n_flows)
+          if name == "protocols" else synth.synth_protocols_scenario(
+              n_rules=n_rules, n_flows=n_flows, mix=((name, 1.0),)))
+    pi, sc = synth.realize_scenario(sc)
+    return CompiledPolicy.build(pi, EngineConfig(),
+                                bank_registry=BankRegistry()), sc
+
+
+@pytest.mark.parametrize("name", ["cassandra", "memcache", "r2d2",
+                                  "protocols"])
+def test_kernels_at_the_l7g_stack_equal_plain(cuda, name):
+    """KD, and K2 and K1 wherever they take the stack, at a frontend
+    policy's ``l7g`` stack and its records' scan values (random, zero
+    and full lengths too)."""
+    from cilium_tpu_torch.engine import megakernel
+    from cilium_tpu_torch.policy.compiler import frontends
+
+    pol, sc = _frontend_policy(name)
+    a = pol.arrays
+    staged = arrays_from_reference(
+        {k: a[f"l7g_{k}"] for k in ("trans", "byteclass", "start",
+                                    "accept")}, cuda)
+    data, lens, _ = encode_strings(
+        [frontends.scan_value(f.generic.proto, f.generic.fields)
+         for f in sc.flows], 256)
+    cfg = EngineConfig()
+    cfg.kernel_impl = "nfa-bitset"
+    _, extra, _ = megakernel.plan_for_engine(pol, cfg, cuda)
+    nfa = arrays_from_reference(
+        {k: v for k, v in extra.items() if k.startswith("l7g_nfa_")}, cuda)
+    _build.reset_launches()
+    rng = np.random.default_rng(11)
+    for ln in (lens, *_length_cases(rng, *data.shape)):
+        args = [staged["trans"], staged["byteclass"], staged["start"],
+                _t(data, cuda), _t(ln, cuda)]
+        assert torch.equal(
+            dfa_dense_cuda.dense_scan_cuda(*args, accept=staged["accept"]),
+            dfa_dense_cuda.dense_scan_plain(*args, accept=staged["accept"]))
+        if a["l7g_trans"].shape[1] <= 128:
+            assert torch.equal(
+                dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*args),
+                dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
+        if nfa:
+            n = [nfa[f"l7g_nfa_{k}"] for k in ("follow", "acc_cls",
+                                                "byteclass", "start")]
+            assert torch.equal(nfa_cuda.nfa_finals_cuda(*n, *args[3:]),
+                               nfa_cuda.nfa_finals_plain(*n, *args[3:]))
+    assert _build.KERNELS["KD"].launches == 4
+    assert _build.KERNELS["K2"].launches == (
+        4 if a["l7g_trans"].shape[1] <= 128 else 0)
+    assert _build.KERNELS["K1"].launches == (4 if nfa else 0)
+
+
+@pytest.mark.parametrize("mode,dfa_impl,kernel", [
+    ("auto", "gather", "KD"), ("nfa-bitset", "gather", "K1"),
+    ("auto", "pallas", "K2")])
+def test_frontend_fused_step_and_replay_on_card_equal_plain(
+        cuda, mode, dfa_impl, kernel, monkeypatch):
+    """The memcache policy (its ``l7g`` stack fits K1 and K2) through the
+    fused step and v3 capture replay on the card, all ten lanes equal to
+    the plain path."""
+    from cilium_tpu_torch.ingest import columnar
+
+    monkeypatch.setenv("CILIUM_TPU_DFA_IMPL", dfa_impl)
+    pol, sc = _frontend_policy("memcache", 40, 1500)
+    cfg = EngineConfig()
+    cfg.kernel_impl = mode
+    engine = TorchVerdictEngine(pol, cfg=cfg)
+    assert engine.impl_plan["l7g"] == (
+        "nfa-bitset" if mode == "nfa-bitset" else "dfa-dense")
+    plain = TorchVerdictEngine(pol, device="cpu", cfg=cfg)
+    _build.reset_launches()
+    got = engine.verdict_flows(sc.flows)
+    assert _build.KERNELS[kernel].launches > 0
+    want = plain.verdict_flows(sc.flows)
+    for lane in OUTPUT_LANES:
+        np.testing.assert_array_equal(got[lane], want[lane], lane)
+    cols = columnar.flows_to_columns(sc.flows)
+    sections = (cols.rec, cols.l7, cols.offsets, cols.blob)
+    assert cols.gen is not None
+    from cilium_tpu_torch.engine.replay import CaptureReplay
+
+    outs = []
+    for e in (engine, plain):
+        r = CaptureReplay(e, *sections[1:], cfg, gen=cols.gen)
+        r.stage_rows(cols.rec, cols.l7)
+        r.stage_unique()
+        outs.append(r.verdict_chunk(cols.rec, cols.l7, start=0))
+    for lane in OUTPUT_LANES:
+        np.testing.assert_array_equal(outs[0][lane], outs[1][lane], lane)
+        np.testing.assert_array_equal(outs[0][lane], want[lane], lane)

@@ -13,11 +13,14 @@ Sizes: the reference's own soak tests (``tests/test_serve_soak.py``), at
 a few hundred streams and 20-40 virtual seconds. Those tests run the
 pack thread too and are marked slow; so is the port's counterpart here.
 
-Also: ``protocol_mix`` other than 0 raises naming Q5 (the frontends are
-not ported), the soak stages on ``cuda`` by default, and ``main``
-prints one stamped line with its latencies labelled virtual.
+Also: the soak at ``protocol_mix`` 0.2 and 1.0 (protocol-frontend
+chunks blended into the pool) equals the reference's, frontend records
+explain on their family lane, the soak stages on ``cuda`` by default,
+and ``main`` prints one stamped line with its latencies labelled
+virtual.
 """
 
+import importlib
 import json
 import types
 
@@ -108,29 +111,71 @@ def test_thread_mode_under_autojump():
 
 @pytest.mark.parametrize("mix", [0.2, 1.0])
 def test_protocol_mix_raises_naming_q5(mix):
-    with pytest.raises(NotImplementedError, match="Q5"):
-        port_lm.LoadModel(streams=10, protocol_mix=mix, device="cpu")
-    with pytest.raises(NotImplementedError, match="Q5"):
-        port_lm._build_policy(4, 8, protocol_mix=mix)
-    with pytest.raises(NotImplementedError, match="Q5"):
-        port_lm.main(["--streams", "10", "--protocol-mix", str(mix),
-                      "--device", "cpu"])
+    """The driven soak with protocol-frontend chunks blended in at
+    ``mix``: the whole result dict equals the reference's, with no
+    violation (pool truth, sampled checks and explain coverage hold)."""
+    kw = dict(seed=13, streams=120, virtual_s=12.0, ramp_s=3.0, storms=1,
+              storm_size=30, mode="driven", protocol_mix=mix)
+    want = jax_lm.LoadModel(**kw).run()
+    got = port_lm.LoadModel(device="cpu", **kw).run()
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key] == want[key], key
+    assert got["violations"] == [] and got["explain_coverage"] == 1.0
+    (pi, http, proto), (jpi, jhttp, jproto) = (
+        mod._build_policy(12, 8, protocol_mix=mix)
+        for mod in (port_lm, jax_lm))
+    assert (len(http), len(proto)) == (len(jhttp), len(jproto)) and proto
+    assert sorted(pi) == sorted(jpi)
 
 
 def test_explaining_frontend_records_raises_naming_q5():
-    model = port_lm.LoadModel(streams=10, device="cpu")
-    model._loop = types.SimpleNamespace(
-        _amap_for=lambda engine: None,
-        ring=types.SimpleNamespace(
-            session=types.SimpleNamespace(engine=None)))
-    prov = types.SimpleNamespace(l7_match=np.zeros(1, np.int32),
-                                 gens=np.ones(1, np.int64))
-    sections = ({"l7_type": np.zeros(1, np.int32)}, None, None, None,
-                np.zeros(1))
-    chunk = port_lm._Chunk(sections, [1])
-    with pytest.raises(NotImplementedError, match="Q5"):
+    """A chunk of protocol-frontend records explains: their codes decode
+    on the family lane (the capture carries GENERIC), in both
+    packages."""
+    from cilium_tpu.engine import attribution as jax_attribution
+    from cilium_tpu.engine.verdict import CompiledPolicy as JaxPolicy
+    from cilium_tpu.engine.verdict import VerdictEngine
+    from cilium_tpu.ingest import binary as jax_binary
+
+    from cilium_tpu_torch.engine import attribution
+    from cilium_tpu_torch.engine.compiled import CompiledPolicy
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.ingest import binary
+
+    decoded = []
+    for mod, bin_mod, attr, make in (
+            (jax_lm, jax_binary, jax_attribution,
+             lambda pi: VerdictEngine(JaxPolicy.build(pi))),
+            (port_lm, binary, attribution,
+             lambda pi: TorchVerdictEngine(CompiledPolicy.build(pi),
+                                           device="cpu"))):
+        pi, _, proto = mod._build_policy(12, 8, protocol_mix=1.0)
+        engine = make(pi)
+        flows = proto[:48]
+        out = engine.verdict_flows(flows)
+        l7m = np.asarray(out["l7_match"])
+        assert (l7m >= 0).any()
+        amap = attr.AttributionMap.from_policy(engine.policy)
+        model = mod.LoadModel(streams=10)
+        model._loop = types.SimpleNamespace(
+            _amap_for=lambda e, m=amap: m,
+            ring=types.SimpleNamespace(
+                session=types.SimpleNamespace(engine=engine)))
+        memo = importlib.import_module(
+            mod.__name__.split(".")[0] + ".engine.memo")
+        memo.POLICY_GENERATION.bump(memo.PolicyDelta.none())
+        prov = types.SimpleNamespace(
+            l7_match=l7m,
+            gens=np.full(len(l7m), memo.policy_generation(), np.int64))
+        sections = bin_mod.capture_from_bytes(
+            bin_mod.capture_to_bytes(flows))
+        assert sections[4] is not None
         model._check_explainable(types.SimpleNamespace(prov=prov),
-                                 chunk, 0, 1)
+                                 mod._Chunk(sections, [1] * len(flows)),
+                                 0, 1)
+        decoded.append(l7m.tolist())
+    assert decoded[0] == decoded[1]
 
 
 def test_soak_stages_on_cuda_by_default(monkeypatch):

@@ -7,15 +7,22 @@ injected bytes (Kafka broker errors, the HTTP 403, rewritten request
 frames) and the LOG access-log records must be equal. Covered: the
 parser framework, the frames of the reference's proxylib and flexible
 Kafka tests, hypothesis-random splits of the same byte streams, header
-rewrites, and the generic parsers (queue 1's Q5) refused by name.
+rewrites, and the generic-record parsers — r2d2, memcache and cassandra
+(protocol frontends: their records verdict on the ``l7g`` field) and the
+test parsers (``test.lineparser``/``test.blockparser`` records on the
+generic pair path, ``test.passer``) — on the reference's golden wire
+corpora (``tests/test_frontends.py``), directly and over the socket.
 """
 
+import base64
 import struct
 
 import pytest
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
+from test_frontends import GOLDEN_RULES, GOLDEN_WIRE
+from test_frontends import PORTS as GEN_PORTS
 from test_kafka_flexible import (
     fetch_v12,
     metadata_v9,
@@ -28,7 +35,59 @@ from test_torch_service import (
     PORT,
     make_loader,
     proxy_world,
+    strip,
 )
+
+#: the generic-record parsers, each on its own port of ``gen``
+GEN_PROTO_PORTS = {**GEN_PORTS, "test.lineparser": 4000,
+                   "test.blockparser": 4001, "test.passer": 4002}
+GEN_RULES = {**GOLDEN_RULES,
+             "test.lineparser": [{"line": "allowed"}, {"line": "ok go"}],
+             "test.blockparser": [{"prefix": "ok"}],
+             "test.passer": []}
+
+
+def _block(body: bytes) -> bytes:
+    """One ``<len>:<body>`` block, ``len`` counting the whole block."""
+    n = len(body) + 2
+    while len(str(n)) + 1 + len(body) != n:
+        n += 1
+    return str(n).encode() + b":" + body
+
+
+#: request-direction wire per parser (the three frontends: the
+#: reference's golden corpora)
+GEN_WIRE = {**GOLDEN_WIRE,
+            "test.lineparser": [b"allowed\n", b"denied\nok go\r\n",
+                                b"ok", b" go\n", b"\n"],
+            "test.blockparser": [_block(b"ok one"), _block(b"no two"),
+                                 _block(b"ok")[:3], _block(b"ok")[3:],
+                                 b"x:bad", _block(b"")],
+            "test.passer": [b"anything", b"at all"]}
+
+
+def generic_world(pkg):
+    """``gen`` admits each generic-record parser's rules on its port,
+    from ``cli``."""
+    api, flow = pkg.api, pkg.flow
+    sel = api.EndpointSelector.from_labels
+    rules = [api.Rule(endpoint_selector=sel(app="gen"),
+                      ingress=(api.IngressRule(to_ports=tuple(
+                          api.PortRule(
+                              ports=(api.PortProtocol(port,
+                                                      flow.Protocol.TCP),),
+                              rules=api.L7Rules(l7proto=proto, l7=tuple(
+                                  api.PortRuleL7.from_dict(r)
+                                  for r in GEN_RULES[proto])))
+                          for proto, port in GEN_PROTO_PORTS.items())),))]
+    alloc = pkg.identity.IdentityAllocator()
+    ids = {n: alloc.allocate(pkg.labels.LabelSet.from_dict({"app": n}))
+           for n in ("gen", "cli")}
+    repo = pkg.repository.Repository()
+    repo.add(rules, sanitize=False)
+    res = pkg.mapstate.PolicyResolver(
+        repo, pkg.selectorcache.SelectorCache(alloc))
+    return {i: res.resolve(alloc.lookup(i)) for i in ids.values()}, ids
 
 
 def _plain_record(r):
@@ -45,12 +104,14 @@ def _conn(pkg, proto, ids, dst, dport):
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """pkg root → {"rewrite" | "log": (bridge loader, ids)}."""
+    """pkg root → {"rewrite" | "log" | "generic": (bridge loader,
+    ids)}."""
     out = {}
     for pkg in PKGS:
         out[pkg.root] = {}
-        for kind in ("rewrite", "log"):
-            per, ids = proxy_world(pkg, log_action=kind == "log")
+        for kind in ("rewrite", "log", "generic"):
+            per, ids = (generic_world(pkg) if kind == "generic" else
+                        proxy_world(pkg, log_action=kind == "log"))
             ld = make_loader(pkg, tmp_path_factory.mktemp(pkg.root))
             ld.regenerate(per, revision=1)
             out[pkg.root][kind] = (ld, ids)
@@ -66,7 +127,9 @@ def _drive(pkg, loader, ids, proto, chunks, accesslog=None):
     bridge = pkg.service.PolicyBridge(loader, deadline_ms=1.0,
                                       accesslog_fn=accesslog)
     try:
-        dst, dport = ("kafka", 9092) if proto == "kafka" else ("web", 80)
+        dst, dport = (("kafka", 9092) if proto == "kafka" else
+                      ("web", 80) if proto == "http" else
+                      ("gen", GEN_PROTO_PORTS[proto]))
         conn = _conn(pkg, proto, ids, dst, dport)
         parser = pkg.proxylib.create_parser(proto, conn,
                                             bridge.policy_check(conn))
@@ -93,9 +156,9 @@ def _both(worlds, kind, proto, chunks):
 # ============================================================ framework
 def test_parser_framework():
     P = PORT.proxylib
-    assert P.registered_parsers() == ["http", "kafka"]
-    assert set(P.registered_parsers()) <= set(
-        JAX.proxylib.registered_parsers())
+    assert P.registered_parsers() == JAX.proxylib.registered_parsers()
+    assert set(P.registered_parsers()) == set(GEN_PROTO_PORTS) | {
+        "http", "kafka"}
     assert [int(o) for o in P.OpType] == [int(o) for o in
                                           JAX.proxylib.OpType]
     assert [int(v) for v in P.ParserVerdict] == [
@@ -115,29 +178,64 @@ def test_parser_framework():
 @pytest.mark.parametrize("name", ["r2d2", "memcache", "cassandra",
                                   "test.passer", "test.lineparser",
                                   "test.blockparser"])
-def test_generic_parsers_are_refused_naming_q5(name):
-    """The reference's generic-record parsers: registered there, a
-    ``NotImplementedError`` naming Q5 here (never ``KeyError``)."""
-    assert name in JAX.proxylib.registered_parsers()
-    P = PORT.proxylib
-    conn = P.Connection(proto=name, connection_id=1, ingress=True,
-                        src_identity=1, dst_identity=2)
-    with pytest.raises(NotImplementedError, match="Q5"):
-        P.create_parser(name, conn, lambda r: True)
+def test_generic_parsers_are_refused_naming_q5(worlds, name):
+    """The generic-record parsers, registered in both packages: their
+    records (a recording policy check) and, over each package's own
+    loader and ``PolicyBridge``, their ops and injects equal the
+    reference's on the golden wire, every chunk split in two so MORE
+    accounting rides along."""
+    assert name in PORT.proxylib.registered_parsers()
+    records = {}
+    for pkg in PKGS:
+        conn = pkg.proxylib.Connection(proto=name, connection_id=1,
+                                       ingress=True, src_identity=1,
+                                       dst_identity=2)
+        seen = []
+        pkg.proxylib.create_parser(name, conn,
+                                   lambda r: seen.append(r) or True)
+        for chunk in GEN_WIRE[name]:
+            conn.on_data(False, False, chunk)
+        records[pkg.root] = [_plain_record(r) for r in seen]
+    assert records["cilium_tpu_torch"] == records["cilium_tpu"]
+    assert bool(records["cilium_tpu"]) == (name != "test.passer")
+    chunks = []
+    for chunk in GEN_WIRE[name]:
+        mid = max(1, len(chunk) // 2)
+        chunks += [(False, chunk[:mid]), (False, chunk[mid:])]
+    out = _both(worlds, "generic", name, chunks + [(True, b"reply")])
+    ops = [o for step, _, _ in out for o, _ in step]
+    if name != "test.passer":
+        assert 1 in ops and 2 in ops, ops
 
 
 def test_service_answers_q5_for_a_generic_parser(worlds, tmp_path):
+    """``on_new_connection`` and ``on_data`` over each package's socket
+    for r2d2, memcache and cassandra: the responses (ops, injects)
+    equal the reference's."""
     from test_torch_service import client, served
 
-    ld, ids = worlds["cilium_tpu_torch"]["rewrite"]
-    with served(PORT, ld, tmp_path / "g.sock", deadline_ms=1.0) as svc, \
-            client(PORT, svc) as c:
-        r = c.call({"op": "on_new_connection", "proto": "r2d2",
-                    "conn": 3, "src": ids["cli"], "dst": ids["web"],
-                    "dport": 80})
-        assert "NotImplementedError" in r["error"] and "Q5" in r["error"]
-        assert "unknown connection" in c.call(
-            {"op": "on_data", "conn": 3})["error"]
+    got = {}
+    for pkg in PKGS:
+        ld, ids = worlds[pkg.root]["generic"]
+        resps = []
+        with served(pkg, ld, tmp_path / f"{pkg.root}.sock",
+                    deadline_ms=1.0) as svc, client(pkg, svc) as c:
+            for k, proto in enumerate(("r2d2", "memcache", "cassandra")):
+                resps.append(strip(c.call({
+                    "op": "on_new_connection", "proto": proto,
+                    "conn": 10 + k, "ingress": True, "src": ids["cli"],
+                    "dst": ids["gen"],
+                    "dport": GEN_PROTO_PORTS[proto]})))
+                for chunk in GEN_WIRE[proto]:
+                    resps.append(strip(c.call({
+                        "op": "on_data", "conn": 10 + k, "reply": False,
+                        "end": False,
+                        "data_b64": base64.b64encode(chunk).decode()})))
+        got[pkg.root] = resps
+    assert got["cilium_tpu_torch"] == got["cilium_tpu"]
+    ops = [o for r in got["cilium_tpu"] for o, _ in r.get("ops", ())]
+    assert 1 in ops and 2 in ops
+    assert any("inject_b64" in r for r in got["cilium_tpu"])
 
 
 # ======================================================= fixed frames

@@ -15,7 +15,9 @@ the bank-scoped and port-granular memo refills after a hot swap driven
 through a stub loader and each package's own
 ``POLICY_GENERATION.bump(PolicyDelta.banks(...))``, the rebind to the
 loader's new :class:`TorchVerdictEngine` (and no rebind to anything
-else), and the GENERIC-section chunk that raises naming Q5.
+else), and GENERIC-section chunks (frontend records interned into the
+session's ``l7g`` table, generic records on the pair path) under a
+policy with frontend rules and one without.
 
 Sizes: the synth scenarios at 12 rules × 240 flows (http), 6 × 180
 (fqdn), 12 × 200 (kafka).
@@ -398,14 +400,45 @@ def test_session_rebinds_only_to_a_torch_engine():
     assert got != _direct(eng1, flows)
 
 
+def _generic_world(pkg, engines):
+    """The protocols policy, and chunks that mix its frontend records
+    with http flows and a proxy-only generic record."""
+    fl = pkg.flow
+    pi, sc = pkg.synth.realize_scenario(pkg.synth.scenario_by_name(
+        "protocols", 12, 120))
+    _, http_flows = engines["http"][pkg.root]
+    odd = fl.Flow(src_identity=1, dst_identity=2, dport=9000,
+                  l7=fl.L7Type.GENERIC,
+                  generic=fl.GenericL7Info(proto="x", fields={"k": "v"}))
+    flows = []
+    for i, f in enumerate(sc.flows):
+        flows.append(f)
+        if i % 5 == 0:
+            flows.append(http_flows[i % len(http_flows)])
+        if i % 17 == 0:
+            flows.append(odd)
+    return pkg.engine(pi), flows
+
+
 def test_generic_chunk_raises_naming_q5(engines):
-    fl = PORT.flow
-    engine, flows = engines["http"][PORT.root]
-    chunk = list(flows[:4]) + [fl.Flow(
-        src_identity=1, dst_identity=2, dport=9000, l7=fl.L7Type.GENERIC,
-        generic=fl.GenericL7Info(proto="x", fields={"k": "v"}))]
-    rec, l7, offsets, blob, gen = PORT.sections(chunk)
-    assert gen is not None
-    sess = PORT.session.IncrementalSession(engine)
-    with pytest.raises(NotImplementedError, match="Q5"):
-        sess.encode_ids(rec, l7, offsets, blob, gen)
+    """GENERIC-section chunks through the session: verdicts, rows,
+    string tables (``l7g`` included) and memo counters equal the
+    reference session's, under the protocols policy and under the http
+    policy (no frontend rules: the ``l7g`` table interns on the host and
+    is never scanned), and equal each engine's direct path."""
+    runs = {}
+    for pkg in PKGS:
+        proto_engine, flows = _generic_world(pkg, engines)
+        http_engine, _ = engines["http"][pkg.root]
+        out = []
+        for engine in (proto_engine, http_engine):
+            sess = pkg.session.IncrementalSession(engine)
+            got, trail = _drive(pkg, sess, flows, 37)
+            assert got == _direct(engine, flows)
+            again, _ = _drive(pkg, sess, flows, 37)
+            assert again == got
+            out.append((got, trail, sess.tables["l7g"].n))
+        runs[pkg.root] = out
+    assert runs[PORT.root] == runs[JAX.root]
+    (got, _, n_l7g), (http_got, _, _) = runs[PORT.root]
+    assert n_l7g > 1 and len(set(got)) > 1 and got != http_got

@@ -6,8 +6,10 @@ own ``VerdictService`` (the reference gate on, ``JAX_PLATFORMS=cpu``;
 the port's loader ``device="cpu"``): the verdict frames must be equal,
 and equal to the port's engine. Covered: the frame and capture-image
 codecs, the http, kafka and fqdn scenarios, per-sequence failure (a bad
-image, a v3 GENERIC chunk that the port answers with a Q5 error and
-no breaker trip, and a chunk whose KD launch fails), empty chunks and many in flight, credits (the client
+image, a chunk that meets what the port does not serve yet — the
+``autotune`` pick, queue 1's Q6 — answered with that error and no
+breaker trip, and a chunk whose KD launch fails), v3 GENERIC chunks
+(protocol-frontend records) equal to the reference's, empty chunks and many in flight, credits (the client
 halts at zero and the window survives reconnect-with-resume), the
 gate-off oracle backend, concurrent streams on private sessions and
 through the serve loop's ring, a hot swap mid-stream with zero stale
@@ -22,9 +24,11 @@ import pytest
 
 from test_torch_loader import _World
 from test_torch_service import (
+    AUTOTUNE_PORT,
     JAX,
     PKGS,
     PORT,
+    autotune_on,
     failing_kd,
     make_loader,
     scenario,
@@ -125,24 +129,55 @@ def test_stream_equals_the_reference(scenario_loaders, tmp_path,  # noqa
     assert _route("session") - session0 == 3
 
 
-def test_generic_chunk_fails_only_its_seq(scenario_loaders, tmp_path):  # noqa
-    """A v3 image with a GENERIC section (the reference's generic
-    scenario): its sequence fails with a Q5 message, its neighbours
-    answer, and the breaker never hears of it."""
-    _, gsc = scenario(JAX, "generic", 20, 64)
-    generic = JAX.binary.capture_to_bytes(gsc.flows[:64])
-    assert PORT.binary.capture_from_bytes(generic)[4] is not None
+def test_generic_chunk_fails_only_its_seq(scenario_loaders, tmp_path,  # noqa
+                                          monkeypatch):
+    """A chunk that meets what the port does not serve yet (the
+    ``autotune`` pick, :func:`autotune_on`): its sequence fails with a
+    Q6 message, its neighbours answer, and the breaker never hears of
+    it."""
+    import dataclasses
+
     ld, sc = scenario_loaders["http"]["cilium_tpu_torch"]
     good = PORT.binary.capture_to_bytes(sc.flows[:50])
+    unported = PORT.binary.capture_to_bytes(
+        [dataclasses.replace(f, dport=AUTOTUNE_PORT)
+         for f in sc.flows[:20]])
+    autotune_on(monkeypatch)
     before = _breaker_counts()
     with served(PORT, ld, tmp_path / "g.sock") as svc:
-        out = _stream(PORT, svc, [good, generic, good, generic])
+        out = _stream(PORT, svc, [good, unported, good, unported])
         assert svc.verdictor.breaker.state == 0
     want = _plain(ld, sc.flows[:50])
     assert out[0] == out[2] == want
     for err in (out[1], out[3]):
-        assert "NotImplementedError" in err and "Q5" in err
+        assert "NotImplementedError" in err and "Q6" in err
     assert _breaker_counts() == before
+
+
+def test_generic_chunks_equal_the_reference(tmp_path):
+    """v3 images of the protocols scenario (cassandra, memcache and
+    r2d2 records) streamed to each package's service over its own
+    loader: the verdict frames are equal, and equal to the port's
+    engine; every chunk takes the session route."""
+    got = {}
+    session0 = _route("session")
+    for pkg in PKGS:
+        pi, sc = scenario(pkg, "protocols", 24, 240)
+        ld = make_loader(pkg, tmp_path / f"{pkg.root}-cache")
+        try:
+            ld.regenerate(pi, revision=1)
+            images = [pkg.binary.capture_to_bytes(sc.flows[i:i + 80])
+                      for i in range(0, 240, 80)]
+            assert pkg.binary.capture_from_bytes(images[0])[4] is not None
+            with served(pkg, ld, tmp_path / f"{pkg.root}.sock") as svc:
+                got[pkg.root] = _stream(pkg, svc, images)
+            if not pkg.jax:
+                assert sum(got[pkg.root], []) == _plain(ld, sc.flows[:240])
+        finally:
+            ld.close()
+    assert got["cilium_tpu_torch"] == got["cilium_tpu"]
+    assert len(set(sum(got["cilium_tpu"], []))) > 1
+    assert _route("session") - session0 == 3
 
 
 def test_kernel_failure_fails_only_its_seq(scenario_loaders,  # noqa
