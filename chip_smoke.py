@@ -189,7 +189,38 @@ Phases, in order (any failure exits non-zero before the result line):
    capture's ``l7g`` table, and timed, each stack's (NB, S, K) and L
    printed; each fused arm's ``impl_plan["l7g"]`` is checked against
    the arm's rule. A ``proto: {...}`` line carries the numbers;
-12. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+12. the BASELINE configs at ``bench.py``'s published sizes, each
+   through the port's ``Loader(Config())`` on the card: fqdn (10 rules
+   x 100 names x 10000 flows), mixed (the ``examples/policies`` corpus,
+   loaded by the port's ``load_cnp_dir`` and its own YAML reader, x
+   1000000 tuples) and clustermesh (10000 identities x 5000 CNPs x
+   100000 flows). The host seconds of the scenario, the resolve, the
+   compile, the encode and the staging are printed apart; then
+   ``bench.py``'s timing: fqdn completion-forced batch p50/p99 and
+   pipelined verdicts/s (median of 5 windows), mixed and clustermesh
+   every chunk of 8192 staged before the timer, a forced latency pass
+   per chunk and one throughput pass. All ten lanes equal a
+   ``device="cpu"`` engine on every fqdn flow and on the first, the last
+   and every tenth chunk; 500 flows equal the CPU oracle; the verdict
+   mix holds both verdicts. Each policy is staged once more under
+   ``kernel_impl="autotune"``: every field's pick with its card times,
+   one ``cilium_tpu_kernel_autotune_picks_total`` a new shape key, the
+   held batches' lanes equal to ``auto``'s. Then the DNS proxy
+   (``DNSProxy(use_tpu=True)``, the fqdn rules for the crawler on port
+   53): ``check_batch`` over the 10000 qnames at B = 8192 and B = 1
+   under the gather arm (KD at L = 256) and the oblivious one (K2),
+   every verdict equal to ``check_allowed``'s and the ``device="cpu"``
+   proxy's, p50/p99 a batch size; the ``dnsproxy.query`` fault armed
+   once (one fallback counted, none outside that pass); and its server
+   on 127.0.0.1 over an in-process upstream (200 queries from 8
+   clients, UDP and TCP, an unknown client; host only): allowed names
+   answered and selected by the corpus's toFQDNs selector through
+   ``NameManager`` and ``IPCache``, the rest REFUSED. Launch counts are
+   zeroed before and read after each pass. KD, and K2 and K1 wherever
+   they take it, are then held exactly against their plain versions
+   and timed at every field stack of each lane and at the proxy's
+   L = 256 batch. A ``baseline: {...}`` line carries the numbers;
+13. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -338,6 +369,34 @@ ON_DATA_TRIPS, ON_DATA_CLIENTS = 200, 8
 PROTO_ARMS = {"auto": ("auto", "gather"),
               "nfa-bitset": ("nfa-bitset", "gather"),
               "oblivious-dfa": ("auto", "pallas")}
+#: phase 12: ``BASELINE.json`` configs[0], [3] and [4] at ``bench.py``'s
+#: published sizes (``_DEFAULT_RULES``/``_DEFAULT_FLOWS``): (config,
+#: rules, flows). configs[3]'s rules are the ``examples/policies``
+#: corpus's; configs[4] is 10000 identities x 5000 CNPs
+BASELINE_LANES = (("fqdn", 10, 10_000), ("mixed", 0, 1_000_000),
+                  ("clustermesh", 5_000, 100_000))
+CM_IDENTITIES = 10_000
+#: ``bench.py``'s timing defaults: warm-up calls, batches a window
+#: (``--iters``), latency samples (``--lat-iters``), the fqdn lane's
+#: throughput windows and the seconds a window is cycled to; the
+#: streamed lanes' latency chunks at most
+BENCH_WARMUP, BENCH_ITERS, BENCH_LAT_ITERS = 3, 20, 100
+BENCH_WINDOWS, BENCH_WINDOW_S, BENCH_STREAM_LAT = 5, 1.5, 32
+#: the streamed lanes' chunks held against the plain engine: the first,
+#: the last and every tenth; the CPU oracle's sample (``--check``)
+HOLD_EVERY, BASELINE_ORACLE_SAMPLE = 10, 500
+#: the DNS proxy: the port its rules sit on, its batch sizes and the
+#: timed calls at each size at least (whole passes over the qnames);
+#: the server pass's queries, client threads and (of those) TCP clients and
+#: unknown clients, and the records a fake upstream answer carries
+DNS_PORT, DNS_BATCHES, DNS_MIN_CALLS = 53, (8192, 1), 100
+DNS_QUERIES, DNS_CLIENTS, DNS_TCP_CLIENTS, DNS_UNKNOWN_CLIENTS = 200, 8, 2, 1
+#: the DNS proxy pass's arms: arm → (rules, CILIUM_TPU_DFA_IMPL). The
+#: fqdn rules' bank has 138 states, past K2's 128: under the oblivious
+#: arm it warns and runs KD, as the reference does; the corpus's crawler
+#: rules (``dns/fqdn-egress.yaml``) fit K2
+DNS_ARMS = {"gather": ("fqdn", "gather"), "oblivious": ("fqdn", "pallas"),
+            "oblivious-corpus": ("corpus", "pallas")}
 #: capture arm → (phase-4 configuration it replays on, kernels it must
 #: launch)
 CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
@@ -4397,11 +4456,7 @@ def proto_kernels(errs, rows, held, card):
     import numpy as np
     import torch
 
-    from cilium_tpu_torch.engine import (
-        dfa_dense_cuda,
-        dfa_oblivious_cuda,
-        nfa_cuda,
-    )
+    from cilium_tpu_torch.engine import dfa_dense_cuda
     from cilium_tpu_torch.engine.verdict import (
         TorchVerdictEngine,
         batch_field,
@@ -4422,27 +4477,12 @@ def proto_kernels(errs, rows, held, card):
         a = (arr["l7g_trans"], arr["l7g_byteclass"], arr["l7g_start"],
              data, lens)
         NB, S, K = a[0].shape
-        shape = f"{(NB, S, K)} B={data.shape[0]} L={data.shape[1]}"
-        hold(errs, "KD", f"proto {name} l7g {shape}",
-             dfa_dense_cuda.dense_scan_cuda(*a, accept=arr["l7g_accept"]),
-             dfa_dense_cuda.dense_scan_plain(*a, accept=arr["l7g_accept"]))
-        takes = ["KD"]
-        if S <= 128:
-            hold(errs, "K2", f"proto {name} l7g {shape}",
-                 dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a),
-                 dfa_oblivious_cuda.dfa_finals_oblivious_plain(*a))
-            takes.append("K2")
         nfa = TorchVerdictEngine(policy, device=DEVICE, cfg=dataclasses.replace(
             engine.cfg, kernel_impl="nfa-bitset"))
-        nfa_fields = {}
-        if "l7g_nfa_follow" in nfa._arrays:
-            n = [nfa._arrays[f"l7g_nfa_{k}"] for k in
-                 ("follow", "acc_cls", "byteclass", "start")] + [data, lens]
-            hold(errs, "K1", f"proto {name} l7g {tuple(n[1].shape)} "
-                             f"B={data.shape[0]} L={data.shape[1]}",
-                 nfa_cuda.nfa_finals_cuda(*n), nfa_cuda.nfa_finals_plain(*n))
-            nfa_fields["l7g"] = (nfa._arrays, data, lens)
-            takes.append("K1")
+        takes = hold_stack(errs, f"proto {name} l7g", arr, "l7g", data, lens,
+                           nfa._arrays)
+        nfa_fields = ({"l7g": (nfa._arrays, data, lens)} if "K1" in takes
+                      else {})
         capture = {}
         if lane["table"] is not None:
             tdata, tlens = (torch.from_numpy(np.ascontiguousarray(t))
@@ -4469,6 +4509,867 @@ def proto_kernels(errs, rows, held, card):
                      "B": int(data.shape[0]), "taken_by": takes,
                      "rows": {kid: [list(r) for r in rs]
                               for kid, rs in got.items() if rs}}
+    return out
+
+
+# ------------------------------------------------------- BASELINE configs
+def corpus_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "policies")
+
+
+def baseline_scenario(name: str, n_rules: int, n_flows: int):
+    """``bench.py``'s scenario of one BASELINE config."""
+    from cilium_tpu_torch.ingest import synth
+
+    if name == "fqdn":
+        return synth.scenario_by_name("fqdn", n_rules, n_flows)
+    if name == "mixed":
+        return synth.synth_mixed_scenario(corpus_dir(), n_tuples=n_flows)
+    return synth.synth_clustermesh_scenario(
+        n_identities=CM_IDENTITIES, n_policies=n_rules, n_flows=n_flows)
+
+
+def host_slice(host, lo, hi):
+    return {k: v[lo:hi] for k, v in host.items()}
+
+
+def lanes_np(out):
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def verdict_mix(outs):
+    import numpy as np
+
+    v = np.concatenate([np.asarray(o["verdict"]) for o in outs])
+    return np.bincount(v, minlength=6).tolist()
+
+
+def bench_batch(engine, host):
+    """``bench.py``'s unstreamed methodology (the fqdn config): distinct
+    permuted copies of the whole batch, staged untimed; BENCH_LAT_ITERS
+    completion-forced latency samples in windows of BENCH_ITERS; then
+    BENCH_WINDOWS windows of BENCH_ITERS copies cycled to ~1.5 s with
+    one forced completion each: verdicts/s of the median window."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+
+    step = engine.verdict_batch_arrays
+    n = len(host["scalars"])
+    prng = np.random.default_rng(0)
+
+    def copies(k):
+        out = []
+        for _ in range(k):
+            perm = prng.permutation(n)
+            out.append(batch_to_device({key: v[perm]
+                                        for key, v in host.items()}, DEVICE))
+        torch.cuda.synchronize()
+        return out
+
+    wb = copies(BENCH_WARMUP + 1)
+    for b in wb:
+        force(step(b))
+    times = []
+    while len(times) < BENCH_LAT_ITERS:
+        wb = copies(min(BENCH_ITERS, BENCH_LAT_ITERS - len(times)))
+        force(step(wb[0]))
+        for b in wb:
+            t0 = time.perf_counter()
+            force(step(b))
+            times.append(time.perf_counter() - t0)
+    windows, reps = [], 1
+    for w in range(BENCH_WINDOWS):
+        wb = copies(BENCH_ITERS)
+        force(step(wb[0]))
+        if w == 0:
+            t0 = time.perf_counter()
+            outs = [step(b) for b in wb]
+            force(outs[-1])
+            reps = max(1, int(BENCH_WINDOW_S
+                              / max(time.perf_counter() - t0, 1e-3)))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            outs = [step(b) for b in wb]
+        force(outs[-1])
+        windows.append(time.perf_counter() - t0)
+    q = quantiles_ms(times)
+    return {"p50_ms": q["p50_ms"], "p99_ms": q["p99_ms"],
+            "latency_samples": len(times), "windows": len(windows),
+            "reps": reps, "verdicts_per_s": n * BENCH_ITERS * reps
+            / statistics.median(windows)}
+
+
+def bench_stream(engine, host, bs):
+    """``bench.py``'s streamed methodology (configs[3], [4]): every
+    chunk of ``bs`` staged on the card before the timer starts; one
+    compile call and BENCH_WARMUP warm-up chunks; a completion-forced
+    latency pass per chunk; then the remaining chunks dispatched once
+    (probe) and cycled to ~1.5 s with one forced completion.
+    Returns (timing, staged chunks)."""
+    import torch
+
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+
+    step = engine.verdict_batch_arrays
+    n_chunks = len(host["scalars"]) // bs
+    check(n_chunks >= BENCH_WARMUP + 4,
+          f"{n_chunks} chunks of {bs}: too few to time")
+    t0 = time.perf_counter()
+    chunks = [batch_to_device(host_slice(host, c * bs, (c + 1) * bs),
+                              DEVICE) for c in range(n_chunks)]
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    force(step(chunks[0]))
+    for i in range(BENCH_WARMUP):
+        out = step(chunks[1 + i])
+    force(out)
+    n_lat = max(1, min(BENCH_STREAM_LAT, n_chunks - 1 - BENCH_WARMUP - 2))
+    times = []
+    for c in range(1 + BENCH_WARMUP, 1 + BENCH_WARMUP + n_lat):
+        t0 = time.perf_counter()
+        force(step(chunks[c]))
+        times.append(time.perf_counter() - t0)
+    first = 1 + BENCH_WARMUP + n_lat
+    t0 = time.perf_counter()
+    for c in range(first, n_chunks):
+        out = step(chunks[c])
+    force(out)
+    reps = max(1, int(BENCH_WINDOW_S / max(time.perf_counter() - t0, 1e-3)))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        outs = [step(chunks[c]) for c in range(first, n_chunks)]
+    force(outs[-1])
+    t_stream = time.perf_counter() - t0
+    q = quantiles_ms(times)
+    return ({"chunks": n_chunks, "chunk": bs, "stage_s": stage_s,
+             "staged_mib": sum(nbytes(*c.values()) for c in chunks) / 2 ** 20,
+             "p50_ms": q["p50_ms"], "p99_ms": q["p99_ms"],
+             "latency_samples": len(times), "reps": reps,
+             "streamed": (n_chunks - first) * bs * reps,
+             "verdicts_per_s": (n_chunks - first) * bs * reps / t_stream},
+            chunks)
+
+
+def autotune_lane(name, engine, held, card):
+    """The lane's policy staged once more under ``kernel_impl=
+    "autotune"`` on the card: every field's pick with its card times,
+    one ``cilium_tpu_kernel_autotune_picks_total`` a new shape key (by
+    impl and field), and the held batches' lanes equal to ``auto``'s.
+    Counts to 0 just before, read just after."""
+    import dataclasses
+
+    from cilium_tpu_torch.engine import _build, megakernel
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.runtime.metrics import (
+        KERNEL_AUTOTUNE_PICKS,
+        METRICS,
+    )
+
+    def picks():
+        return {(impl, f): METRICS.get(KERNEL_AUTOTUNE_PICKS,
+                                       {"impl": impl, "field": f})
+                for impl in (megakernel.IMPL_DENSE, megakernel.IMPL_NFA)
+                for f in ("path", "method", "host", "hdr", "dns", "l7g")}
+
+    keys0, picks0 = set(megakernel._AUTOTUNE_CACHE), picks()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    at = TorchVerdictEngine(engine.policy, device=DEVICE, cfg=dataclasses
+                            .replace(engine.cfg, kernel_impl="autotune"))
+    build_s = time.perf_counter() - t0
+    for i, (batch, want) in enumerate(held):
+        assert_lanes(f"[baseline {name} autotune] held batch {i} vs auto",
+                     lanes_np(at.verdict_batch_arrays(batch)), want)
+    launches, variants = lane_counts()
+    new = set(megakernel._AUTOTUNE_CACHE) - keys0
+    picks1 = picks()
+    for (impl, f), n0 in picks0.items():
+        want_n = sum(1 for k in new if k[0] == f
+                     and megakernel._AUTOTUNE_CACHE[k]["impl"] == impl)
+        check(picks1[(impl, f)] - n0 == want_n,
+              f"[baseline {name} autotune] {picks1[(impl, f)] - n0} picks "
+              f"counted for ({impl}, {f}), {want_n} new shape keys")
+    report = {f: {"impl": r["impl"], "dense_ms": r["dense_ms"],
+                  "nfa_ms": r["nfa_ms"], "stack": (r["banks"],
+                                                   r["dfa_states"]),
+                  "nfa_positions": r["nfa_positions"]}
+              for f, r in at.kernel_report.items()}
+    for f, r in report.items():
+        check(r["dense_ms"] is not None and r["dense_ms"] >= 0,
+              f"[baseline {name} autotune] {f}: no dense time")
+    log(f"[baseline {name} autotune] staged in {build_s:.3f} s, "
+        f"{len(new)} new shape keys; picks (impl, dense ms, nfa ms) "
+        + json.dumps({f: [r["impl"], r["dense_ms"], r["nfa_ms"]]
+                      for f, r in report.items()})
+        + f"; {len(held)} held batches equal to auto's; launches "
+        f"{launches} on {card}")
+    return ({"picks": report, "new_keys": len(new), "build_s": build_s,
+             "held_batches": len(held)}, launches, variants)
+
+
+def baseline_lane(name, n_rules, n_flows, cache_dir, card):
+    """One BASELINE config as ``bench.py`` runs it, through the port's
+    entry points: the scenario, ``realize_scenario`` (the resolve),
+    ``Loader(Config())`` on the card (compile), ``encode_flows``; then
+    the timed passes (:func:`bench_batch` or :func:`bench_stream`). All
+    ten lanes are held against a ``device="cpu"`` engine of the same
+    policy on every flow (fqdn) or on the first, the last and every
+    tenth chunk; the counts are set to 0 before the first verdict and
+    read after the holds; then BASELINE_ORACLE_SAMPLE flows against the
+    CPU oracle, as ``bench.py --check`` does, and the autotune arm."""
+    import numpy as np
+
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.engine.compiled import (
+        encode_flows,
+        flowbatch_to_host_dict,
+    )
+    from cilium_tpu_torch.engine.megakernel import IMPL_NFA
+    from cilium_tpu_torch.engine.verdict import (
+        TorchVerdictEngine,
+        batch_to_device,
+    )
+    from cilium_tpu_torch.ingest import synth
+    from cilium_tpu_torch.policy.oracle import OracleVerdictEngine
+    from cilium_tpu_torch.runtime.loader import Loader
+
+    tag = f"baseline {name}"
+    t_lane = time.perf_counter()
+    host_s = {}
+    t0 = time.perf_counter()
+    scenario = baseline_scenario(name, n_rules, n_flows)
+    host_s["scenario"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_identity, scenario = synth.realize_scenario(scenario)
+    host_s["resolve"] = time.perf_counter() - t0
+    cfg = Config()
+    cfg.loader.cache_dir = cache_dir
+    loader = Loader(cfg, device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        loader.regenerate(per_identity, revision=1)
+        host_s["compile"] = time.perf_counter() - t0
+        engine, ecfg = loader.engine, loader.config.engine
+        t0 = time.perf_counter()
+        host = flowbatch_to_host_dict(encode_flows(
+            scenario.flows, engine.policy.kafka_interns, ecfg))
+        host_s["encode"] = time.perf_counter() - t0
+        n = len(scenario.flows)
+        stacks = {p: tuple(engine.policy.arrays[f"{p}_trans"].shape)
+                  for p in ("path", "method", "host", "hdr", "dns", "l7g")
+                  if f"{p}_trans" in engine.policy.arrays}
+        log(f"[{tag}] {len(scenario.rules)} rules, {len(per_identity)} "
+            f"identities, {n} flows; host s {json.dumps(host_s)}; impl_plan "
+            f"{json.dumps(engine.impl_plan, sort_keys=True)}; stacks "
+            f"{stacks}")
+        plain = TorchVerdictEngine(engine.policy, device="cpu", cfg=ecfg)
+        _build.reset_launches()
+        if name == "fqdn":
+            full = batch_to_device(host, DEVICE)
+            timing = bench_batch(engine, host)
+            held_idx = [0]
+            held = [(full, lanes_np(engine.verdict_batch_arrays(full)))]
+            wants = [lanes_np(plain.verdict_batch_arrays(
+                batch_to_device(host, "cpu")))]
+        else:
+            bs = ecfg.batch_size
+            timing, chunks = bench_stream(engine, host, bs)
+            host_s["staging"] = timing["stage_s"]
+            last = len(chunks) - 1
+            held_idx = sorted(set(range(0, last + 1, HOLD_EVERY)) | {last})
+            held = [(chunks[c], lanes_np(engine.verdict_batch_arrays(
+                chunks[c]))) for c in held_idx]
+            wants = [lanes_np(plain.verdict_batch_arrays(batch_to_device(
+                host_slice(host, c * bs, (c + 1) * bs), "cpu")))
+                for c in held_idx]
+            del chunks
+        for c, (_, got), want in zip(held_idx, held, wants):
+            assert_lanes(f"[{tag}] chunk {c} vs the plain engine", got, want)
+        launches, variants = lane_counts()
+        check(launches["KD"] > 0, f"[{tag}] KD never launched: {launches}")
+        if IMPL_NFA in engine.impl_plan.values():
+            check(launches["K1"] > 0,
+                  f"[{tag}] the NFA arm's K1 never launched: {launches}")
+        mix = verdict_mix([w for _, w in held])
+        held_flows = sum(len(w["verdict"]) for _, w in held)
+        check(mix[2] > 0 and mix[1] + mix[5] > 0 and sum(mix) == held_flows,
+              f"[{tag}] implausible verdict mix {mix} (identity wiring?)")
+        sample = scenario.flows[:BASELINE_ORACLE_SAMPLE]
+        want = OracleVerdictEngine(per_identity).verdict_flows(sample)
+        got = engine.verdict_flows(sample, cfg=ecfg)
+        bad = int((np.asarray(got["verdict"])
+                   != np.asarray(want["verdict"])).sum())
+        check(bad == 0, f"[{tag}] {bad} of {len(sample)} flows differ from "
+                        f"the CPU oracle")
+        log(f"[{tag}] {timing.get('chunks', 1)} "
+            f"{'chunks' if 'chunks' in timing else 'batch'}: p50 / p99 "
+            f"{timing['p50_ms']:.3f} / {timing['p99_ms']:.3f} ms (forced), "
+            f"{timing['verdicts_per_s'] / 1e6:.3f}M verdicts/s; all 10 lanes "
+            f"equal to the plain engine on {held_flows} flows ({len(held)} "
+            f"held batches), {len(sample)} to the CPU oracle; verdict mix "
+            f"[code 0..5] {mix}; launches {launches}, KD by variant "
+            f"{variants} on {card}")
+        autotune, at_launches, at_variants = autotune_lane(name, engine, held,
+                                                          card)
+        line = {"config": name, "rules": len(scenario.rules),
+                "identities": len(per_identity), "flows": n,
+                "host_s": host_s, "timing": timing, "mix": mix,
+                "held_flows": held_flows, "held_batches": len(held),
+                "oracle_sample": len(sample), "stacks": stacks,
+                "impl_plan": dict(engine.impl_plan), "autotune": autotune,
+                "lane_wall_s": time.perf_counter() - t_lane}
+        kept = {"engine": engine, "batch": held[0][0], "scenario": scenario}
+        return (line, {f"baseline-{name}": launches,
+                       f"baseline-{name}-autotune": at_launches},
+                {f"baseline-{name}": variants,
+                 f"baseline-{name}-autotune": at_variants}, kept)
+    finally:
+        loader.close()
+
+
+def dns_rules_of(rules, selects=None):
+    """The ``toPorts.rules.dns`` of the egress rules (of the subjects
+    matching ``selects``, a label dict, when given) on DNS_PORT."""
+    from cilium_tpu_torch.core.labels import LabelSet
+
+    out = []
+    for r in rules:
+        if selects is not None and not r.selects(
+                LabelSet.from_dict(selects)):
+            continue
+        for er in r.egress:
+            for pr in er.to_ports:
+                if pr.rules is not None and any(
+                        pp.port == DNS_PORT for pp in pr.ports):
+                    out.extend(pr.rules.dns)
+    return out
+
+
+@contextlib.contextmanager
+def kd_shapes_noted(shapes):
+    """Note the (NB, S, K, B, L) of every dense scan the DFA arm runs."""
+    from cilium_tpu_torch.engine import dfa_kernel
+
+    real = dfa_kernel.dense_scan
+
+    def noted(trans, byteclass, start, data, lengths, **kw):
+        shapes.add(tuple(trans.shape) + tuple(data.shape))
+        return real(trans, byteclass, start, data, lengths, **kw)
+
+    dfa_kernel.dense_scan = noted
+    try:
+        yield
+    finally:
+        dfa_kernel.dense_scan = real
+
+
+def dns_proxy_phase(scenario, card):
+    """The DNS proxy on the card: ``DNSProxy(use_tpu=True)`` with the
+    fqdn rules (or the corpus's crawler rules) installed for the crawler
+    endpoint on DNS_PORT; ``check_batch`` over the scenario's qnames at
+    each of DNS_BATCHES under each of DNS_ARMS, every verdict equal to
+    ``check_allowed``'s and to a ``device="cpu"`` proxy's; counts to 0
+    just before each arm, read just after: KD on the gather arm, its
+    scans at L = 256; K2 on the oblivious arm where the stack fits, else
+    KD with the reference's warning. Then the ``dnsproxy.query`` fault
+    armed once: the same verdicts and one fallback counted; none counted
+    outside that pass."""
+    import numpy as np
+
+    from cilium_tpu_torch.engine import _build
+    from cilium_tpu_torch.fqdn.dnsproxy import QNAME_LEN, DNSProxy
+    from cilium_tpu_torch.policy.api import load_cnp_dir
+    from cilium_tpu_torch.runtime import faults
+    from cilium_tpu_torch.runtime.metrics import DNSPROXY_FALLBACKS, METRICS
+
+    ep = scenario.ids["crawler"]
+    rule_sets = {"fqdn": dns_rules_of(scenario.rules),
+                 "corpus": dns_rules_of(
+                     [r for cnp in load_cnp_dir(corpus_dir())
+                      for r in cnp.rules], {"app": "crawler"})}
+    qnames = [f.dns.query for f in scenario.flows]
+    n = len(qnames)
+    wants = {}
+    for name, rules in rule_sets.items():
+        regex = DNSProxy(use_tpu=False)
+        regex.update_allowed(ep, DNS_PORT, rules)
+        wants[name] = np.array([regex.check_allowed(ep, DNS_PORT, q)
+                                for q in qnames])
+        cpu = DNSProxy(use_tpu=True, device="cpu")
+        cpu.update_allowed(ep, DNS_PORT, rules)
+        check(np.array_equal(cpu.check_batch(ep, DNS_PORT, qnames),
+                             wants[name]),
+              f"[dnsproxy] the device='cpu' proxy disagrees with "
+              f"check_allowed on the {name} rules")
+    fb0 = METRICS.get(DNSPROXY_FALLBACKS)
+    env0 = os.environ.get("CILIUM_TPU_DFA_IMPL", "gather")
+    out, launches, variants, held = {"qnames": n}, {}, {}, {}
+    try:
+        for arm, (rules_of, impl) in DNS_ARMS.items():
+            want = wants[rules_of]
+            os.environ["CILIUM_TPU_DFA_IMPL"] = impl
+            proxy = DNSProxy(use_tpu=True, device=DEVICE)
+            proxy.update_allowed(ep, DNS_PORT, rule_sets[rules_of])
+            stack = tuple(proxy._get_banked((ep, DNS_PORT), proxy._rules[
+                (ep, DNS_PORT)])["trans"].shape)
+            kernel = "K2" if impl == "pallas" and stack[1] <= 128 else "KD"
+            shapes = set()
+            res = {}
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always", RuntimeWarning)
+                _build.reset_launches()
+                with kd_shapes_noted(shapes):
+                    for B in DNS_BATCHES:
+                        lat = []
+                        # passes over the qnames: at least DNS_MIN_CALLS
+                        # timed calls at each batch size
+                        for _ in range(-(-DNS_MIN_CALLS // -(-n // B))):
+                            got = []
+                            for lo in range(0, n, B):
+                                t0 = time.perf_counter()
+                                got.append(proxy.check_batch(
+                                    ep, DNS_PORT, qnames[lo:lo + B]))
+                                lat.append(time.perf_counter() - t0)
+                            check(np.array_equal(np.concatenate(got), want),
+                                  f"[dnsproxy {arm}] B={B}: verdicts differ "
+                                  f"from check_allowed's")
+                        res[f"B{B}"] = {**quantiles_ms(lat),
+                                        "calls": len(lat)}
+                ln, vr = lane_counts()
+            launches[f"baseline-dnsproxy-{arm}"] = ln
+            variants[f"baseline-dnsproxy-{arm}"] = vr
+            check(ln[kernel] > 0, f"[dnsproxy {arm}] {kernel} never "
+                                  f"launched: {ln}")
+            if kernel == "KD":
+                check(shapes and all(s[4] == QNAME_LEN for s in shapes),
+                      f"[dnsproxy {arm}] KD's scans {sorted(shapes)} are "
+                      f"not at L = {QNAME_LEN}")
+            if impl == "pallas" and kernel == "KD":
+                check(any("constant-time guarantee" in str(w.message)
+                          for w in caught),
+                      f"[dnsproxy {arm}] the {stack[1]}-state stack must "
+                      f"warn on the oblivious arm's fallback")
+            log(f"[dnsproxy {arm}] {rules_of} rules, stack (NB, S, K) "
+                f"{stack}: {n} qnames, {int(want.sum())} allowed, each "
+                f"equal to check_allowed and the device='cpu' proxy; "
+                + "; ".join(f"B={b}: p50 / p99 {r['p50_ms']:.3f} / "
+                            f"{r['p99_ms']:.3f} ms over {r['calls']} calls"
+                            for b, r in zip(DNS_BATCHES, res.values()))
+                + f"; on {kernel}, KD scans at {sorted(shapes)}; launches "
+                f"{ln} on {card}")
+            out[arm] = {"rules": rules_of, "stack": stack, "kernel": kernel,
+                        "allowed": int(want.sum()),
+                        "kd_shapes": sorted(shapes), **res}
+            held[arm] = proxy
+        proxy, want = held["gather"], wants["fqdn"]
+        fb1 = METRICS.get(DNSPROXY_FALLBACKS)
+        check(fb1 == fb0, f"[dnsproxy] {fb1 - fb0} fallbacks outside the "
+                          f"injected pass")
+        os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+        with faults.inject(faults.FaultPlan(
+                [faults.FaultRule("dnsproxy.query", times=1)])):
+            got = np.concatenate([proxy.check_batch(
+                ep, DNS_PORT, qnames[lo:lo + DNS_BATCHES[0]])
+                for lo in range(0, n, DNS_BATCHES[0])])
+        fb2 = METRICS.get(DNSPROXY_FALLBACKS)
+        check(np.array_equal(got, want) and fb2 - fb1 == 1,
+              f"[dnsproxy fault] {fb2 - fb1} fallbacks counted (want 1); "
+              f"verdicts equal: {np.array_equal(got, want)}")
+        log(f"[dnsproxy fault] dnsproxy.query armed once: the same {n} "
+            f"verdicts, one fallback counted, none outside this pass")
+        out["fallbacks"] = {"injected_pass": fb2 - fb1, "outside": fb1 - fb0}
+    finally:
+        os.environ["CILIUM_TPU_DFA_IMPL"] = env0
+    return out, launches, variants, held
+
+
+class FakeUpstream:
+    """An in-process resolver on one UDP and one TCP socket of the same
+    port: every A query is answered with :func:`answer_ip` of its name
+    (TCP with RFC 7766 framing); the names asked are kept."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        for _ in range(10):
+            self.udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            self.udp.bind(("127.0.0.1", 0))
+            self.address = self.udp.getsockname()
+            self.tcp = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self.tcp.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                self.tcp.bind(self.address)
+                break
+            except OSError:
+                self.udp.close()
+                self.tcp.close()
+        self.tcp.listen(16)
+        self.udp.settimeout(0.2)
+        self.tcp.settimeout(0.2)
+        self.asked = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=f, daemon=True)
+                         for f in (self._serve_udp, self._serve_tcp)]
+        for t in self._threads:
+            t.start()
+
+    def _answer(self, data):
+        import socket
+
+        from cilium_tpu_torch.fqdn import wire
+
+        msg = wire.decode(data)
+        with self._lock:
+            self.asked.append(msg.qname)
+        return wire.encode_response(data, wire.RCODE_NOERROR, [
+            (msg.qname, wire.QTYPE_A, 300,
+             socket.inet_aton(answer_ip(msg.qname)))])
+
+    def _serve_udp(self):
+        import socket
+
+        while not self._stop.is_set():
+            try:
+                data, client = self.udp.recvfrom(4096)
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            self.udp.sendto(self._answer(data), client)
+
+    def _serve_tcp(self):
+        import socket
+
+        from cilium_tpu_torch.fqdn.server import DNSProxyServer
+
+        while not self._stop.is_set():
+            try:
+                conn, _ = self.tcp.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            with conn:
+                conn.settimeout(2.0)
+                hdr = DNSProxyServer._recvn(conn, 2)
+                data = hdr and DNSProxyServer._recvn(
+                    conn, int.from_bytes(hdr, "big"))
+                if not data:
+                    continue
+                resp = self._answer(data)
+                conn.sendall(len(resp).to_bytes(2, "big") + resp)
+
+    def close(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5)
+        self.udp.close()
+        self.tcp.close()
+
+
+def answer_ip(qname: str) -> str:
+    import zlib
+
+    h = zlib.crc32(qname.lower().encode())
+    return f"10.99.{(h >> 8) & 255}.{h & 255}"
+
+
+def dns_server_phase(scenario, card):
+    """The DNS proxy server, host only: a ``DNSProxyServer`` on
+    127.0.0.1 over a :class:`FakeUpstream`, the fqdn scenario's rules
+    and the corpus's crawler rules (``dns/fqdn-egress.yaml``) installed
+    for the crawler endpoint, the corpus's toFQDNs selectors registered
+    with a ``NameManager`` over an ``IPCache``. DNS_QUERIES queries from
+    DNS_CLIENTS client threads: UDP from 127.0.0.1, DNS_TCP_CLIENTS of
+    them over one TCP connection each, DNS_UNKNOWN_CLIENTS over UDP
+    from 127.0.0.2, which no endpoint owns. Allowed queries are answered
+    NOERROR with the upstream's address, denied and unknown-client ones
+    REFUSED without reaching the upstream; every answered name under a
+    corpus selector has a CIDR identity in the ipcache that the
+    selector selects."""
+    import random
+    import re
+    import socket
+
+    from cilium_tpu_torch.core.identity import IdentityAllocator
+    from cilium_tpu_torch.fqdn import DNSProxy, DNSProxyServer, NameManager
+    from cilium_tpu_torch.fqdn import wire
+    from cilium_tpu_torch.ipcache import IPCache
+    from cilium_tpu_torch.policy.api import load_cnp_dir
+    from cilium_tpu_torch.policy.compiler import matchpattern
+    from cilium_tpu_torch.policy.selectorcache import SelectorCache
+
+    ep = scenario.ids["crawler"]
+    corpus = [r for c in load_cnp_dir(corpus_dir()) for r in c.rules]
+    fqdn_sels = [fs for r in corpus for er in r.egress for fs in er.to_fqdns]
+    check(bool(fqdn_sels), "[dns server] the corpus has no toFQDNs selector")
+    alloc = IdentityAllocator()
+    cache = SelectorCache(alloc)
+    ipc = IPCache(alloc, cache)
+    nm = NameManager(cache, ipc)
+    for fs in fqdn_sels:
+        nm.register_selector(fs)
+    proxy = DNSProxy(name_manager=nm, use_tpu=True, device=DEVICE)
+    proxy.update_allowed(ep, DNS_PORT, dns_rules_of(scenario.rules)
+                         + dns_rules_of(corpus, {"app": "crawler"}))
+    universe = sorted({f.dns.query for f in scenario.flows}
+                      | {"www.cilium.io", "example.com", "evil.io"})
+    rng = random.Random(0)
+    per_client = DNS_QUERIES // DNS_CLIENTS
+    plans = [[rng.choice(universe) for _ in range(per_client)]
+             for _ in range(DNS_CLIENTS)]
+    upstream = FakeUpstream()
+    server = DNSProxyServer(
+        proxy, endpoint_of=lambda ip: ep if ip == "127.0.0.1" else None,
+        upstream=upstream.address, dport=DNS_PORT).start()
+    lat, answers = [], {}
+
+    def ask_udp(i, source):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.bind((source, 0))
+        s.settimeout(5.0)
+        try:
+            for j, q in enumerate(plans[i]):
+                t0 = time.perf_counter()
+                s.sendto(wire.encode_query(1000 * i + j, q), server.address)
+                data, _ = s.recvfrom(4096)
+                lat.append(time.perf_counter() - t0)
+                answers[(i, j)] = wire.decode(data)
+        finally:
+            s.close()
+
+    def ask_tcp(i):
+        with socket.create_connection(server.address, timeout=5.0) as s:
+            for j, q in enumerate(plans[i]):
+                t0 = time.perf_counter()
+                msg = wire.encode_query(1000 * i + j, q)
+                s.sendall(len(msg).to_bytes(2, "big") + msg)
+                hdr = DNSProxyServer._recvn(s, 2)
+                data = DNSProxyServer._recvn(s, int.from_bytes(hdr, "big"))
+                lat.append(time.perf_counter() - t0)
+                answers[(i, j)] = wire.decode(data)
+
+    kind = (["tcp"] * DNS_TCP_CLIENTS + ["unknown"] * DNS_UNKNOWN_CLIENTS
+            + ["udp"] * (DNS_CLIENTS - DNS_TCP_CLIENTS
+                         - DNS_UNKNOWN_CLIENTS))
+
+    def client(i):
+        if kind[i] == "tcp":
+            ask_tcp(i)
+        else:
+            ask_udp(i, "127.0.0.2" if kind[i] == "unknown" else "127.0.0.1")
+
+    t0 = time.perf_counter()
+    try:
+        run_threads(client, DNS_CLIENTS, "dns server")
+    finally:
+        wall = time.perf_counter() - t0
+        server.stop()
+        upstream.close()
+    forwarded = []
+    for i, plan in enumerate(plans):
+        for j, q in enumerate(plan):
+            msg = answers[(i, j)]
+            allowed = kind[i] != "unknown" and proxy.check_allowed(
+                ep, DNS_PORT, q)
+            check(msg.txid == 1000 * i + j and msg.qname == q,
+                  f"[dns server] answer {msg.txid} {msg.qname!r} to query "
+                  f"{1000 * i + j} {q!r}")
+            if allowed:
+                forwarded.append(q)
+                check(msg.rcode == wire.RCODE_NOERROR and [
+                    a.ip for a in msg.answers] == [answer_ip(q)],
+                      f"[dns server] allowed {q!r} answered rcode "
+                      f"{msg.rcode} {[a.ip for a in msg.answers]}")
+            else:
+                check(msg.rcode == wire.RCODE_REFUSED and not msg.answers,
+                      f"[dns server] {kind[i]} query {q!r} answered rcode "
+                      f"{msg.rcode}, not REFUSED")
+    check(sorted(upstream.asked) == sorted(forwarded),
+          f"[dns server] the upstream saw {len(upstream.asked)} queries, "
+          f"{len(forwarded)} were allowed")
+    selected = set()
+    for fs in fqdn_sels:
+        rx = re.compile(matchpattern.name_to_regex(fs.match_name)
+                        if fs.match_name else
+                        matchpattern.to_regex(fs.match_pattern))
+        ids = cache.get_selections(fs)
+        for q in set(forwarded):
+            if rx.match(matchpattern.sanitize_name(q)):
+                nid = ipc.lookup(answer_ip(q))
+                check(nid is not None and nid in ids,
+                      f"[dns server] {q!r} → {answer_ip(q)}: identity {nid} "
+                      f"not selected by {fs}")
+                selected.add(nid)
+    check(bool(selected), "[dns server] no answered name fell under a corpus "
+                          "toFQDNs selector")
+    q = quantiles_ms(lat)
+    refused = sum(1 for m in answers.values()
+                  if m.rcode == wire.RCODE_REFUSED)
+    log(f"[dns server] {DNS_QUERIES} queries from {DNS_CLIENTS} clients "
+        f"({DNS_TCP_CLIENTS} TCP, {DNS_UNKNOWN_CLIENTS} unknown) in "
+        f"{wall:.3f} s: {len(forwarded)} forwarded and answered, {refused} "
+        f"REFUSED; client p50 / p99 {q['p50_ms']:.3f} / {q['p99_ms']:.3f} "
+        f"ms (host only: check_allowed is host regex); {len(selected)} CIDR "
+        f"identities selected by the corpus's toFQDNs selectors; ipcache "
+        f"{len(ipc)} prefixes")
+    return {"queries": DNS_QUERIES, "clients": DNS_CLIENTS,
+            "tcp_clients": DNS_TCP_CLIENTS,
+            "unknown_clients": DNS_UNKNOWN_CLIENTS,
+            "forwarded": len(forwarded), "refused": refused, "wall_s": wall,
+            "p50_ms": q["p50_ms"], "p99_ms": q["p99_ms"],
+            "selected_identities": len(selected), "ipcache": len(ipc),
+            "host_only": True}
+
+
+def baseline_phase(card):
+    """Phase 12: the three BASELINE configs, the DNS proxy and its
+    server (see the module docstring). Returns (report, launches by
+    pass, KD variants by pass, what the kernel holds need)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_baseline_")
+    env0 = os.environ.get("CILIUM_TPU_DFA_IMPL", "gather")
+    report = {"card": card, "lanes": {}}
+    launches, variants, held = {}, {}, {"lanes": {}}
+    try:
+        # bench.py's arm: the default, gather
+        os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+        for name, n_rules, n_flows in BASELINE_LANES:
+            line, ln, vr, kept = baseline_lane(
+                name, n_rules, n_flows, os.path.join(tmp.name, name), card)
+            report["lanes"][name] = line
+            launches.update(ln)
+            variants.update(vr)
+            held["lanes"][name] = kept
+        fqdn = held["lanes"]["fqdn"]["scenario"]
+        report["dnsproxy"], ln, vr, held["dnsproxy"] = dns_proxy_phase(fqdn,
+                                                                       card)
+        launches.update(ln)
+        variants.update(vr)
+        report["dns_server"] = dns_server_phase(fqdn, card)
+    finally:
+        os.environ["CILIUM_TPU_DFA_IMPL"] = env0
+        tmp.cleanup()
+    report["wall_s"] = time.perf_counter() - t_phase
+    return report, launches, variants, held
+
+
+def hold_stack(errs, label, arr, prefix, data, lens, nfa_arr=None):
+    """KD exactly against its plain version at one field stack and
+    batch (the group plane too on ``path``); K2 where the banks have at
+    most 128 states; K1 where ``nfa_arr`` carries the field's NFA.
+    Returns the kernels that took the stack."""
+    from cilium_tpu_torch.engine import (
+        dfa_dense_cuda,
+        dfa_oblivious_cuda,
+        nfa_cuda,
+    )
+
+    a = (arr[f"{prefix}_trans"], arr[f"{prefix}_byteclass"],
+         arr[f"{prefix}_start"], data, lens)
+    acc = arr[f"{prefix}_accept"]
+    extra = arr.get("rp_path_gaccept") if prefix == "path" else None
+    NB, S, K = a[0].shape
+    shape = f"{(NB, S, K)} B={data.shape[0]} L={data.shape[1]}"
+    hold(errs, "KD", f"{label} {shape}",
+         dfa_dense_cuda.dense_scan_cuda(*a, accept=acc, extra=extra),
+         dfa_dense_cuda.dense_scan_plain(*a, accept=acc, extra=extra))
+    takes = ["KD"]
+    if S <= 128:
+        hold(errs, "K2", f"{label} {shape}",
+             dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*a),
+             dfa_oblivious_cuda.dfa_finals_oblivious_plain(*a))
+        takes.append("K2")
+    if nfa_arr is not None and f"{prefix}_nfa_follow" in nfa_arr:
+        n = [nfa_arr[f"{prefix}_nfa_{k}"] for k in
+             ("follow", "acc_cls", "byteclass", "start")] + [data, lens]
+        hold(errs, "K1", f"{label} {tuple(n[1].shape)} B={data.shape[0]} "
+                         f"L={data.shape[1]}",
+             nfa_cuda.nfa_finals_cuda(*n), nfa_cuda.nfa_finals_plain(*n))
+        takes.append("K1")
+    return takes
+
+
+def baseline_kernels(errs, rows, held, card):
+    """KD, and K2 and K1 wherever they take it, held exactly against
+    their plain versions at every scanned field of each lane's policy
+    on the lane's first held batch (its L per field), at the fqdn
+    policy's ``dns`` stack under the DNS proxy's batch (L = 256) and at
+    the proxy's own stack; then timed through phase 4's code. Returns
+    the stacks and the rows of each kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine.megakernel import scan_fields
+    from cilium_tpu_torch.engine.verdict import (
+        TorchVerdictEngine,
+        batch_field,
+        unpack_batch,
+    )
+    from cilium_tpu_torch.fqdn.dnsproxy import QNAME_LEN
+    from cilium_tpu_torch.policy.compiler import matchpattern
+
+    out = {}
+    for name, lane in held["lanes"].items():
+        engine = lane["engine"]
+        nfa = TorchVerdictEngine(engine.policy, device=DEVICE,
+                                 cfg=dataclasses.replace(
+                                     engine.cfg, kernel_impl="nfa-bitset"))
+        b = unpack_batch(lane["batch"])
+        dense, nfa_fields, taken = {}, {}, {}
+        for prefix, field in scan_fields(engine._arrays):
+            data, lens, _ = batch_field(b, field)
+            data, lens = data.contiguous(), lens.contiguous()
+            taken[prefix] = hold_stack(errs, f"baseline {name} {prefix}",
+                                       engine._arrays, prefix, data, lens,
+                                       nfa._arrays)
+            dense[prefix] = (engine._arrays, data, lens)
+            nfa_fields[prefix] = (nfa._arrays, data, lens)
+        got = kernel_times(dense, nfa_fields, {}, {}, card,
+                           tag=f"baseline-{name}-")
+        for kid, rs in got.items():
+            rows[kid].extend(rs)
+        out[name] = {"taken_by": taken,
+                     "rows": {kid: [list(r) for r in rs]
+                              for kid, rs in got.items() if rs}}
+    # the DNS proxy's batch: the fqdn qnames at L = 256, on the fqdn
+    # policy's dns stack and on the proxies' own stacks
+    qnames = [f.dns.query for f in held["lanes"]["fqdn"]["scenario"].flows]
+    data = np.zeros((min(len(qnames), DNS_BATCHES[0]), QNAME_LEN), np.uint8)
+    lens = np.zeros(len(data), np.int32)
+    for i, q in enumerate(qnames[:len(data)]):
+        bs = matchpattern.sanitize_name(q).encode("utf-8")[:QNAME_LEN]
+        data[i, :len(bs)] = np.frombuffer(bs, np.uint8)
+        lens[i] = len(bs)
+    data = torch.from_numpy(data).to(DEVICE)
+    lens = torch.from_numpy(lens).to(DEVICE)
+    stacks = {"baseline-fqdn-dns-L256": (
+        held["lanes"]["fqdn"]["engine"]._arrays, data, lens)}
+    for arm in ("gather", "oblivious-corpus"):
+        proxy = held["dnsproxy"][arm]
+        key = next(iter(proxy._rules))
+        st = proxy._get_banked(key, proxy._rules[key])
+        stacks[f"baseline-dnsproxy-{DNS_ARMS[arm][0]}-L256"] = (
+            {f"dns_{k}": v for k, v in st.items()}, data, lens)
+    out["dns_L256"] = {}
+    for label, (arr, d, ln) in stacks.items():
+        out["dns_L256"][label] = hold_stack(errs, label, arr, "dns", d, ln)
+    got = kernel_times({}, {}, {label: ("dns", *v)
+                                for label, v in stacks.items()}, {}, card)
+    for kid, rs in got.items():
+        rows[kid].extend(rs)
+    out["dns_L256"]["rows"] = {kid: [list(r) for r in rs]
+                               for kid, rs in got.items() if rs}
     return out
 
 
@@ -4508,7 +5409,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs) -> int:
-    """Phases 2-12 (see the module docstring)."""
+    """Phases 2-13 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
@@ -4627,6 +5528,16 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
         "versions")
     proto_report["kernels"] = proto_kernels(errs, rows, proto_held, card)
     log(f"phase 11 wall {proto_report['wall_s']:.1f} s")
+    log("phase 12: the BASELINE configs (fqdn, mixed, clustermesh) through "
+        "the port's Loader, the DNS proxy and its server")
+    baseline_report, baseline_launches, baseline_variants, baseline_held = \
+        baseline_phase(card)
+    log("phase 12: the kernels at the BASELINE stacks, against their plain "
+        "versions")
+    baseline_report["kernels"] = baseline_kernels(errs, rows, baseline_held,
+                                                  card)
+    log(f"phase 12 wall {baseline_report['wall_s']:.1f} s (kernel holds "
+        f"apart)")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -4637,6 +5548,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     phase_launches.update({f"fleet-{n}": ln
                            for n, ln in fleet_launches.items()})
     phase_launches.update(proto_launches)
+    phase_launches.update(baseline_launches)
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -4647,6 +5559,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     phase_variants.update({f"fleet-{n}": v
                            for n, v in fleet_variants.items()})
     phase_variants.update(proto_variants)
+    phase_variants.update(baseline_variants)
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -4681,6 +5594,11 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
             "l7g_shapes": {n: r["rows"].get(kid, [])
                            for n, r in proto_report["kernels"].items()
                            if kid in r["taken_by"]},
+            # phase 12's stacks: each lane's fields, and the DNS
+            # proxy's batch at L = 256
+            "baseline_shapes": {
+                n: r["rows"].get(kid, [])
+                for n, r in baseline_report["kernels"].items()},
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -4703,6 +5621,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     log("service: " + json.dumps(service_report))
     log("fleet: " + json.dumps(fleet_report))
     log("proto: " + json.dumps(proto_report))
+    log("baseline: " + json.dumps(baseline_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,15 @@ K1, K2) for CUDA tensors and on their plain versions for CPU tensors.
 
 A policy whose plan degenerated (no ``rp_*`` arrays) resolves per
 rule through the shared ``verdict._verdict_core``, as the reference's
-does. Not ported yet: the ``autotune`` pick (queue 1, Q6) raises
-``NotImplementedError``.
+does. The ``autotune`` arm measures the dense scan against the bitset
+NFA on each field's bank tensors at staging, as the reference does, and
+caches one pick per shape key; on ``cuda`` it times with CUDA events.
 """
 
 from __future__ import annotations
 
+import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -25,6 +28,11 @@ import torch
 
 from cilium_tpu_torch.core.flow import L7Type
 from cilium_tpu_torch.engine import nfa_kernel
+from cilium_tpu_torch.runtime.metrics import (
+    KERNEL_AUTOTUNE_PICKS,
+    KERNEL_AUTOTUNE_SECONDS,
+    METRICS,
+)
 
 #: scan implementations the plan picks between
 IMPL_DENSE = "dfa-dense"
@@ -41,11 +49,6 @@ SCAN_FIELDS = (("path", "path"), ("method", "method"),
 #: the l7g (protocol-frontend) field stack, present only on policies
 #: with frontend rules — words slot 5 by convention
 L7G_FIELD = ("l7g", "l7g")
-
-#: the slice that carries what this one leaves out
-_AUTOTUNE_SLICE = ("kernel_impl='autotune' arrives with the autotune "
-                   "slice (queue 1, Q6)")
-
 
 def scan_fields(arrays) -> tuple:
     """The policy's scanned fields, in ``words``-tuple order: the five
@@ -639,10 +642,8 @@ def fused_verdict_step(arrays, batch, *, impl_plan=(),
 
 # ------------------------------------------------------------- autotune --
 #: (shape key) → {"impl", "dense_ms", "nfa_ms"} — process-wide, and
-#: carried through the loader's warm-restart snapshot. It stays empty
-#: until the autotune slice (queue 1, Q6) records picks; the container
-#: and its snapshot/adopt pair are here so a warm snapshot has the
-#: reference's layout
+#: carried through the loader's warm-restart snapshot, so a restarted
+#: loader keeps its picks without measuring again
 _AUTOTUNE_CACHE: Dict[tuple, Dict] = {}
 
 
@@ -664,6 +665,101 @@ def autotune_cache_adopt(snap: Optional[Dict]) -> None:
             _AUTOTUNE_CACHE.setdefault(key, dict(v))
 
 
+def _shape_key(field: str, trans_shape, nfa_shape, L: int,
+               device) -> tuple:
+    """The reference's key with the torch device type in place of
+    ``jax.default_backend()``: a pick measured on the CPU is never
+    adopted for ``cuda``."""
+    return (field, tuple(trans_shape), tuple(nfa_shape or ()), int(L),
+            torch.device(device).type)
+
+
+def _time_scan(fn, device, reps: int = 3) -> float:
+    """Median seconds of ``reps`` calls after one untimed call: by CUDA
+    events on ``cuda``, by the host clock on the CPU."""
+    fn()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    times = []
+    for _ in range(reps):
+        if cuda:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fn()
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def autotune_field(field: str, arrays: Dict, prefix: str,
+                   nfa_stacked: Optional[Dict], width: int, device,
+                   probe_batch: int = 256) -> Dict:
+    """Measure the dense arm against the bitset NFA on this field's
+    real bank tensors (staged on ``device``) over a synthetic batch of
+    the field's width; cached by shape key. The dense arm runs the
+    kernel :func:`dfa_kernel.resolve_impl` picks (KD under ``gather``,
+    K2 under ``oblivious``), the NFA arm K1."""
+    from cilium_tpu_torch.engine.dfa_kernel import (
+        dfa_scan_banked,
+        resolve_impl,
+    )
+    from cilium_tpu_torch.weights import stage_array
+
+    trans = arrays[f"{prefix}_trans"]
+    key = _shape_key(
+        field, np.shape(trans),
+        np.shape(nfa_stacked["nfa_follow"]) if nfa_stacked else None,
+        width, device)
+    hit = _AUTOTUNE_CACHE.get(key)
+    if hit is not None:
+        return hit
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.integers(0, 128, size=(probe_batch, width),
+                                         dtype=np.uint8)).to(device)
+    lengths = torch.from_numpy(
+        rng.integers(0, width + 1, size=(probe_batch,)).astype(np.int32)
+    ).to(device)
+    dense = [stage_array(arrays[f"{prefix}_{k}"], device)
+             for k in ("trans", "byteclass", "start", "accept")]
+    with warnings.catch_warnings():
+        # the oblivious arm's fallback warning is the engine's to give
+        warnings.simplefilter("ignore", RuntimeWarning)
+        dense_ms = _time_scan(lambda: dfa_scan_banked(
+            *dense, data, lengths, impl=resolve_impl()), device) * 1e3
+    if nfa_stacked is None:
+        result = {"impl": IMPL_DENSE, "dense_ms": round(dense_ms, 3),
+                  "nfa_ms": None}
+    else:
+        stacked = {k: stage_array(v, device) for k, v in nfa_stacked.items()
+                   if k != "nfa_gaccept"}
+        nfa_ms = _time_scan(lambda: nfa_kernel.nfa_scan_banked(
+            stacked, data, lengths), device) * 1e3
+        result = {"impl": IMPL_NFA if nfa_ms < dense_ms else IMPL_DENSE,
+                  "dense_ms": round(dense_ms, 3),
+                  "nfa_ms": round(nfa_ms, 3)}
+    _AUTOTUNE_CACHE[key] = result
+    METRICS.observe(KERNEL_AUTOTUNE_SECONDS, time.perf_counter() - t0)
+    METRICS.inc(KERNEL_AUTOTUNE_PICKS,
+                labels={"impl": result["impl"], "field": field})
+    return result
+
+
+def _field_widths(cfg) -> Dict[str, int]:
+    return {"path": max(cfg.http_path_buckets),
+            "method": cfg.http_method_len, "host": cfg.http_host_len,
+            "hdr": 1024, "dns": cfg.dns_name_len,
+            "l7g": getattr(cfg, "l7g_len", 256)}
+
+
 # ------------------------------------------------------------- arm plan --
 def plan_for_engine(policy, cfg, device) -> Tuple[
         Dict[str, str], Dict[str, np.ndarray], Dict[str, Dict]]:
@@ -671,11 +767,10 @@ def plan_for_engine(policy, cfg, device) -> Tuple[
     need. Returns ``(impl_plan, extra_arrays, report)`` as the
     reference does. ``auto`` treats ``cuda`` as the accelerator with
     the reference's TPU rule: the NFA arm only where the DFA busts the
-    128-state budget and the positions fit; dense everywhere else."""
+    128-state budget and the positions fit; dense everywhere else.
+    ``autotune`` measures both arms per field (:func:`autotune_field`)."""
     mode = getattr(cfg, "kernel_impl", "auto")
-    if mode == "autotune":
-        raise NotImplementedError(_AUTOTUNE_SLICE)
-    if mode not in ("auto", IMPL_DENSE, IMPL_NFA):
+    if mode not in ("auto", "autotune", IMPL_DENSE, IMPL_NFA):
         raise ValueError(f"unknown kernel_impl {mode!r}")
     accel = torch.device(device).type == "cuda"
     degraded = bool(getattr(policy, "bank_quarantined", ()))
@@ -687,6 +782,7 @@ def plan_for_engine(policy, cfg, device) -> Tuple[
     if getattr(policy, "l7g_matcher", None) is not None:
         # the protocol-frontend automaton: armed like any field
         matchers["l7g"] = policy.l7g_matcher
+    widths = _field_widths(cfg)
     lane_groups = (policy.resolve_meta or {}).get("lane_groups") \
         if getattr(policy, "resolve_meta", None) is not None else None
     impl_plan: Dict[str, str] = {}
@@ -696,7 +792,7 @@ def plan_for_engine(policy, cfg, device) -> Tuple[
     for prefix, matcher in matchers.items():
         trans = policy.arrays[f"{prefix}_trans"]
         dense_kernel_ok = trans.shape[1] <= 128
-        want_nfa = (mode == IMPL_NFA
+        want_nfa = (mode in ("autotune", IMPL_NFA)
                     or (mode == "auto" and not dense_kernel_ok and accel))
         nfa_banks = None
         if not degraded and want_nfa:
@@ -712,13 +808,20 @@ def plan_for_engine(policy, cfg, device) -> Tuple[
                         for i, b in enumerate(nfa_banks)]
             nfa_stacked = nfa_kernel.stack_nfa_banks(
                 nfa_banks, extra_accept=gacc)
-        impl = IMPL_NFA if (want_nfa and nfa_stacked is not None) \
-            else IMPL_DENSE
+        if mode == "autotune":
+            pick = autotune_field(prefix, policy.arrays, prefix,
+                                  nfa_stacked, widths[prefix], device)
+        else:
+            pick = {"impl": IMPL_NFA if want_nfa else IMPL_DENSE,
+                    "dense_ms": None, "nfa_ms": None}
+        impl = pick["impl"]
+        if impl == IMPL_NFA and nfa_stacked is None:
+            impl = IMPL_DENSE  # forced arm, ineligible bank → dense
         if impl == IMPL_NFA:
             for k, v in nfa_stacked.items():
                 extra[f"{prefix}_{k}"] = v
         impl_plan[prefix] = impl
-        report[prefix] = {"impl": impl, "dense_ms": None, "nfa_ms": None,
+        report[prefix] = {**pick, "impl": impl,
                           "banks": int(trans.shape[0]),
                           "dfa_states": int(trans.shape[1]),
                           "nfa_positions": (

@@ -2,8 +2,11 @@
 ``ingest/synth.py`` for the scenarios the port runs: ``fqdn`` (DNS
 names × toFQDNs patterns), ``http`` (1k path/header regex rules × 10k
 flows), ``kafka`` (topic/API-key ACLs), ``generic`` (r2d2 key/value
-ACLs) and ``protocols`` (cassandra, memcache and r2d2 records against
-per-protocol rule sets), with ``scenario_by_name`` and
+ACLs), ``protocols`` (cassandra, memcache and r2d2 records against
+per-protocol rule sets), ``mixed`` (the ``examples/policies`` corpus ×
+synthetic identity/flow tuples, BASELINE configs[3]) and
+``clustermesh`` (10k identities × 5k CNPs, configs[4]), with
+``scenario_by_name`` and
 ``realize_scenario``; and one of the port's own, ``lineparser``
 (``test.lineparser`` ACLs on the generic pair path), which the
 reference has no scenario for.
@@ -413,6 +416,148 @@ def synth_lineparser_scenario(n_rules: int = 40, n_flows: int = 20000,
     )
 
 
+# ------------------------------------------------------ config 3: mixed --
+def synth_mixed_scenario(corpus_dir: str, n_tuples: int = 1_000_000,
+                         seed: int = 0) -> SynthScenario:
+    """examples/policies corpus × synthetic identity/flow tuples."""
+    from cilium_tpu_torch.policy.api import load_cnp_dir
+
+    rng = random.Random(seed)
+    cnps = load_cnp_dir(corpus_dir)
+    rules: List[Rule] = []
+    for c in cnps:
+        rules.extend(c.rules)
+    # endpoints covering the corpus selectors
+    endpoints = {
+        "frontend": {"app": "frontend"},
+        "backend": {"app": "backend"},
+        "db": {"app": "db"},
+        "service": {"app": "service"},
+        "kafka": {"app": "kafka"},
+        "empire-hq": {"app": "empire-hq"},
+        "crawler": {"app": "crawler"},
+        "scraper": {"app": "scraper"},
+        "exporters": {"app": "exporters"},
+        "web": {"tier": "web", "env": "prod"},
+        "cache": {"tier": "cache"},
+        "bystander": {"app": "bystander"},
+        # realistic/ corpus coverage (round 3): representative
+        # endpoints per namespace so the 1M-tuple stream exercises the
+        # production-shaped rules too
+        "storefront": {"app": "storefront", "tier": "web",
+                       "env": "prod"},
+        "catalog": {"app": "catalog", "tier": "backend", "env": "prod"},
+        "payments": {"app": "payments", "tier": "backend",
+                     "env": "prod"},
+        "orders-db": {"app": "orders-db"},
+        "broker": {"app": "broker"},
+        "orders-svc": {"app": "orders-svc"},
+        "analytics": {"app": "analytics"},
+        "apigw": {"app": "apigw"},
+        "internal": {"zone": "internal"},
+        "team-a": {"team": "a"},
+        "team-b": {"team": "b"},
+        "prom": {"app": "prom"},
+        "ledger": {"app": "ledger", "ns": "fintech"},
+        "transfer-svc": {"app": "transfer-svc", "ns": "fintech"},
+        "registry": {"app": "registry"},
+        "ci-runner": {"app": "ci-runner"},
+        "webapp": {"app": "webapp", "ns": "saas"},
+        "api-paid": {"app": "api", "plan": "paid"},
+        "worker": {"role": "worker"},
+        "tenant-db": {"app": "tenant-db"},
+    }
+    names = list(endpoints)
+    ports = [80, 443, 5432, 9092, 53, 9100, 9105, 8080,
+             8443, 7443, 5000, 6379, 9080, 5672, 50051]
+    flows = []
+    for _ in range(n_tuples):
+        src, dst = rng.choice(names), rng.choice(names)
+        port = rng.choice(ports)
+        proto = Protocol.UDP if port == 53 else Protocol.TCP
+        f = Flow(src_identity=0, dst_identity=0, dport=port, protocol=proto,
+                 direction=ING)
+        if port == 80 and rng.random() < 0.5:
+            f.l7 = L7Type.HTTP
+            f.http = HTTPInfo(
+                method=rng.choice(["GET", "PUT", "POST"]),
+                path=rng.choice(["/api/v1/x", "/api/v1/config",
+                                 "/other", "/api/v9/y"]),
+                headers=((("X-Admin", "true"),) if rng.random() < 0.5
+                         else ()),
+            )
+        elif port == 9092 and rng.random() < 0.5:
+            f.l7 = L7Type.KAFKA
+            f.kafka = KafkaInfo(
+                api_key=rng.choice([0, 1, 3]),
+                topic=rng.choice(["deathstar-plans", "empire-announce",
+                                  "other"]),
+                client_id="c")
+        elif port == 53 and rng.random() < 0.5:
+            f.l7 = L7Type.DNS
+            f.dns = DNSInfo(query=rng.choice(
+                ["www.cilium.io", "example.com", "evil.io"]))
+        f._src_name = src  # filled to identities by the harness
+        f._dst_name = dst
+        flows.append(f)
+    return SynthScenario(name="mixed", rules=rules, endpoints=endpoints,
+                        flows=flows)
+
+
+# ------------------------------------------------ config 4: clustermesh --
+def synth_clustermesh_scenario(n_identities: int = 10000,
+                               n_policies: int = 5000,
+                               n_flows: int = 100000,
+                               seed: int = 0) -> SynthScenario:
+    """10k identities × 5k CNPs. Policies select label shards; peers
+    select other shards; sprinkled L7."""
+    rng = random.Random(seed)
+    n_apps = 500
+    endpoints = {
+        f"ep{i}": {"app": f"app{i % n_apps}",
+                   "shard": f"s{i % 64}",
+                   "cluster": f"c{i % 4}"}
+        for i in range(n_identities)
+    }
+    rules: List[Rule] = []
+    for i in range(n_policies):
+        app = f"app{i % n_apps}"
+        peer_shard = f"s{(i * 7) % 64}"
+        port = 1000 + (i % 200)
+        l7 = None
+        if i % 10 == 0:
+            l7 = L7Rules(http=(
+                PortRuleHTTP(method="GET", path=f"/p{i}/.*"),))
+        rules.append(Rule(
+            endpoint_selector=_sel(app=app),
+            ingress=(IngressRule(
+                from_endpoints=(_sel(shard=peer_shard),),
+                to_ports=(PortRule(
+                    ports=(PortProtocol(port, Protocol.TCP),),
+                    rules=l7,
+                ),),
+                deny=(i % 17 == 0) and l7 is None,
+            ),),
+            labels=(f"synth=mesh{i}",),
+        ))
+    names = list(endpoints)
+    flows = []
+    for _ in range(n_flows):
+        src, dst = rng.choice(names), rng.choice(names)
+        port = 1000 + rng.randrange(220)
+        f = Flow(src_identity=0, dst_identity=0, dport=port,
+                 protocol=Protocol.TCP, direction=ING)
+        if rng.random() < 0.1:
+            f.l7 = L7Type.HTTP
+            f.http = HTTPInfo(method="GET",
+                              path=f"/p{rng.randrange(n_policies)}/x")
+        f._src_name = src
+        f._dst_name = dst
+        flows.append(f)
+    return SynthScenario(name="clustermesh", rules=rules,
+                        endpoints=endpoints, flows=flows)
+
+
 # ----------------------------------------------------------- harness ----
 def scenario_by_name(name: str, n_rules: int, n_flows: int,
                      seed: int = 0) -> "SynthScenario":
@@ -462,8 +607,10 @@ def realize_scenario(scenario: SynthScenario, resolve: bool = True):
         repo = Repository()
         repo.add(scenario.rules, sanitize=False)  # well-formed by synth
         resolver = PolicyResolver(repo, cache)
-        per_identity = {ids[n]: resolver.resolve(labelsets[n])
-                        for n in scenario.endpoints}
+        # one resolve a distinct rule set (the reference resolves every
+        # endpoint; the contents are the same)
+        by_name = resolver.resolve_many(labelsets)
+        per_identity = {ids[n]: by_name[n] for n in scenario.endpoints}
     scenario.ids = ids
     # default src/dst for scenarios that use symbolic names
     for f in scenario.flows:

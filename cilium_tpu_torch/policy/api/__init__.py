@@ -1,5 +1,6 @@
-"""The rule language. Unlike the reference package this does not import
-the CNP YAML loader, so the port needs no ``yaml``."""
+"""The rule language and the CiliumNetworkPolicy loader. The loader
+reads YAML with the port's own reader of the subset CNP files use
+(``_yaml.py``), so the port needs no ``yaml``."""
 
 from cilium_tpu_torch.policy.api.selector import EndpointSelector, FQDNSelector
 from cilium_tpu_torch.policy.api.l7 import (
@@ -21,6 +22,11 @@ from cilium_tpu_torch.policy.api.rule import (
     PortProtocol,
     SanitizeError,
 )
+from cilium_tpu_torch.policy.api.cnp import (
+    CiliumNetworkPolicy,
+    load_cnp_yaml,
+    load_cnp_dir,
+)
 
 __all__ = [
     "EndpointSelector",
@@ -40,4 +46,7 @@ __all__ = [
     "PortRule",
     "PortProtocol",
     "SanitizeError",
+    "CiliumNetworkPolicy",
+    "load_cnp_yaml",
+    "load_cnp_dir",
 ]

@@ -343,6 +343,24 @@ class PolicyResolver:
         self._propagate_auth(ms)
         return ms
 
+    def resolve_many(self, labelsets: Dict[object, LabelSet]
+                     ) -> Dict[object, MapState]:
+        """``resolve`` of every label set, without named ports: a port
+        addition. What ``resolve`` builds depends on the labels only
+        through the rules they select, so label sets that select the
+        same rules share one MapState object (the loader and the packer
+        key their memos on the object). 10000 identities under
+        BASELINE configs[4]'s 5000 CNPs select 500 rule sets."""
+        shared: Dict[Tuple[int, ...], MapState] = {}
+        out: Dict[object, MapState] = {}
+        for name, labels in labelsets.items():
+            key = tuple(id(r) for r in self.repo.matching_rules(labels))
+            ms = shared.get(key)
+            if ms is None:
+                ms = shared[key] = self.resolve(labels)
+            out[name] = ms
+        return out
+
     @staticmethod
     def _propagate_auth(ms: MapState) -> None:
         """authPreferredInsert (reference mapstate): a more-specific

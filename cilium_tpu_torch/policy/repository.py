@@ -4,14 +4,21 @@ Reference: ``pkg/policy/repository.go`` (SURVEY.md §2.1): holds all rules
 under a lock with a monotonically increasing **revision**; rules are
 added/deleted by provenance labels; per-identity resolution walks rules
 whose ``endpointSelector`` matches the identity's labels.
+
+Where the port differs from the reference: ``matching_rules`` tests only
+the rules an identity's labels can select, found through an index of
+each rule's first ``matchLabels`` entry (rebuilt when the revision
+moves), in the rules' own order, so it returns what the reference's
+scan over every rule returns. At BASELINE configs[4] (10000 identities
+x 5000 CNPs) the scan made the resolve quadratic.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from cilium_tpu_torch.core.labels import LabelSet
+from cilium_tpu_torch.core.labels import LabelSet, ParseLabel
 from cilium_tpu_torch.policy.api.rule import Rule
 
 
@@ -20,6 +27,8 @@ class Repository:
         self._lock = threading.RLock()
         self._rules: List[Rule] = []
         self._revision = 0
+        #: (revision, label → rule positions, unindexed positions)
+        self._index: Optional[Tuple[int, Dict, List[int]]] = None
 
     @property
     def revision(self) -> int:
@@ -71,9 +80,37 @@ class Repository:
             # nodeSelector rules only select host endpoints and pod
             # rules never do (reference: host-firewall policies are
             # sourced exclusively from nodeSelector CCNPs)
+            _, by_label, rest = self._selector_index()
+            hits = set(rest)
+            for lbl in endpoint_labels:
+                hits.update(by_label.get((lbl.key, None), ()))
+                hits.update(by_label.get((lbl.key, lbl.value), ()))
             return tuple(
-                r for r in self._rules if r.selects(endpoint_labels)
+                self._rules[i] for i in sorted(hits)
+                if self._rules[i].selects(endpoint_labels)
             )
+
+    def _selector_index(self):
+        """The index ``matching_rules`` reads, for this revision: a rule
+        whose endpointSelector's first ``matchLabels`` entry is ``k: v``
+        can only select label sets holding a label of key ``k`` (and
+        value ``v`` unless ``v`` is empty: a presence match), as
+        ``EndpointSelector.matches`` tests it; rules with no
+        ``matchLabels`` are always tested. Called under the lock."""
+        if self._index is not None and self._index[0] == self._revision:
+            return self._index
+        by_label: Dict[Tuple[str, Optional[str]], List[int]] = {}
+        rest: List[int] = []
+        for i, r in enumerate(self._rules):
+            ml = r.endpoint_selector.match_labels
+            if not ml:
+                rest.append(i)
+                continue
+            k, v = ml[0]
+            sel = ParseLabel(k if v == "" else f"{k}={v}")
+            by_label.setdefault((sel.key, v or None), []).append(i)
+        self._index = (self._revision, by_label, rest)
+        return self._index
 
     def __len__(self) -> int:
         with self._lock:

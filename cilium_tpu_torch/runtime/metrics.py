@@ -1,6 +1,7 @@
 """The metric families the port's capture replay, verdict memo,
 online serving path, loader plane, verdict service, stream and serving
-fleet report, under the reference's names (``runtime/metrics.py``),
+fleet, the scan-arm autotuner and the DNS proxy report, under the
+reference's names (``runtime/metrics.py``),
 and the part of
 its registry they use: counters (``inc``/``get``), gauges
 (``set_gauge``), histograms (``observe``/``histo_sum``/``histogram``),
@@ -198,6 +199,28 @@ FLEET_JOURNAL_EVENTS = "cilium_tpu_fleet_journal_events_total"
 #: handoff-replayed chunks that resolved with a STITCHED trace — one
 #: trace id spanning spans from both the dead host and the survivor
 FLEET_TRACE_STITCHES = "cilium_tpu_fleet_trace_stitches_total"
+
+# -- the scan-arm autotuner (engine/megakernel.py): dense DFA against
+# bitset NFA, measured per bank shape at engine staging
+#: autotuner decisions, by winning impl and field (cache misses only: a
+#: shape-key hit serves the recorded pick without measuring again)
+KERNEL_AUTOTUNE_PICKS = "cilium_tpu_kernel_autotune_picks_total"
+#: wall seconds spent measuring one bank shape (both arms)
+KERNEL_AUTOTUNE_SECONDS = "cilium_tpu_kernel_autotune_seconds"
+
+# -- the DNS proxy (fqdn/dnsproxy.py, fqdn/server.py)
+#: banked-DFA DNS batches degraded to the regex path
+DNSPROXY_FALLBACKS = "cilium_tpu_dnsproxy_fallback_total"
+#: proxied queries answered, by verdict (allow / deny)
+FQDN_QUERIES = "cilium_tpu_fqdn_queries_total"
+#: queries from a source address no endpoint owns (REFUSED)
+FQDN_UNKNOWN_CLIENT = "cilium_tpu_fqdn_unknown_client_total"
+#: queries too malformed to answer
+FQDN_MALFORMED_QUERIES = "cilium_tpu_fqdn_malformed_queries_total"
+#: allowed queries whose upstream did not answer in time (SERVFAIL)
+FQDN_UPSTREAM_TIMEOUTS = "cilium_tpu_fqdn_upstream_timeouts_total"
+#: queries a raising callback dropped (the serve loop goes on)
+FQDN_HANDLER_ERRORS = "cilium_tpu_fqdn_handler_errors_total"
 
 #: latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS: Tuple[float, ...] = (

@@ -29,10 +29,9 @@ Where the port differs from the reference:
   the breaker, the serve loop and the stream's session route all key on
   it;
 * two kinds of error pass the breaker (:func:`passes_breaker`): a
-  ``NotImplementedError`` — what the port does not serve yet, such as
-  the ``autotune`` scan-arm pick (queue 1's Q6) — and a kernel failure (a
-  hand-written kernel that did not build, load or launch, or a fault
-  CUDA reported). Each is an error response (a ``check``'s included),
+  ``NotImplementedError`` — what the port does not serve yet — and a
+  kernel failure (a hand-written kernel that did not build, load or
+  launch, or a fault CUDA reported). Each is an error response (a ``check``'s included),
   never a trip or an oracle verdict: the CPU does not answer for a
   kernel that failed on the card;
 * the socket's listen backlog is ``SOMAXCONN``, not socketserver's 5:

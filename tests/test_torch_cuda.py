@@ -591,3 +591,132 @@ def test_frontend_fused_step_and_replay_on_card_equal_plain(
     for lane in OUTPUT_LANES:
         np.testing.assert_array_equal(outs[0][lane], outs[1][lane], lane)
         np.testing.assert_array_equal(outs[0][lane], want[lane], lane)
+
+
+# ------------------------------------------ the fqdn config and the proxy
+def _fqdn_dns_batch(dev, n=8192):
+    """The fqdn scenario's rules (10 × 100 names) and its qnames as the
+    DNS proxy scans them: ``[n, 256]``, sanitized."""
+    from cilium_tpu_torch.fqdn.dnsproxy import QNAME_LEN
+    from cilium_tpu_torch.policy.compiler import matchpattern
+
+    sc = synth.scenario_by_name("fqdn", 10, n)
+    rules = [d for r in sc.rules for er in r.egress for pr in er.to_ports
+             for d in pr.rules.dns]
+    names = [matchpattern.sanitize_name(f.dns.query) for f in sc.flows]
+    data = np.zeros((n, QNAME_LEN), np.uint8)
+    lens = np.zeros(n, np.int32)
+    for i, q in enumerate(names):
+        b = q.encode()[:QNAME_LEN]
+        data[i, :len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return sc, rules, _t(data, dev), _t(lens, dev)
+
+
+@pytest.mark.parametrize("bank_size", [64, 4])
+def test_kd_and_k2_at_the_fqdn_dns_stack_equal_plain(cuda, bank_size):
+    """KD at the fqdn rules' dns stack, L = 256 (one bank of 138 states
+    at the proxy's bank size, 64), and K2 where the banks fit its 128
+    states (bank size 4)."""
+    from cilium_tpu_torch.fqdn.dnsproxy import DNSProxy
+    from cilium_tpu_torch.policy.compiler.dfa import compile_patterns
+
+    _, rules, data, lens = _fqdn_dns_batch(cuda)
+    proxy = DNSProxy(use_tpu=False)
+    proxy.update_allowed(1, 53, rules)
+    st = compile_patterns(proxy._rules[(1, 53)],
+                          bank_size=bank_size).stacked()
+    trans, bc, start, acc = (_t(st[k].view(np.int32) if st[k].dtype ==
+                                np.uint32 else st[k], cuda)
+                             for k in ("trans", "byteclass", "start",
+                                       "accept"))
+    args = (trans, bc, start, data, lens)
+    _build.reset_launches()
+    assert torch.equal(dfa_dense_cuda.dense_scan_cuda(*args, accept=acc),
+                       dfa_dense_cuda.dense_scan_plain(*args, accept=acc))
+    assert _build.KERNELS["KD"].launches == 1
+    if trans.shape[1] <= 128:
+        assert torch.equal(
+            dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*args),
+            dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
+        assert _build.KERNELS["K2"].launches == 1
+    assert (trans.shape[1] <= 128) == (bank_size == 4)
+
+
+def test_autotune_field_on_card_records_a_pick(cuda, monkeypatch):
+    from cilium_tpu_torch.engine import megakernel, nfa_kernel
+    from cilium_tpu_torch.policy.compiler.dfa import compile_patterns
+
+    monkeypatch.setattr(megakernel, "_AUTOTUNE_CACHE", {})
+    banked = compile_patterns([f"/t{i}/x.*" for i in range(12)],
+                              bank_size=4)
+    arrays = {f"p_{k}": v for k, v in banked.stacked().items()}
+    stacked = nfa_kernel.stack_nfa_banks(
+        nfa_kernel.banks_from_dfa(banked, EngineConfig()))
+    _build.reset_launches()
+    pick = megakernel.autotune_field("path", arrays, "p", stacked,
+                                     width=256, device=cuda)
+    assert pick["impl"] in ("dfa-dense", "nfa-bitset")
+    assert pick["dense_ms"] > 0 and pick["nfa_ms"] > 0
+    assert _build.KERNELS["KD"].launches >= 4
+    assert _build.KERNELS["K1"].launches >= 4
+    assert ("path", arrays["p_trans"].shape, stacked["nfa_follow"].shape,
+            256, "cuda") in megakernel._AUTOTUNE_CACHE
+
+
+@pytest.mark.parametrize("dfa_impl,kernel", [("gather", "KD"),
+                                             ("pallas", "K2")])
+def test_dns_proxy_on_card_equals_check_allowed(cuda, dfa_impl, kernel,
+                                                monkeypatch):
+    """``DNSProxy(use_tpu=True)`` on the card over the fqdn scenario's
+    qnames: each verdict equal to ``check_allowed``'s, the arm's kernel
+    launched (the corpus's crawler rules fit K2; the fqdn rules' 138
+    states do not), no fallback counted."""
+    from cilium_tpu_torch.fqdn.dnsproxy import DNSProxy
+    from cilium_tpu_torch.policy.api.l7 import PortRuleDNS
+    from cilium_tpu_torch.runtime.metrics import DNSPROXY_FALLBACKS, METRICS
+
+    monkeypatch.setenv("CILIUM_TPU_DFA_IMPL", dfa_impl)
+    sc, rules, _, _ = _fqdn_dns_batch(cuda, 2000)
+    if kernel == "K2":
+        rules = [PortRuleDNS(match_pattern="*.cilium.io"),
+                 PortRuleDNS(match_name="example.com")]
+    qnames = [f.dns.query for f in sc.flows] + ["SVC0.CILIUM.IO.",
+                                                "x" * 300, ""]
+    proxy = DNSProxy(use_tpu=True)
+    assert proxy.device.type == "cuda"
+    proxy.update_allowed(7, 53, rules)
+    n0 = METRICS.get(DNSPROXY_FALLBACKS)
+    _build.reset_launches()
+    got = np.concatenate([proxy.check_batch(7, 53, qnames[i:i + 512])
+                          for i in range(0, len(qnames), 512)])
+    want = [proxy.check_allowed(7, 53, q) for q in qnames]
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < len(got)
+    assert _build.KERNELS[kernel].launches > 0
+    assert METRICS.get(DNSPROXY_FALLBACKS) == n0
+
+
+def test_dns_proxy_on_card_raises_an_oom_without_a_fallback(cuda,
+                                                            monkeypatch):
+    """An out of memory in the card's scan is raised by ``check_batch``;
+    the host does not answer for it and no fallback is counted."""
+    from cilium_tpu_torch.engine import dfa_kernel
+    from cilium_tpu_torch.fqdn.dnsproxy import DNSProxy
+    from cilium_tpu_torch.policy.api.l7 import PortRuleDNS
+    from cilium_tpu_torch.runtime.metrics import DNSPROXY_FALLBACKS, METRICS
+
+    proxy = DNSProxy()
+    assert proxy.use_tpu and proxy.device.type == "cuda"
+    proxy.update_allowed(7, 53, [PortRuleDNS(match_pattern="*.io")])
+    np.testing.assert_array_equal(proxy.check_batch(7, 53, ["a.io", "b"]),
+                                  [True, False])
+
+    def oom(*a, **kw):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(dfa_kernel, "dfa_scan_banked", oom)
+    n0 = METRICS.get(DNSPROXY_FALLBACKS)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        proxy.check_batch(7, 53, ["a.io"])
+    assert METRICS.get(DNSPROXY_FALLBACKS) == n0

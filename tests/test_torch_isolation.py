@@ -41,6 +41,15 @@ def _all_modules():
 
 #: modules every slice so far added, which the walk must find
 _EXPECTED = ("cilium_tpu_torch.engine.megakernel",
+             "cilium_tpu_torch.fqdn",
+             "cilium_tpu_torch.fqdn.cache",
+             "cilium_tpu_torch.fqdn.dnsproxy",
+             "cilium_tpu_torch.fqdn.namemanager",
+             "cilium_tpu_torch.fqdn.server",
+             "cilium_tpu_torch.fqdn.wire",
+             "cilium_tpu_torch.ipcache",
+             "cilium_tpu_torch.policy.api._yaml",
+             "cilium_tpu_torch.policy.api.cnp",
              "cilium_tpu_torch.engine.memo",
              "cilium_tpu_torch.engine.replay",
              "cilium_tpu_torch.ingest.binary",

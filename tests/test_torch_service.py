@@ -20,8 +20,8 @@ the same responses, field by field (a ``trace_id`` aside):
 
 And what only the port has: the engine check is ``isinstance``; a
 request that meets what the port does not serve yet
-(``NotImplementedError``: here the ``autotune`` scan-arm pick, queue 1's
-Q6, forced by :func:`autotune_on`) and a kernel whose launch fails (KD's C entry point stubbed to return a CUDA error)
+(``NotImplementedError``: here a stand-in for the agent plane, queue 1's
+Q13, forced by :func:`unported_on`) and a kernel whose launch fails (KD's C entry point stubbed to return a CUDA error)
 are error responses, never a breaker trip or an oracle verdict; and
 ``_build.Kernel``'s counts stay exact under concurrent launches.
 
@@ -321,24 +321,24 @@ def test_device_backed_is_an_isinstance_check(scenario_loaders):
 
 
 #: flows to this port make the port's engine re-plan under
-#: ``kernel_impl="autotune"`` (:func:`autotune_on`)
-AUTOTUNE_PORT = 4999
+#: an input the port does not serve (:func:`unported_on`)
+UNPORTED_PORT = 4999
 
 
-def _autotune_plan(engine):
-    """What an engine configured ``kernel_impl="autotune"`` does when it
-    plans its scan arms: the port raises, naming queue 1's Q6."""
-    from cilium_tpu_torch.engine import megakernel
+def _unported(engine):
+    """What the port answers for an input it does not serve yet: a
+    ``NotImplementedError`` naming the queue item that carries it (a
+    stand-in for the agent plane, queue 1's Q13)."""
+    raise NotImplementedError(
+        f"flows to port {UNPORTED_PORT} on {type(engine).__name__} arrive "
+        f"with the agent plane (queue 1, Q13)")
 
-    cfg = dataclasses.replace(engine.cfg, kernel_impl="autotune")
-    megakernel.plan_for_engine(engine.policy, cfg, engine.device)
 
-
-def autotune_on(monkeypatch):
+def unported_on(monkeypatch):
     """Make the port's engine — its flow entry points and its serving
-    session — re-plan under ``kernel_impl="autotune"`` for any batch or
-    chunk that carries a flow to :data:`AUTOTUNE_PORT`: an input the
-    port does not serve yet, whatever else is ported."""
+    session — raise :func:`_unported`'s error for any batch or chunk
+    that carries a flow to :data:`UNPORTED_PORT`: an input the port does
+    not serve yet, whatever else is ported."""
     from cilium_tpu_torch.engine import session as session_mod
     from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
 
@@ -346,16 +346,16 @@ def autotune_on(monkeypatch):
         orig = getattr(TorchVerdictEngine, name)
 
         def wrapped(self, flows, *a, _orig=orig, **kw):
-            if any(f.dport == AUTOTUNE_PORT for f in flows):
-                _autotune_plan(self)
+            if any(f.dport == UNPORTED_PORT for f in flows):
+                _unported(self)
             return _orig(self, flows, *a, **kw)
         monkeypatch.setattr(TorchVerdictEngine, name, wrapped)
     cls = session_mod.IncrementalSession
     orig_encode = cls.encode_ids
 
     def encode_ids(self, rec, *a, **kw):
-        if (np.asarray(rec["dport"]) == AUTOTUNE_PORT).any():
-            _autotune_plan(self.engine)
+        if (np.asarray(rec["dport"]) == UNPORTED_PORT).any():
+            _unported(self.engine)
         return orig_encode(self, rec, *a, **kw)
     monkeypatch.setattr(cls, "encode_ids", encode_ids)
 
@@ -363,8 +363,8 @@ def autotune_on(monkeypatch):
 def test_not_implemented_is_not_a_device_failure(scenario_loaders,
                                                  tmp_path, monkeypatch):
     ld, sc = scenario_loaders["http"]["cilium_tpu_torch"]
-    autotune_on(monkeypatch)
-    generic = dataclasses.replace(sc.flows[0], dport=AUTOTUNE_PORT)
+    unported_on(monkeypatch)
+    generic = dataclasses.replace(sc.flows[0], dport=UNPORTED_PORT)
     m = PORT.metrics.METRICS
     names = ("cilium_tpu_breaker_trips_total",
              "cilium_tpu_breaker_fallback_verdicts_total")
@@ -375,7 +375,7 @@ def test_not_implemented_is_not_a_device_failure(scenario_loaders,
                                      clock=lambda: now[0])
     vd = PORT.service.ResilientVerdictor(ld, breaker=br)
     for _ in range(3):
-        with pytest.raises(NotImplementedError, match="Q6"):
+        with pytest.raises(NotImplementedError, match="Q13"):
             vd.verdicts([generic] + sc.flows[:3])
     assert br.state == br.CLOSED and br.events == []
     assert [m.get(n) for n in names] == before
@@ -393,7 +393,7 @@ def test_not_implemented_is_not_a_device_failure(scenario_loaders,
     assert br.state == br.CLOSED
     assert [e for e, _ in br.events] == ["trip", "probe", "probe-released",
                                          "probe", "recover"]
-    # over the socket: an error response naming Q6, for one request
+    # over the socket: an error response naming Q13, for one request
     hub = PORT.hubble
     before = [m.get(n) for n in names]
     with served(PORT, ld, tmp_path / "q6.sock", deadline_ms=1.0) as svc, \
@@ -403,7 +403,7 @@ def test_not_implemented_is_not_a_device_failure(scenario_loaders,
                        hub.flow_to_dict(f) for f in (generic,
                                                      sc.flows[0])]}):
             r = c.call(op)
-            assert "NotImplementedError" in r["error"] and "Q6" in r["error"]
+            assert "NotImplementedError" in r["error"] and "Q13" in r["error"]
         ok = c.call({"op": "check", "flow": hub.flow_to_dict(sc.flows[0])})
         assert ok["verdict"] == int(ld.engine.verdict_flows(
             sc.flows[:1])["verdict"][0])

@@ -6,8 +6,8 @@ own ``VerdictService`` (the reference gate on, ``JAX_PLATFORMS=cpu``;
 the port's loader ``device="cpu"``): the verdict frames must be equal,
 and equal to the port's engine. Covered: the frame and capture-image
 codecs, the http, kafka and fqdn scenarios, per-sequence failure (a bad
-image, a chunk that meets what the port does not serve yet — the
-``autotune`` pick, queue 1's Q6 — answered with that error and no
+image, a chunk that meets what the port does not serve yet — a
+stand-in for the agent plane, queue 1's Q13 — answered with that error and no
 breaker trip, and a chunk whose KD launch fails), v3 GENERIC chunks
 (protocol-frontend records) equal to the reference's, empty chunks and many in flight, credits (the client
 halts at zero and the window survives reconnect-with-resume), the
@@ -24,11 +24,11 @@ import pytest
 
 from test_torch_loader import _World
 from test_torch_service import (
-    AUTOTUNE_PORT,
+    UNPORTED_PORT,
     JAX,
     PKGS,
     PORT,
-    autotune_on,
+    unported_on,
     failing_kd,
     make_loader,
     scenario,
@@ -131,18 +131,18 @@ def test_stream_equals_the_reference(scenario_loaders, tmp_path,  # noqa
 
 def test_generic_chunk_fails_only_its_seq(scenario_loaders, tmp_path,  # noqa
                                           monkeypatch):
-    """A chunk that meets what the port does not serve yet (the
-    ``autotune`` pick, :func:`autotune_on`): its sequence fails with a
-    Q6 message, its neighbours answer, and the breaker never hears of
+    """A chunk that meets what the port does not serve yet (a stand-in
+    for the agent plane, :func:`unported_on`): its sequence fails with a
+    Q13 message, its neighbours answer, and the breaker never hears of
     it."""
     import dataclasses
 
     ld, sc = scenario_loaders["http"]["cilium_tpu_torch"]
     good = PORT.binary.capture_to_bytes(sc.flows[:50])
     unported = PORT.binary.capture_to_bytes(
-        [dataclasses.replace(f, dport=AUTOTUNE_PORT)
+        [dataclasses.replace(f, dport=UNPORTED_PORT)
          for f in sc.flows[:20]])
-    autotune_on(monkeypatch)
+    unported_on(monkeypatch)
     before = _breaker_counts()
     with served(PORT, ld, tmp_path / "g.sock") as svc:
         out = _stream(PORT, svc, [good, unported, good, unported])
@@ -150,7 +150,7 @@ def test_generic_chunk_fails_only_its_seq(scenario_loaders, tmp_path,  # noqa
     want = _plain(ld, sc.flows[:50])
     assert out[0] == out[2] == want
     for err in (out[1], out[3]):
-        assert "NotImplementedError" in err and "Q6" in err
+        assert "NotImplementedError" in err and "Q13" in err
     assert _breaker_counts() == before
 
 
