@@ -220,7 +220,34 @@ Phases, in order (any failure exits non-zero before the result line):
    they take it, are then held exactly against their plain versions
    and timed at every field stack of each lane and at the proxy's
    L = 256 batch. A ``baseline: {...}`` line carries the numbers;
-13. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+13. the long-payload scan, the load balancer and the phase probes, each
+   pass with the launch counts zeroed before and read after: (a)
+   ``payload_scan_sp`` at ``bench_sp.py``'s grid (B = 10000, S in 16,
+   64, 256, 1024, L in 1024 and 4096, K = 32, block 256; its seeded
+   tables, classes, bytes and lengths) and on bank 0 of the http-1000
+   loader path stack (7, 2048, 28) at B = 8192, L = 1024, each equal to
+   KD (``dfa_finals_banked(..., impl="gather")``), to K2 at S <= 128
+   and on 512 rows to the plain per-byte ``dfa_scan``; SP's and KD's
+   medians of 10 forced calls, ``sp_vs_seq`` (KD ms / SP ms), SP's
+   device kernels and ms a call and its peak memory; (b) ``lb_lookup``
+   over 1024 services x 16 backends at the default Maglev table size
+   (16381 slots: a 67 MB slab; a quarter of the services with ClientIP
+   affinity, a quarter of the VIPs above 2**31), the manager built,
+   packed and asked ``select()`` for 4096 flows in the worker pool
+   during phases 2-7: 65536 flows (80 % to live frontends), all three
+   outputs equal to the ``device="cpu"`` run, the sample to
+   ``select()``, the empty manager's pack missing on the card; median
+   of 25 forced calls, a traced call, the byte bound; (c) the phase
+   probes: ``EnginePhaseProbe`` on phase 8's loader engine at B = 4096
+   and 8192 under ``auto`` and ``nfa-bitset`` (the sub-steps' ten lanes
+   equal to the fused step; coverage >= 0.9 where the plan is dense,
+   one fused dispatch) and ``CapturePhaseProbe`` on phase 5's capture,
+   one chunk of 65536 on the id and the row streams (lanes equal to
+   ``verdict_step_capture``, coverage >= 0.9), each sub-step's device
+   kernels and ms from one traced call beside its ms; both metric
+   families must receive observations. A ``lb_sp_probe: {...}`` line
+   carries the numbers;
+14. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -397,6 +424,23 @@ DNS_QUERIES, DNS_CLIENTS, DNS_TCP_CLIENTS, DNS_UNKNOWN_CLIENTS = 200, 8, 2, 1
 #: rules (``dns/fqdn-egress.yaml``) fit K2
 DNS_ARMS = {"gather": ("fqdn", "gather"), "oblivious": ("fqdn", "pallas"),
             "oblivious-corpus": ("corpus", "pallas")}
+#: phase 13a: ``bench_sp.py``'s published grid (``--flows``,
+#: ``--states``, ``--lengths``, K, ``--block``, ``--iters``); the rows
+#: held against the plain per-byte ``dfa_scan``; the http-1000 path
+#: bank's batch at the header bucket its docstring names
+SP_FLOWS, SP_STATES, SP_LENGTHS = 10_000, (16, 64, 256, 1024), (1024, 4096)
+SP_K, SP_BLOCK, SP_ITERS, SP_SAMPLE = 32, 256, 10, 512
+SP_BANK_B, SP_BANK_L = 8192, 1024
+#: phase 13b: services x backends (at cilium's default
+#: ``maglev-table-size``, 16381 slots a service: a 67 MB slab; Kubernetes'
+#: scalability thresholds allow 10000 services a cluster, cut 10x), the
+#: flows are REPLAY_CHUNK, the ``select()`` sample and the timed calls
+LB_SERVICES, LB_BACKENDS, LB_SAMPLE, LB_TIMED = 1024, 16, 4096, 25
+#: phase 13c: the engine probe's batches (``bench.py``'s probe batch and
+#: phase 4's) and the probes' timed repetitions (rounds) of each
+#: sub-step: the coverage is a ratio of host-bound medians, and 21
+#: rounds of ~20 ms steady it
+PROBE_BATCHES, PROBE_REPS = (4096, 8192), 21
 #: capture arm → (phase-4 configuration it replays on, kernels it must
 #: launch)
 CAPTURE_ARMS = {"gather": ("auto", ("KD",)),
@@ -5373,6 +5417,551 @@ def baseline_kernels(errs, rows, held, card):
     return out
 
 
+# ------------------------------------------------------------- phase 13
+def lb_services():
+    """Phase 13's service world, from a seed: LB_SERVICES frontends of
+    LB_BACKENDS backends each. A quarter of the services have ClientIP
+    affinity; a quarter of the VIPs are LoadBalancer addresses above
+    2**31 (192.168.x.y and 203.0.113.x), the rest ClusterIPs in
+    10.96.0.0/12; backends in 10.0.0.0/8 with weights 1-3."""
+    import random
+
+    from cilium_tpu_torch.loadbalancer import (
+        Backend,
+        Frontend,
+        Service,
+        ServiceType,
+    )
+
+    rng = random.Random(13)
+    out = []
+    for i in range(LB_SERVICES):
+        if i % 8 == 0:
+            vip, kind = f"192.168.{i >> 8}.{i & 255}", \
+                ServiceType.LOAD_BALANCER
+        elif i % 8 == 4:
+            vip, kind = f"203.0.113.{i >> 3 & 255}", \
+                ServiceType.LOAD_BALANCER
+        else:
+            vip, kind = f"10.{96 + (i >> 8)}.{i & 255}.1", \
+                ServiceType.CLUSTER_IP
+        fe = Frontend(vip, (80, 443, 8080, 53)[i % 4],
+                      17 if i % 4 == 3 else 6)
+        out.append(Service(
+            fe, [Backend(f"10.{i >> 6}.{(i & 63) * 4 + j // 4}."
+                         f"{(j % 4) * 60 + 1}", 8000 + j,
+                         weight=1 + rng.randrange(3))
+                 for j in range(LB_BACKENDS)],
+            svc_type=kind, affinity=i % 4 == 1, name=f"svc{i}"))
+    return out
+
+
+def lb_flow_columns(services, n, seed=14):
+    """``n`` flows as the five columns ``lb_lookup`` takes (addresses as
+    int64 holding the unsigned value): 80 % to live frontends, the rest
+    to random addresses and ports."""
+    import ipaddress
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    fes = [s.frontend for s in services]
+    vip = np.array([int(ipaddress.IPv4Address(f.ip)) for f in fes],
+                   np.int64)
+    port = np.array([f.port for f in fes], np.int32)
+    proto = np.array([f.proto for f in fes], np.int32)
+    pick = rng.integers(0, len(fes), n)
+    live = rng.random(n) < 0.8
+    return (rng.integers(0, 2 ** 32, n, dtype=np.int64),
+            rng.integers(1024, 65536, n).astype(np.int32),
+            np.where(live, vip[pick], rng.integers(0, 2 ** 32, n,
+                                                   dtype=np.int64)),
+            np.where(live, port[pick],
+                     rng.integers(1, 65536, n)).astype(np.int32),
+            np.where(live, proto[pick],
+                     rng.choice([6, 17], n)).astype(np.int32))
+
+
+def lb_world():
+    """Build phase 13's ``ServiceManager`` (one Maglev table of
+    DEFAULT_TABLE_SIZE slots a service, ~0.1 s each on one core), pack
+    it and answer ``select()`` for the first LB_SAMPLE flows. Runs in a
+    worker process during phases 2-7; returns what pickles (the packed
+    arrays, the flow columns, the answers as (ip, port) or None) — a
+    ``ServiceManager`` holds a lock and does not."""
+    import ipaddress
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cilium_tpu_torch.loadbalancer import ServiceManager
+
+    t0 = time.perf_counter()
+    services = lb_services()
+    mgr = ServiceManager()
+    for svc in services:
+        mgr.upsert(svc)
+    packed = mgr.pack()
+    build_s = time.perf_counter() - t0
+    cols = lb_flow_columns(services, REPLAY_CHUNK)
+    answers = []
+    for i in range(LB_SAMPLE):
+        b = mgr.select(str(ipaddress.IPv4Address(int(cols[0][i]))),
+                       int(cols[1][i]),
+                       str(ipaddress.IPv4Address(int(cols[2][i]))),
+                       int(cols[3][i]), int(cols[4][i]))
+        answers.append(None if b is None else
+                       (int(ipaddress.IPv4Address(b.ip)), b.port))
+    return packed, cols, answers, build_s
+
+
+def force_leaf(out) -> None:
+    """Forced completion by a 2-element readback of the first tensor in
+    ``out`` (a tensor, or dicts and tuples of them)."""
+    while isinstance(out, dict):
+        out = out[sorted(out)[0]]
+    while isinstance(out, (tuple, list)):
+        out = out[0]
+    (out[:2] if out.ndim else out).cpu()
+
+
+def forced_ms(fn, reps: int) -> float:
+    """Median host ms of ``reps`` completion-forced calls, after one."""
+    force_leaf(fn())
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        force_leaf(fn())
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def traced(fn, reps: int = 1, tries: int = 6):
+    """(device kernels, device ms) of one forced call of ``fn``, averaged
+    over ``reps``: torch.profiler with one warm-up step before the
+    recorded ones, so the trace starts with the tracer running (a trace
+    begun cold can miss the first kernels of its window). A trace with
+    no device events is retried up to ``tries`` times (each logged);
+    then (None, None)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for i in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps,
+                                       repeat=1)) as prof:
+            for _ in range(1 + reps):
+                force_leaf(fn())
+                prof.step()
+        kern = [(e.count, getattr(e, "self_device_time_total", 0.0) / 1e3)
+                for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))
+                and not e.key.startswith("ProfilerStep")]
+        if kern:
+            return (sum(c for c, _ in kern) / reps,
+                    sum(ms for _, ms in kern) / reps)
+        log(f"  (trace {i + 1} of {tries} saw no device events)")
+    return None, None
+
+
+def reset_counts() -> None:
+    from cilium_tpu_torch.engine import _build
+
+    _build.reset_launches()
+
+
+def counts():
+    from cilium_tpu_torch.engine import _build
+
+    return {k: v.launches for k, v in _build.KERNELS.items()}
+
+
+def sp_shape(label, trans, byteclass, start, data, lengths, card):
+    """One shape of phase 13a: SP held exactly against KD (and K2 at
+    S <= 128) and, on SP_SAMPLE rows, the plain per-byte ``dfa_scan``;
+    then SP's and KD's medians of SP_ITERS forced calls, SP's device
+    kernels and ms a call and its peak memory."""
+    import torch
+
+    from cilium_tpu_torch.engine.dfa_kernel import (
+        dfa_finals_banked,
+        dfa_scan,
+    )
+    from cilium_tpu_torch.engine.longscan import payload_scan_sp
+
+    t, bc, d, ln = (torch.from_numpy(a).to(DEVICE)
+                    for a in (trans, byteclass, data, lengths))
+    st = torch.full((1,), start, dtype=torch.int32, device=DEVICE)
+    S, L = trans.shape[0], data.shape[1]
+
+    def sp():
+        return payload_scan_sp(t, bc, start, d, ln, block=SP_BLOCK)
+
+    def kd():
+        return dfa_finals_banked(t[None], bc[None], st, d, ln,
+                                 impl="gather")[0]
+
+    def k2():
+        return dfa_finals_banked(t[None], bc[None], st, d, ln,
+                                 impl="oblivious")[0]
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = sp()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(got, kd()), f"[sp {label}] SP differs from KD")
+    held = ["KD"]
+    if S <= 128:
+        check(torch.equal(got, k2()), f"[sp {label}] SP differs from K2")
+        held.append("K2")
+    n = min(SP_SAMPLE, len(data))
+    check(torch.equal(got[:n], dfa_scan(t, bc, st[0], d[:n], ln[:n])),
+          f"[sp {label}] SP differs from the plain dfa_scan on {n} rows")
+    sp_ms, kd_ms = forced_ms(sp, SP_ITERS), forced_ms(kd, SP_ITERS)
+    k2_ms = forced_ms(k2, SP_ITERS) if S <= 128 else None
+    kernels, dev_ms = traced(sp)
+    row = {"shape": [int(len(data)), S, int(trans.shape[1]), L],
+           "sp_ms": sp_ms, "kd_ms": kd_ms, "k2_ms": k2_ms,
+           "sp_vs_seq": kd_ms / sp_ms, "sp_device_kernels": kernels,
+           "sp_device_ms": dev_ms, "peak_mb": peak / 2 ** 20,
+           "sp_extra_mb": (peak - base) / 2 ** 20, "held_against": held}
+    log(f"[sp {label}] (B, S, K, L) {tuple(row['shape'])}, block "
+        f"{SP_BLOCK}: SP equal to {held} and to dfa_scan on {n} rows; SP "
+        f"{sp_ms:.3f} ms, KD {kd_ms:.4f} ms"
+        + (f", K2 {k2_ms:.4f} ms" if k2_ms is not None else "")
+        + f" (medians of {SP_ITERS} forced calls); sp_vs_seq "
+        f"{row['sp_vs_seq']:.5f}; SP {kernels} device kernels, {dev_ms} "
+        f"device ms a call; peak {row['peak_mb']:.1f} MiB allocated "
+        f"({row['sp_extra_mb']:.1f} MiB above the call's start) on {card}")
+    return row
+
+
+def sp_phase(loader_engine, flows, card):
+    """Phase 13a: ``payload_scan_sp`` at ``bench_sp.py``'s grid (its
+    seeded tables, classes, bytes and lengths, drawn in its order), then
+    on bank 0 of the http-1000 loader path stack at the header bucket
+    (B = SP_BANK_B, L = SP_BANK_L) over the scenario's paths."""
+    import numpy as np
+
+    reset_counts()
+    rng = np.random.default_rng(0)
+    rows = {}
+    B, K = SP_FLOWS, SP_K
+    for S in SP_STATES:
+        for L in SP_LENGTHS:
+            trans = rng.integers(0, S, size=(S, K), dtype=np.int32)
+            byteclass = rng.integers(0, K, size=256, dtype=np.int32)
+            data = rng.integers(0, 256, size=(B, L), dtype=np.uint8)
+            lengths = rng.integers(L // 2, L + 1, size=B, dtype=np.int32)
+            rows[f"S{S}-L{L}"] = sp_shape(f"S{S} L{L}", trans, byteclass,
+                                          0, data, lengths, card)
+    arrays = loader_engine._arrays
+    trans, byteclass, start = (arrays[f"path_{k}"][0].cpu().numpy()
+                               for k in ("trans", "byteclass", "start"))
+    rng = np.random.default_rng(1)
+    L = SP_BANK_L
+    data = rng.integers(32, 127, size=(SP_BANK_B, L)).astype(np.uint8)
+    for i in range(SP_BANK_B):
+        f = flows[i % len(flows)]
+        p = (f.http.path if f.http is not None else "").encode()[:L]
+        data[i, :len(p)] = np.frombuffer(p, np.uint8)
+    lengths = rng.integers(L // 2, L + 1, size=SP_BANK_B).astype(np.int32)
+    lengths[:64] = [len(flows[i].http.path) if flows[i].http is not None
+                    else 0 for i in range(64)]
+    rows["http1000-path-bank0"] = sp_shape(
+        "http-1000 path bank 0", trans, byteclass, int(start), data,
+        lengths, card)
+    launches = counts()
+    check(launches["KD"] > 0 and launches["K2"] > 0,
+          f"[sp] KD and K2 must have launched: {launches}")
+    return rows, launches
+
+
+def lb_needed_bytes(arrays, flows, out) -> int:
+    """Bytes ``lb_lookup`` must move for this run: the flow columns and
+    the three outputs once, the service keys and affinity once, the slab
+    entries the matched flows read (distinct service and slot) and the
+    backend rows their backends read (distinct ids)."""
+    import torch
+
+    from cilium_tpu_torch.loadbalancer import kernel as lbk
+
+    svc_ip, svc_l4, svc_aff, tables, b_ip, b_port = arrays
+    src, sport, dst, dport, proto = flows
+    p0, dp, pr = lbk._u32(dst), lbk._u32(dport), lbk._u32(proto)
+    idx, found = lbk._lower_bound2(svc_ip, svc_l4, p0,
+                                   ((pr << 16) & 0xFFFFFFFF) | dp)
+    s = lbk._u32(src)
+    z = torch.zeros_like(s)
+    h = torch.where(svc_aff[idx], lbk._fnv1a_words([s, z, z, z, z]),
+                    lbk._fnv1a_words([s, lbk._u32(sport), p0, dp, pr]))
+    entries = torch.unique((idx * tables.shape[1] + h % tables.shape[1])
+                           [found]).numel()
+    backends = torch.unique(out["backend"][out["backend"] >= 0]).numel()
+    return (nbytes(*flows, *out.values(), svc_ip, svc_l4, svc_aff)
+            + entries * tables.element_size()
+            + backends * (b_ip.element_size() + b_port.element_size()))
+
+
+def lb_phase(lb_job, card):
+    """Phase 13b: ``lb_lookup`` over the LB_SERVICES x DEFAULT_TABLE_SIZE
+    slab on the card, held exactly against its ``device="cpu"`` run on
+    every flow and against ``select()`` on the worker's sample; the
+    empty manager's pack misses on the card; median of LB_TIMED forced
+    calls, a traced call and the byte bound."""
+    import torch
+
+    from cilium_tpu_torch.loadbalancer import ServiceManager, lb_lookup
+    from cilium_tpu_torch.weights import lb_arrays_from_reference
+
+    t0 = time.perf_counter()
+    packed, cols, answers, build_s = lb_job.result()
+    wait_s = time.perf_counter() - t0
+    arrays = lb_arrays_from_reference(packed, DEVICE)
+    flows = [torch.from_numpy(c).to(DEVICE) for c in cols]
+    reset_counts()
+    out = lb_lookup(*arrays, *flows)
+    torch.cuda.synchronize()
+    launches = counts()
+    plain = lb_lookup(*lb_arrays_from_reference(packed, "cpu"),
+                      *(torch.from_numpy(c) for c in cols))
+    for k in ("backend", "ip", "port"):
+        check(torch.equal(out[k].cpu(), plain[k]),
+              f"[lb] {k} differs from the device=cpu run in "
+              f"{int((out[k].cpu() != plain[k]).sum())} of {len(cols[0])}")
+    got_b, got_ip, got_port = (out[k][:LB_SAMPLE].cpu().tolist()
+                               for k in ("backend", "ip", "port"))
+    for i, want in enumerate(answers):
+        check((got_b[i] < 0) if want is None
+              else (got_ip[i], got_port[i]) == want,
+              f"[lb] flow {i}: lb_lookup ({got_b[i]}, {got_ip[i]}, "
+              f"{got_port[i]}) against select() {want}")
+    empty = lb_lookup(*lb_arrays_from_reference(
+        ServiceManager().pack(), DEVICE), *flows)
+    check(bool((empty["backend"] == -1).all()) and not
+          bool(empty["ip"].any()), "[lb] the empty manager's pack must miss")
+    matched = int((plain["backend"] >= 0).sum())
+    high = int(((cols[2] >= 2 ** 31) & (plain["backend"] >= 0).numpy())
+               .sum())
+
+    def call():
+        return lb_lookup(*arrays, *flows)
+
+    ms = forced_ms(call, LB_TIMED)
+    kernels, dev_ms = traced(call, reps=3)
+    n_bytes = lb_needed_bytes(arrays, flows, out)
+    b_ms, _ = bound(n_bytes, 0)
+    row = {"services": int(packed.n_services), "table_size":
+           int(packed.tables.shape[1]), "slab_mb": packed.tables.nbytes / 1e6,
+           "backends": int(len(packed.backend_ip)), "flows": len(cols[0]),
+           "matched": matched, "matched_vip_above_2_31": high,
+           "sample": len(answers), "build_s": build_s, "wait_s": wait_s,
+           "ms": ms, "device_kernels": kernels, "device_ms": dev_ms,
+           "bound_ms": b_ms, "bound_bytes": n_bytes, "launches": launches}
+    log(f"[lb] {row['services']} services x {row['table_size']} slots "
+        f"({row['slab_mb']:.1f} MB slab, {row['backends']} backends; built "
+        f"in {build_s:.1f} s in a worker, waited {wait_s:.1f} s): "
+        f"{len(cols[0])} flows, {matched} matched ({high} to VIPs above "
+        f"2**31), backend/ip/port equal to the device=cpu run, "
+        f"{len(answers)} equal to select(), the empty pack misses; median "
+        f"{ms:.4f} ms of {LB_TIMED} forced calls, traced {kernels} device "
+        f"kernels, {dev_ms} device ms; bound {b_ms:.6f} ms ({n_bytes} "
+        f"bytes) on {card}")
+    return row
+
+
+def engine_probe(label, engine, flows, card):
+    """Phase 13c, the live path: ``EnginePhaseProbe.measure_flows`` on
+    ``flows`` (launch counts zeroed before, read after); the sub-steps'
+    ten lanes held against the fused step on the card; coverage >= 0.9
+    and one fused dispatch; each sub-step's device kernels and ms from
+    one traced call."""
+    from cilium_tpu_torch.engine import phases
+    from cilium_tpu_torch.engine.compiled import (
+        encode_flows,
+        flowbatch_to_host_dict,
+    )
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+
+    reset_counts()
+    report = phases.EnginePhaseProbe(engine).measure_flows(
+        flows, engine.cfg, reps=PROBE_REPS)
+    launches, variants = counts(), kd_variants()
+    arrays = engine._arrays
+    host = flowbatch_to_host_dict(encode_flows(
+        flows, engine.policy.kafka_interns, engine.cfg))
+    batch = batch_to_device(host, DEVICE)
+    ms = phases._live_mapstate(arrays, batch)
+    words = phases._live_scan(arrays, batch)
+    assert_lanes(f"[probe {label}] sub-steps",
+                 {k: v.cpu().numpy() for k, v in phases._live_resolve(
+                     arrays, ms, words, batch).items()},
+                 {k: v.cpu().numpy() for k, v in engine._step(
+                     arrays, batch).items()})
+    # the decomposition's scan lane is the dense arm's (KD), as in the
+    # reference: it covers the step's scans only where the plan is dense
+    dense = set(engine.impl_plan.values()) == {"dfa-dense"}
+    check(report["fused_dispatches"] == 1 and
+          (report["coverage"] >= 0.9 or not dense),
+          f"[probe {label}] coverage {report['coverage']} (>= 0.9) and "
+          f"fused dispatches {report['fused_dispatches']} (1); phases "
+          f"{report['phases_ms']} ms")
+    plan = tuple(sorted(engine.impl_plan.items()))
+    steps = {"h2d": lambda: batch_to_device(host, DEVICE),
+             "mapstate": lambda: phases._live_mapstate(arrays, batch),
+             "dfa-scan": lambda: phases._live_scan(arrays, batch),
+             "resolve": lambda: phases._live_resolve(arrays, ms, words,
+                                                     batch),
+             "fused-verdict": lambda: engine._step(arrays, batch)}
+    for impl in sorted(set(engine.impl_plan.values())):
+        steps[impl] = (lambda i=impl: phases._impl_scan(
+            arrays, batch, plan, i, engine._dfa_impl, True))
+    report["device"] = {}
+    for name, fn in steps.items():
+        kernels, dev_ms = traced(fn)
+        report["device"][name] = {"kernels": kernels, "ms": dev_ms}
+    report["launches"], report["kd_variants"] = launches, variants
+    log(f"[probe {label}] B = {report['batch']}: "
+        + ", ".join(f"{p} {v} ms (device {report['device'].get(p, {}).get('ms')}"
+                    f" ms, {report['device'].get(p, {}).get('kernels')} "
+                    f"kernels)" for p, v in report["phases_ms"].items())
+        + f"; wall {report['wall_ms']} ms, coverage {report['coverage']}, "
+        f"three-op {report['three_op_ms']} ms, compile {report['compile_ms']}"
+        f" ms (the first call: CUDA's lazy start-up and first builds); "
+        f"launches {launches}; sub-steps' 10 lanes equal to the fused step "
+        f"on {card}")
+    return report
+
+
+def capture_probe(stream, engine, cap, cfg, card):
+    """Phase 13c, the capture path: ``CapturePhaseProbe`` on phase 5's
+    capture, one chunk of REPLAY_CHUNK, on the ``id`` or ``row`` stream;
+    the sub-steps' lanes held against ``verdict_step_capture``; each
+    sub-step's device kernels and ms from one traced call."""
+    import torch
+
+    from cilium_tpu_torch.engine import phases
+    from cilium_tpu_torch.engine.replay import CaptureReplay, _ids_to_device
+    from cilium_tpu_torch.engine.verdict import verdict_step_capture
+
+    rec, l7, offsets, blob = cap["sections"]
+    reset_counts()
+    replay = CaptureReplay(engine, l7, offsets, blob, cfg)
+    replay.stage_rows(rec, l7)
+    replay.stage_unique(None if stream == "id" else 0.0)
+    check((replay.row_idx is not None) == (stream == "id"),
+          f"[probe capture {stream}] stream set-up")
+    report = phases.CapturePhaseProbe(replay).measure(
+        0, REPLAY_CHUNK, reps=PROBE_REPS)
+    launches, variants = counts(), kd_variants()
+    check(report["coverage"] >= 0.9,
+          f"[probe capture {stream}] coverage {report['coverage']} (>= 0.9)")
+    n = REPLAY_CHUNK
+    if stream == "id":
+        batch = {"rows": replay.stage_unique_device(),
+                 "idx": _ids_to_device(replay.row_idx[:n], engine.device)}
+    else:
+        batch = {"rows": torch.from_numpy(replay.rows_all[:n]).to(DEVICE)}
+    arrays, tw = engine._arrays, replay.table_words
+    rows, words = phases._cap_gather(tw, batch)
+    ms = phases._cap_mapstate(arrays, batch)
+    assert_lanes(f"[probe capture {stream}] sub-steps",
+                 {k: v.cpu().numpy() for k, v in phases._cap_resolve(
+                     arrays, ms, rows, words, batch).items()},
+                 {k: v.cpu().numpy() for k, v in verdict_step_capture(
+                     arrays, tw, batch).items()})
+    steps = {"gather": lambda: phases._cap_gather(tw, batch),
+             "mapstate": lambda: phases._cap_mapstate(arrays, batch),
+             "resolve": lambda: phases._cap_resolve(arrays, ms, rows, words,
+                                                    batch),
+             "step": lambda: verdict_step_capture(arrays, tw, batch)}
+    report["device"] = {}
+    for name, fn in steps.items():
+        kernels, dev_ms = traced(fn)
+        report["device"][name] = {"kernels": kernels, "ms": dev_ms}
+    report["launches"], report["kd_variants"] = launches, variants
+    log(f"[probe capture {stream}] chunk {n}: "
+        + ", ".join(f"{p} {v} ms" for p, v in report["phases_ms"].items())
+        + f"; wall {report['wall_ms']} ms, step {report['step_ms']} ms, "
+        f"coverage {report['coverage']}; device "
+        f"{ {k: (v['kernels'], v['ms']) for k, v in report['device'].items()} }"
+        f" (kernels, ms); launches {launches}; sub-steps' 10 lanes equal to "
+        f"verdict_step_capture on {card}")
+    return report
+
+
+def probe_phase(loader_engine, capture_engine, caps, flows, cfg, card):
+    """Phase 13c: the engine probe on the loader's http-1000 engine under
+    ``auto`` and ``nfa-bitset`` at PROBE_BATCHES, the capture probe on
+    the id and row streams; both metric families must have received
+    observations."""
+    import dataclasses
+
+    from cilium_tpu_torch.engine.phases import CAPTURE_PHASES
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.runtime.metrics import (
+        ENGINE_HOST_SYNCS,
+        ENGINE_PHASE_SECONDS,
+        METRICS,
+    )
+
+    labels = ("featurize", "h2d", "mapstate", "dfa-scan", "resolve",
+              "fused-verdict", "compile", "execute") + CAPTURE_PHASES
+    marks = {p: METRICS.histo_count(ENGINE_PHASE_SECONDS, {"phase": p})
+             for p in labels}
+    syncs = METRICS.get(ENGINE_HOST_SYNCS, {"site": "engine-mapstate"})
+    engines = {"auto": loader_engine, "nfa-bitset": TorchVerdictEngine(
+        loader_engine.policy, device=DEVICE, cfg=dataclasses.replace(
+            loader_engine.cfg, kernel_impl="nfa-bitset"))}
+    check("nfa-bitset" in engines["nfa-bitset"].impl_plan.values(),
+          f"[probe] the nfa-bitset engine's plan "
+          f"{engines['nfa-bitset'].impl_plan} runs no field on K1")
+    out, launches, variants = {}, {}, {}
+    for arm, engine in engines.items():
+        for b in PROBE_BATCHES:
+            label = f"{arm} B{b}"
+            out[label] = engine_probe(label, engine, flows[:b], card)
+            launches[f"probe-{arm}-b{b}"] = out[label].pop("launches")
+            variants[f"probe-{arm}-b{b}"] = out[label].pop("kd_variants")
+        kid = "K1" if arm == "nfa-bitset" else "KD"
+        check(all(launches[f"probe-{arm}-b{b}"][kid] > 0
+                  for b in PROBE_BATCHES),
+              f"[probe {arm}] {kid} never launched")
+    for stream in ("id", "row"):
+        rep = capture_probe(stream, capture_engine, caps["low"], cfg, card)
+        out[f"capture-{stream}"] = rep
+        launches[f"probe-capture-{stream}"] = rep.pop("launches")
+        variants[f"probe-capture-{stream}"] = rep.pop("kd_variants")
+    grew = {p: METRICS.histo_count(ENGINE_PHASE_SECONDS, {"phase": p})
+            - marks[p] for p in labels}
+    check(all(v > 0 for v in grew.values()) and
+          METRICS.get(ENGINE_HOST_SYNCS, {"site": "engine-mapstate"})
+          > syncs, f"[probe] the metric families must have received "
+                   f"observations: {grew}")
+    log(f"[probe] {ENGINE_PHASE_SECONDS} observations by phase {grew}; "
+        f"{ENGINE_HOST_SYNCS} rose")
+    return out, launches, variants
+
+
+def lb_sp_probe_phase(lb_job, loader_engine, capture_engine, caps, flows,
+                      cfg, card):
+    """Phase 13 (see the module docstring) → (report, launches by pass,
+    KD variants by pass)."""
+    t0 = time.perf_counter()
+    report, launches = {}, {}
+    report["sp"], launches["sp"] = sp_phase(loader_engine, flows, card)
+    variants = {"sp": kd_variants()}
+    report["lb"] = lb_phase(lb_job, card)
+    launches["lb"] = report["lb"].pop("launches")
+    report["probe"], probe_launches, probe_variants = probe_phase(
+        loader_engine, capture_engine, caps, flows, cfg, card)
+    launches.update(probe_launches)
+    variants.update(probe_variants)
+    report["wall_s"] = time.perf_counter() - t0
+    report["card"] = card
+    return report, launches, variants
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -5400,16 +5989,19 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     # phase 8's oracle samples, computed on the host's other cores while
     # phases 2-7 run (spawned processes: none of them touches the card)
+    # and phase 13's service table (its Maglev tables, ~100 s on a core)
     pool = concurrent.futures.ProcessPoolExecutor(
         ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
-        return run_phases(torch, smi, card, start_oracle(pool))
+        oracle_jobs = start_oracle(pool)
+        return run_phases(torch, smi, card, oracle_jobs,
+                          pool.submit(lb_world))
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-def run_phases(torch, smi, card, oracle_jobs) -> int:
-    """Phases 2-13 (see the module docstring)."""
+def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
+    """Phases 2-14 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
@@ -5538,6 +6130,12 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
                                                   card)
     log(f"phase 12 wall {baseline_report['wall_s']:.1f} s (kernel holds "
         f"apart)")
+    log("phase 13: the long-payload SP scan, the load balancer and the "
+        "phase probes")
+    lbsp_report, lbsp_launches, lbsp_variants = lb_sp_probe_phase(
+        lb_job, loader_engines["loader-path"], auto_engine, caps,
+        scenario.flows, cfg, card)
+    log(f"phase 13 wall {lbsp_report['wall_s']:.1f} s")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -5549,6 +6147,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
                            for n, ln in fleet_launches.items()})
     phase_launches.update(proto_launches)
     phase_launches.update(baseline_launches)
+    phase_launches.update(lbsp_launches)
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -5560,6 +6159,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
                            for n, v in fleet_variants.items()})
     phase_variants.update(proto_variants)
     phase_variants.update(baseline_variants)
+    phase_variants.update(lbsp_variants)
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -5622,6 +6222,7 @@ def run_phases(torch, smi, card, oracle_jobs) -> int:
     log("fleet: " + json.dumps(fleet_report))
     log("proto: " + json.dumps(proto_report))
     log("baseline: " + json.dumps(baseline_report))
+    log("lb_sp_probe: " + json.dumps(lbsp_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 """The metric families the port's capture replay, verdict memo,
 online serving path, loader plane, verdict service, stream and serving
-fleet, the scan-arm autotuner and the DNS proxy report, under the
-reference's names (``runtime/metrics.py``),
-and the part of
-its registry they use: counters (``inc``/``get``), gauges
-(``set_gauge``), histograms (``observe``/``histo_sum``/``histogram``),
+fleet, the scan-arm autotuner, the DNS proxy and the engine's phase
+probes report, under the reference's names (``runtime/metrics.py``),
+and the part of its registry they use: counters (``inc``/``get``),
+gauges (``set_gauge``), histograms (``observe``/``histo_sum``/
+``histo_count``/``histogram``),
 :class:`SpanStat`, and the Prometheus text the service's ``metrics``
 op returns (``expose``).
 """
@@ -222,6 +222,14 @@ FQDN_UPSTREAM_TIMEOUTS = "cilium_tpu_fqdn_upstream_timeouts_total"
 #: queries a raising callback dropped (the serve loop goes on)
 FQDN_HANDLER_ERRORS = "cilium_tpu_fqdn_handler_errors_total"
 
+# -- device-time attribution (engine/phases.py)
+#: engine phase probe seconds, by phase (mapstate / dfa-scan / resolve /
+#: gather / h2d / featurize / compile / execute ...)
+ENGINE_PHASE_SECONDS = "cilium_tpu_engine_phase_seconds"
+#: intentional host-device sync points executed, by site (phase-probe
+#: completion forcing)
+ENGINE_HOST_SYNCS = "cilium_tpu_engine_host_syncs_total"
+
 #: latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
@@ -232,6 +240,8 @@ SIZE_BUCKETS: Tuple[float, ...] = tuple(float(1 << i) for i in range(15))
 _BUCKETS: Dict[str, Tuple[float, ...]] = {
     CAPTURE_STAGE_SECONDS: (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
                             2.5, 5.0, 10.0, 30.0, 60.0, 120.0),
+    ENGINE_PHASE_SECONDS: (1e-5, 5e-5, 1e-4, 5e-4, 0.001, 0.0025, 0.005,
+                           0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5),
     SERVE_PACK_RECORDS: SIZE_BUCKETS, SERVE_PACK_STREAMS: SIZE_BUCKETS,
     SERVE_PACK_OCCUPANCY: SIZE_BUCKETS, MICROBATCH_SIZE: SIZE_BUCKETS}
 
@@ -299,6 +309,13 @@ class Metrics:
         with self._lock:
             h = self._histos.get(self._key(name, labels))
             return float(h.sum) if h is not None else 0.0
+
+    def histo_count(self, name: str,
+                    labels: Optional[Dict[str, str]] = None) -> int:
+        """Cumulative observation count of a histogram series."""
+        with self._lock:
+            h = self._histos.get(self._key(name, labels))
+            return int(h.count) if h is not None else 0
 
     def histogram(self, name: str,
                   labels: Optional[Dict[str, str]] = None

@@ -7,11 +7,16 @@ are byte-equal), and returns tensors on ``device``. uint32 arrays
 (accept words, ruleset and group masks, the kafka api-key masks) are
 re-read as int32 bit patterns: torch's uint32 lacks the bitwise and
 comparison operators the resolve needs, and the bits are what matter.
+
+``lb_arrays_from_reference`` stages a load balancer's packed service
+table (``PackedLB``) for ``loadbalancer.lb_lookup``. There the uint32
+columns are addresses that the lookup orders and hashes, so they are
+widened to int64, not re-read as bit patterns.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -33,3 +38,25 @@ def arrays_from_reference(arrays: Dict[str, np.ndarray],
     ``cuda``; raises without it)."""
     dev = resolve_device(device)
     return {k: stage_array(v, dev) for k, v in arrays.items()}
+
+
+#: the ``PackedLB`` fields ``lb_lookup`` takes, in its argument order
+LB_FIELDS = ("svc_ip", "svc_l4", "svc_affinity", "tables", "backend_ip",
+             "backend_port")
+
+
+def lb_arrays_from_reference(packed, device: DeviceLike = None
+                             ) -> Tuple[torch.Tensor, ...]:
+    """A ``PackedLB`` (either package's) → the six tensors ``lb_lookup``
+    takes (:data:`LB_FIELDS`), on ``device`` (default ``cuda``; raises
+    without it). The uint32 columns (``svc_ip``, ``svc_l4``,
+    ``backend_ip``) become int64 holding the unsigned value: as int32,
+    the empty manager's ``0xFFFFFFFF`` sentinel and every address at or
+    above 128.0.0.0 would be negative and sort first."""
+    dev = resolve_device(device)
+    out = []
+    for f in LB_FIELDS:
+        a = np.asarray(getattr(packed, f))
+        a = a.astype(np.int64) if a.dtype == np.uint32 else a.copy()
+        out.append(torch.from_numpy(a).to(dev))
+    return tuple(out)

@@ -13,7 +13,9 @@ and the legacy step on the card against the same paths on the CPU (the
 plain versions), at a small size. The protocol frontends' ``l7g``
 stacks: KD, and K2 and K1 wherever they take the stack, at each lane
 policy's l7g automaton, and the memcache policy (whose l7g stack both
-take) through the fused step and v3 capture replay on each arm.
+take) through the fused step and v3 capture replay on each arm. The
+sequence-parallel payload scan (plain torch on the card) against KD and
+K2, and ``lb_lookup`` on the card against its ``device="cpu"`` run.
 """
 
 import numpy as np
@@ -720,3 +722,80 @@ def test_dns_proxy_on_card_raises_an_oom_without_a_fallback(cuda,
     with pytest.raises(torch.cuda.OutOfMemoryError):
         proxy.check_batch(7, 53, ["a.io"])
     assert METRICS.get(DNSPROXY_FALLBACKS) == n0
+
+
+@pytest.mark.parametrize("s,l,b", [(16, 1024, 700), (300, 512, 300),
+                                   (1, 256, 5)])
+def test_payload_scan_sp_on_card_equals_kd(cuda, s, l, b):
+    """The sequence-parallel scan (plain torch on the card) against KD
+    (and K2 where S <= 128) on the same CUDA tensors; the lengths cover
+    zero, negative and full rows (past-L rows differ by design: SP
+    scans its padded tail)."""
+    from cilium_tpu_torch.engine.dfa_kernel import dfa_finals_banked
+    from cilium_tpu_torch.engine.longscan import payload_scan_sp
+
+    rng = np.random.default_rng(s + l)
+    k = 32
+    trans = _t(rng.integers(0, s, (s, k)).astype(np.int32), cuda)
+    bc = _t(rng.integers(0, k, 256).astype(np.int32), cuda)
+    data = _t(rng.integers(0, 256, (b, l)).astype(np.uint8), cuda)
+    lens = rng.integers(-2, l + 1, b).astype(np.int32)
+    lens[:3] = (0, -1, l)
+    lens = _t(lens, cuda)
+    start = int(rng.integers(0, s))
+    sp = payload_scan_sp(trans, bc, start, data, lens, block=256)
+    st = torch.full((1,), start, dtype=torch.int32, device=cuda)
+    _build.reset_launches()
+    kd = dfa_finals_banked(trans[None], bc[None], st, data, lens,
+                           impl="gather")[0]
+    assert _build.KERNELS["KD"].launches == 1
+    assert sp.device.type == "cuda" and torch.equal(sp, kd)
+    if s <= 128:
+        k2 = dfa_finals_banked(trans[None], bc[None], st, data, lens,
+                               impl="oblivious")[0]
+        assert _build.KERNELS["K2"].launches == 1
+        assert torch.equal(sp, k2)
+
+
+def test_lb_lookup_on_card_equals_cpu(cuda):
+    """``lb_lookup`` on the card against its ``device="cpu"`` run: VIPs
+    above 2**31, ClientIP affinity, unmatched flows, the empty pack."""
+    import ipaddress
+
+    from cilium_tpu_torch.loadbalancer import (
+        Backend,
+        Frontend,
+        Service,
+        ServiceManager,
+        lb_lookup,
+    )
+    from cilium_tpu_torch.weights import lb_arrays_from_reference
+
+    rng = np.random.default_rng(11)
+    mgr = ServiceManager(table_size=1021)
+    fes = []
+    for i in range(40):
+        vip = (f"203.0.113.{i}" if i % 2 else f"10.96.{i}.1")
+        fes.append(Frontend(vip, 80 + i % 3, 6 if i % 5 else 17))
+        mgr.upsert(Service(fes[-1], [Backend(f"10.{i}.0.{j}", 8080 + j)
+                                     for j in range(1 + i % 7)],
+                           affinity=i % 4 == 0))
+    n = 5000
+    pick = rng.integers(0, len(fes), n)
+    live = rng.random(n) < 0.8
+    cols = [rng.integers(0, 2 ** 32, n, dtype=np.int64),
+            rng.integers(1024, 65536, n).astype(np.int32),
+            np.where(live, [int(ipaddress.IPv4Address(fes[p].ip))
+                            for p in pick],
+                rng.integers(0, 2 ** 32, n, dtype=np.int64)),
+            np.where(live, [fes[p].port for p in pick],
+                     rng.integers(1, 65536, n)).astype(np.int32),
+            np.where(live, [fes[p].proto for p in pick], 6).astype(np.int32)]
+    for packed in (mgr.pack(), ServiceManager(table_size=1021).pack()):
+        outs = [lb_lookup(*lb_arrays_from_reference(packed, dev),
+                          *(_t(c, dev) for c in cols))
+                for dev in (cuda, "cpu")]
+        for key in ("backend", "ip", "port"):
+            assert torch.equal(outs[0][key].cpu(), outs[1][key]), key
+        hits = int((outs[1]["backend"] >= 0).sum())
+        assert (hits > 0.5 * n) if packed.n_services > 1 else hits == 0

@@ -40,7 +40,9 @@ def _all_modules():
 
 
 #: modules every slice so far added, which the walk must find
-_EXPECTED = ("cilium_tpu_torch.engine.megakernel",
+_EXPECTED = ("cilium_tpu_torch.engine.longscan",
+             "cilium_tpu_torch.engine.megakernel",
+             "cilium_tpu_torch.engine.phases",
              "cilium_tpu_torch.fqdn",
              "cilium_tpu_torch.fqdn.cache",
              "cilium_tpu_torch.fqdn.dnsproxy",
@@ -48,6 +50,10 @@ _EXPECTED = ("cilium_tpu_torch.engine.megakernel",
              "cilium_tpu_torch.fqdn.server",
              "cilium_tpu_torch.fqdn.wire",
              "cilium_tpu_torch.ipcache",
+             "cilium_tpu_torch.loadbalancer",
+             "cilium_tpu_torch.loadbalancer.kernel",
+             "cilium_tpu_torch.loadbalancer.maglev",
+             "cilium_tpu_torch.loadbalancer.service",
              "cilium_tpu_torch.policy.api._yaml",
              "cilium_tpu_torch.policy.api.cnp",
              "cilium_tpu_torch.engine.memo",
