@@ -247,7 +247,33 @@ Phases, in order (any failure exits non-zero before the result line):
    kernels and ms from one traced call beside its ms; both metric
    families must receive observations. A ``lb_sp_probe: {...}`` line
    carries the numbers;
-14. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+14. the parallel layer (``cilium_tpu_torch/parallel``) at phase 8's
+   loader-built http-1000 policy (path stack (7, 2048, 28)), B = 8192,
+   every lane through ``tools/parallel_lanes.run_lane`` (the entry
+   points ``stage_for_lane``, ``ulysses_scan_banked``,
+   ``dfa_scan_banked_tp``, ``dfa_scan_banked_cp``, ``payload_scan_cp``)
+   and held bit-equal to its single-device result: the DP, EP and CP
+   verdict lanes to the fused step on all ten lanes, the raw scans to KD
+   over the path stack (padded to 8 banks with inert zero banks),
+   ``payload_scan_cp`` on the path bank at L = 1024 and on
+   ``tests/test_longscan.py``'s PATTERNS bank at L = 2048 to
+   ``payload_scan_sp``; every rank's collective ledger held to the
+   reference's budget (EP one all-to-all, CP one carry exchange a
+   sharded field, TP L psums and four accept planes). (a) a one-rank
+   NCCL world in this process; (b) worlds of 2 and 4 spawned ranks
+   sharing the one card, on ``gloo`` with each payload staged through
+   pinned host memory — real sharded computations, NOT multi-GPU
+   numbers, and every line says so; each lane's median wall a call (the
+   slowest rank's), collective bytes, host staging ms and KD's launches
+   in one call (the difference of each rank's KD count across the
+   call); (c) ``run_pipelined`` over 8 host batches of 8192 against the
+   sequential loop, both walls in 10 rounds, then the pipeline's pieces
+   (pinning, the ring's host copy, events, ``record_stream``, the
+   copies, the steps) each timed alone. The counts are set to 0
+   after the single-device results and read after (a) and (c); the
+   ranks of (b) count their own. A ``parallel: {...}`` line carries the
+   numbers;
+15. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -5636,6 +5662,24 @@ def sp_shape(label, trans, byteclass, start, data, lengths, card):
     return row
 
 
+def path_payload(flows, B, L):
+    """A [B, L] payload batch over the scenario's paths: each row a
+    flow's path then random printable bytes, lengths in [L/2, L] (the
+    first 64 rows the path's own length)."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    data = rng.integers(32, 127, size=(B, L)).astype(np.uint8)
+    for i in range(B):
+        f = flows[i % len(flows)]
+        p = (f.http.path if f.http is not None else "").encode()[:L]
+        data[i, :len(p)] = np.frombuffer(p, np.uint8)
+    lengths = rng.integers(L // 2, L + 1, size=B).astype(np.int32)
+    lengths[:64] = [len(flows[i].http.path) if flows[i].http is not None
+                    else 0 for i in range(64)]
+    return data, lengths
+
+
 def sp_phase(loader_engine, flows, card):
     """Phase 13a: ``payload_scan_sp`` at ``bench_sp.py``'s grid (its
     seeded tables, classes, bytes and lengths, drawn in its order), then
@@ -5658,16 +5702,7 @@ def sp_phase(loader_engine, flows, card):
     arrays = loader_engine._arrays
     trans, byteclass, start = (arrays[f"path_{k}"][0].cpu().numpy()
                                for k in ("trans", "byteclass", "start"))
-    rng = np.random.default_rng(1)
-    L = SP_BANK_L
-    data = rng.integers(32, 127, size=(SP_BANK_B, L)).astype(np.uint8)
-    for i in range(SP_BANK_B):
-        f = flows[i % len(flows)]
-        p = (f.http.path if f.http is not None else "").encode()[:L]
-        data[i, :len(p)] = np.frombuffer(p, np.uint8)
-    lengths = rng.integers(L // 2, L + 1, size=SP_BANK_B).astype(np.int32)
-    lengths[:64] = [len(flows[i].http.path) if flows[i].http is not None
-                    else 0 for i in range(64)]
+    data, lengths = path_payload(flows, SP_BANK_B, SP_BANK_L)
     rows["http1000-path-bank0"] = sp_shape(
         "http-1000 path bank 0", trans, byteclass, int(start), data,
         lengths, card)
@@ -5962,6 +5997,392 @@ def lb_sp_probe_phase(lb_job, loader_engine, capture_engine, caps, flows,
     return report, launches, variants
 
 
+# ------------------------------------------------------------- phase 14
+#: phase 14: the parallel layer at the main path's width — phase 8's
+#: loader-built http-1000 policy (path stack (7, 2048, 28)), one batch
+#: of PAR_B flows — in a one-rank NCCL world in this process, then in
+#: worlds of PAR_WORLDS spawned ranks sharing the card (gloo, payloads
+#: staged through pinned host memory); PAR_REPS timed calls a lane;
+#: payload_scan_cp on the path bank at PAR_PATH_L and on
+#: tests/test_longscan.py's PATTERNS bank at PAR_PATTERNS_L; the
+#: pipelined batches
+PAR_B, PAR_WORLDS, PAR_REPS, PAR_TIMEOUT_S = 8192, (2, 4), 3, 300.0
+PAR_PATH_L, PAR_PATTERNS_L = 1024, 2048
+PAR_PIPE_BATCHES, PAR_PIPE_DEPTH, PAR_PIPE_ROUNDS = 8, 2, 10
+LONG_PATTERNS = [".*attack-signature.*", ".*(GET|POST) /evil.*",
+                 ".*xx[0-9]{3}yy.*"]
+#: lane → its inputs in par_inputs (the payload lane runs once a bank)
+PAR_LANES = {"dp": "verdict", "ep": "verdict", "cp": "verdict",
+             "ulysses": "scan", "tp_banked": "scan", "cp_scan": "scan",
+             "payload_cp": ("path", "patterns")}
+
+
+def par_inputs(loader_engine, flows):
+    """Phase 14's host inputs (numpy, as every rank gets them): the
+    verdict lanes' policy arrays and packed batch; the path stack for
+    the raw scans, padded with inert zero banks to a multiple of 4
+    (Ulysses shards banks); payload_scan_cp's two banks."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine.compiled import (
+        encode_flows,
+        flowbatch_to_host_dict,
+    )
+    from cilium_tpu_torch.engine.verdict import unpack_batch
+    from cilium_tpu_torch.policy.compiler.dfa import compile_patterns
+
+    pol = loader_engine.policy
+    host = flowbatch_to_host_dict(encode_flows(
+        flows[:PAR_B], pol.kafka_interns, loader_engine.cfg))
+    path = {k: pol.arrays[f"path_{k}"]
+            for k in ("trans", "byteclass", "start", "accept")}
+    pad = (-len(path["trans"])) % max(PAR_WORLDS)
+    scan = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+            for k, v in path.items()}
+    scan["data"] = host["path_data"]
+    scan["lengths"] = unpack_batch({k: torch.from_numpy(v) for k, v in
+                                    host.items()})["path_len"].numpy().copy()
+    data, lengths = path_payload(flows, PAR_B, PAR_PATH_L)
+    bank = compile_patterns(LONG_PATTERNS, bank_size=8).banks[0]
+    rng = np.random.default_rng(0)
+    L = PAR_PATTERNS_L
+    ldata = rng.integers(97, 123, size=(PAR_B, L), dtype=np.uint8)
+    for i, sig in enumerate((b"attack-signature", b"POST /evil!",
+                             b"xx123yy")):
+        for row in range(i, PAR_B, 97):
+            at = int(rng.integers(0, L - len(sig)))
+            ldata[row, at:at + len(sig)] = np.frombuffer(sig, np.uint8)
+    llens = rng.integers(L // 2, L + 1, size=PAR_B).astype(np.int32)
+    return {"verdict": {"arrays": dict(pol.arrays), "batch": host},
+            "scan": scan,
+            "path": {"trans": path["trans"][0],
+                     "byteclass": path["byteclass"][0],
+                     "start": int(path["start"][0]), "data": data,
+                     "lengths": lengths},
+            "patterns": {"trans": np.asarray(bank.trans, np.int32),
+                         "byteclass": np.asarray(bank.byteclass, np.int32),
+                         "start": int(bank.start), "data": ldata,
+                         "lengths": llens}}
+
+
+def par_wants(loader_engine, inputs):
+    """The single-device results each lane is held against, on the
+    card: the fused step on the loader's engine, KD over the padded path
+    stack (the zero banks' words must be 0 and the rest KD's over the
+    stack as built), ``payload_scan_sp`` on each payload bank."""
+    import torch
+
+    from cilium_tpu_torch.core.config import ParallelConfig
+    from cilium_tpu_torch.engine.dfa_kernel import dfa_scan_banked
+    from cilium_tpu_torch.engine.longscan import payload_scan_sp
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+    from cilium_tpu_torch.weights import arrays_from_reference
+
+    wants = {"verdict": {k: v.cpu().numpy() for k, v in
+                         loader_engine.verdict_batch_arrays(batch_to_device(
+                             inputs["verdict"]["batch"], DEVICE)).items()}}
+    t = arrays_from_reference(inputs["scan"], DEVICE)
+    words = dfa_scan_banked(t["trans"], t["byteclass"], t["start"],
+                            t["accept"], t["data"], t["lengths"])
+    nb = len(loader_engine.policy.arrays["path_trans"])
+    real = dfa_scan_banked(*(t[k][:nb] for k in
+                             ("trans", "byteclass", "start", "accept")),
+                           t["data"], t["lengths"])
+    check(bool(torch.equal(words[:, :nb], real))
+          and not bool(words[:, nb:].any()),
+          "[par] the zero banks padding the path stack are not inert")
+    wants["scan"] = words.cpu().numpy()
+    for name in ("path", "patterns"):
+        g = arrays_from_reference({k: v for k, v in inputs[name].items()
+                                   if k != "start"}, DEVICE)
+        wants[name] = payload_scan_sp(
+            g["trans"], g["byteclass"], inputs[name]["start"], g["data"],
+            g["lengths"], block=ParallelConfig().cp_block).cpu().numpy()
+    return wants
+
+
+def par_budget(lane, n, inputs):
+    """The reference's collective budget of one call of ``lane`` over n
+    ranks: {site: count}."""
+    from cilium_tpu_torch.engine.megakernel import SCAN_FIELDS
+    from cilium_tpu_torch.parallel.cp import MIN_SHARD_COLS
+
+    if lane == "dp":
+        return {}
+    if lane == "ep":
+        return {"ulysses.switch": 1}
+    if lane == "cp":
+        batch = inputs["verdict"]["batch"]
+        return {f"cp.carry.{p}": 1 for p, f in SCAN_FIELDS
+                if batch[f"{f}_data"].shape[1] % n == 0
+                and batch[f"{f}_data"].shape[1] // n >= MIN_SHARD_COLS}
+    if lane == "ulysses":
+        return {"ulysses.gather": 1, "ulysses.switch": 1}
+    if lane == "tp_banked":
+        return {"tp.scan_step": inputs["scan"]["data"].shape[1],
+                "tp.accept_plane": 4}
+    if lane == "cp_scan":
+        return {"cp.carry_exchange": 1}
+    return {"cp.final_gather": 1, **({"cp.ring_carry": n - 1} if n > 1
+                                     else {})}
+
+
+def par_lanes(n, backend, run, inputs, wants, card):
+    """Every lane of phase 14 over one world: each held bit-equal to its
+    single-device result, each rank's ledger held to the reference's
+    budget; the median wall a call (the slowest rank's, each call
+    completed), collective bytes, host staging and KD's launches in one
+    call. → (report, KD launches in all the ranks' calls)."""
+    import numpy as np
+
+    shared = n > 1
+    tag = f"[par n={n} {backend}]"
+    note = (f" ({n} ranks sharing one card, collectives staged through "
+            f"host memory: not a multi-GPU number)" if shared else "")
+    report, kd_total = {}, 0
+    for lane, which in PAR_LANES.items():
+        for name in (which if isinstance(which, tuple) else (which,)):
+            label = f"{lane}-{name}" if isinstance(which, tuple) else lane
+            res = run(lane, inputs[name])
+            got, want = res[0]["out"], wants[name]
+            if name == "verdict":
+                assert_lanes(f"{tag} {label}", got, want)
+            else:
+                check(got.shape == want.shape and np.array_equal(got, want),
+                      f"{tag} {label} differs from its single-device "
+                      f"result in {int((got != want).sum())} entries")
+            budget = par_budget(lane, n, inputs)
+            for r, rr in enumerate(res):
+                seen = {row["site"]: row["count_per_block"]
+                        for row in rr["ledger"]}
+                check(seen == budget, f"{tag} {label} rank {r} ledger "
+                                      f"{seen}, the reference's budget "
+                                      f"{budget}")
+            if lane == "ep":
+                check(all(rr["kd_launches"] > 0 for rr in res),
+                      f"{tag} ep: KD never launched on a rank")
+            walls = [max(rr["wall_ms"][i] for rr in res)
+                     for i in range(PAR_REPS)]
+            row = {"median_ms": statistics.median(walls), "walls_ms": walls,
+                   "collective_bytes": sum(x["bytes_per_block"]
+                                           for x in res[0]["ledger"]),
+                   "ledger": res[0]["ledger"],
+                   "staging_ms": max(rr["staging"]["seconds"]
+                                     for rr in res) * 1e3,
+                   "staged_bytes": res[0]["staging"]["bytes"],
+                   "kd_launches_one_call": [rr["kd_launches"] for rr in res]}
+            kd_total += sum(rr["kd_launches_total"] for rr in res)
+            report[label] = row
+            log(f"{tag} {label}: equal to the single-device result, ledger "
+                f"{budget}; median {row['median_ms']:.3f} ms a call "
+                f"(slowest rank, {PAR_REPS} calls), collective bytes "
+                f"{row['collective_bytes']}, host staging "
+                f"{row['staging_ms']:.3f} ms ({row['staged_bytes']} B), KD "
+                f"launches in one call (each rank's count difference "
+                f"across it) {row['kd_launches_one_call']} on "
+                f"{card}{note}")
+    return report, kd_total
+
+
+def par_one_rank(inputs, wants, card):
+    """14a: a one-rank NCCL world in this process."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from cilium_tpu_torch.tools.parallel_lanes import run_lane
+
+    def run(lane, g):
+        return [run_lane(lane, g, device=DEVICE, reps=PAR_REPS)]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_par_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+        try:
+            return par_lanes(1, "nccl", run, inputs, wants, card)
+        finally:
+            dist.destroy_process_group()
+
+
+def par_spawned(n, inputs, wants, card):
+    """14b: a world of n spawned gloo ranks on the one card."""
+    from cilium_tpu_torch.parallel.mesh import LocalWorld
+    from cilium_tpu_torch.tools.parallel_lanes import run_lane
+
+    t0 = time.perf_counter()
+    with LocalWorld(n, "gloo", PAR_TIMEOUT_S) as world:
+        def run(lane, g):
+            return world.run(run_lane, lane, g, device=DEVICE,
+                             reps=PAR_REPS, timeout_s=PAR_TIMEOUT_S)
+
+        report, kd = par_lanes(n, "gloo", run, inputs, wants, card)
+    report["world_wall_s"] = time.perf_counter() - t0
+    return report, kd
+
+
+def pipeline_costs(step, arrays, batches):
+    """The pipeline's per-batch pieces, each timed alone over all the
+    batches (ms, completed; two passes, in turn): ``pin`` a fresh
+    ``pin_memory()`` of every column (the per-batch pinning of the
+    first design), ``ring_fill`` the pack of a batch's columns into one
+    pinned slot (the ring's), ``events`` an event recorded on a side
+    stream and waited on by the current one, ``record_stream`` one call
+    a column (the first design's), ``copy_pageable`` a column at a
+    time from pageable memory (the sequential loop's),
+    ``copy_pinned`` one copy of a packed slot, ``steps`` the step on
+    batches already on the card."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.parallel.pipeline import _PinnedRing
+
+    dev = torch.device(DEVICE)
+    side, compute = torch.cuda.Stream(), torch.cuda.current_stream()
+    hosts = [{k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in b.items()} for b in batches]
+    ring = _PinnedRing(1)
+    slot, _ = ring.fill(0, batches[0])
+    on_card = [{k: v.to(dev) for k, v in h.items()} for h in hosts]
+
+    def pin():
+        return [[v.pin_memory() for v in h.values()] for h in hosts]
+
+    def ring_fill():
+        for b in batches:
+            ring.fill(0, b)
+
+    def events():
+        for _ in hosts:
+            ev = torch.cuda.Event()
+            ev.record(side)
+            compute.wait_event(ev)
+
+    def record_stream():
+        for b in on_card:
+            for v in b.values():
+                v.record_stream(side)
+
+    def copy_pageable():
+        return [{k: v.to(dev) for k, v in h.items()} for h in hosts]
+
+    def copy_pinned():
+        return [slot.to(dev, non_blocking=True) for _ in hosts]
+
+    def steps():
+        return [step(arrays, b) for b in on_card]
+
+    pieces = {"pin": pin, "ring_fill": ring_fill, "events": events,
+              "record_stream": record_stream,
+              "copy_pageable": copy_pageable, "copy_pinned": copy_pinned,
+              "steps": steps}
+    out = {name: [] for name in pieces}
+    for _ in range(2):
+        for name, fn in pieces.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def par_pipeline(loader_engine, host, card):
+    """14c: ``run_pipelined`` over PAR_PIPE_BATCHES host batches (the
+    batch's rows permuted) against the sequential loop (each batch
+    copied and stepped in turn, read after the loop); PAR_PIPE_ROUNDS
+    rounds of (sequential, pipelined, pipelined, sequential); then the
+    pipeline's pieces, each timed alone (:func:`pipeline_costs`)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+    from cilium_tpu_torch.parallel.pipeline import collect, run_pipelined
+
+    rng = np.random.default_rng(14)
+    batches = [host] + [{k: v[p] for k, v in host.items()} for p in
+                        (rng.permutation(PAR_B)
+                         for _ in range(PAR_PIPE_BATCHES - 1))]
+    raw_step, arrays = loader_engine._step, loader_engine._arrays
+    in_step = [0.0]
+
+    def step(a, b):
+        # host ms inside the step calls, apart from the loop's staging
+        t0 = time.perf_counter()
+        out = raw_step(a, b)
+        in_step[0] += time.perf_counter() - t0
+        return out
+
+    def sequential():
+        return collect([step(arrays, batch_to_device(b, DEVICE))
+                        for b in batches])
+
+    def pipelined():
+        return collect(run_pipelined(step, arrays, batches, device=DEVICE,
+                                     depth=PAR_PIPE_DEPTH))
+
+    walls = {"sequential": [], "pipelined": []}
+    steps_ms = {"sequential": [], "pipelined": []}
+    outs = {}
+    for _ in range(PAR_PIPE_ROUNDS):
+        for name, fn in (("sequential", sequential),
+                         ("pipelined", pipelined), ("pipelined", pipelined),
+                         ("sequential", sequential)):
+            torch.cuda.synchronize()
+            in_step[0] = 0.0
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            steps_ms[name].append(in_step[0] * 1e3)
+    for i, (a, b) in enumerate(zip(outs["pipelined"], outs["sequential"])):
+        assert_lanes(f"[par pipeline] batch {i}", a, b)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    med_steps = {k: statistics.median(v) for k, v in steps_ms.items()}
+    log(f"[par pipeline] {PAR_PIPE_BATCHES} batches of {PAR_B}, depth "
+        f"{PAR_PIPE_DEPTH}: equal to the sequential loop; median wall ms "
+        f"pipelined {med['pipelined']:.3f}, sequential "
+        f"{med['sequential']:.3f}, of which host ms inside the step calls "
+        f"{med_steps['pipelined']:.3f} and {med_steps['sequential']:.3f}; "
+        f"walls pipelined {walls['pipelined']}, sequential "
+        f"{walls['sequential']}; in the steps pipelined "
+        f"{steps_ms['pipelined']}, sequential {steps_ms['sequential']} "
+        f"({PAR_PIPE_ROUNDS} rounds of sequential, pipelined, pipelined, "
+        f"sequential) on {card}")
+    costs = pipeline_costs(raw_step, arrays, batches)
+    log(f"[par pipeline] pieces alone, ms over all {PAR_PIPE_BATCHES} "
+        f"batches (two passes): {costs} on {card}")
+    return {"walls_ms": walls, "median_ms": med, "steps_ms": steps_ms,
+            "pieces_ms": costs}
+
+
+def parallel_phase(loader_engine, flows, card):
+    """Phase 14 (see the module docstring) → (report, launches, KD
+    variants of this process's launches)."""
+    t0 = time.perf_counter()
+    inputs = par_inputs(loader_engine, flows)
+    wants = par_wants(loader_engine, inputs)
+    # the counts cover the lanes and the pipeline, not the
+    # single-device results above
+    reset_counts()
+    report = {}
+    report["nccl"], _ = par_one_rank(inputs, wants, card)
+    report["pipeline"] = par_pipeline(loader_engine,
+                                      inputs["verdict"]["batch"], card)
+    launches, variants = counts(), kd_variants()
+    check(launches["KD"] > 0, f"[par] KD never launched: {launches}")
+    for n in PAR_WORLDS:
+        # the spawned ranks count their own launches
+        report[f"gloo-{n}"], kd = par_spawned(n, inputs, wants, card)
+        check(kd > 0, f"[par n={n}] KD never launched in the ranks")
+        launches["KD"] += kd
+    report["wall_s"] = time.perf_counter() - t0
+    report["card"] = card
+    return report, launches, variants
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -6001,7 +6422,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
-    """Phases 2-14 (see the module docstring)."""
+    """Phases 2-15 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
@@ -6136,6 +6557,12 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
         lb_job, loader_engines["loader-path"], auto_engine, caps,
         scenario.flows, cfg, card)
     log(f"phase 13 wall {lbsp_report['wall_s']:.1f} s")
+    log("phase 14: the parallel layer (DP, EP, CP and TP lanes, the "
+        "collective ledger, the pipeline) on one NCCL rank and on spawned "
+        "gloo ranks sharing the card")
+    par_report, par_launches, par_variants = parallel_phase(
+        loader_engines["loader-path"], scenario.flows, card)
+    log(f"phase 14 wall {par_report['wall_s']:.1f} s")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -6148,6 +6575,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
     phase_launches.update(proto_launches)
     phase_launches.update(baseline_launches)
     phase_launches.update(lbsp_launches)
+    phase_launches["parallel"] = par_launches
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -6160,6 +6588,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
     phase_variants.update(proto_variants)
     phase_variants.update(baseline_variants)
     phase_variants.update(lbsp_variants)
+    phase_variants["parallel"] = par_variants
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -6223,6 +6652,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
     log("proto: " + json.dumps(proto_report))
     log("baseline: " + json.dumps(baseline_report))
     log("lb_sp_probe: " + json.dumps(lbsp_report))
+    log("parallel: " + json.dumps(par_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

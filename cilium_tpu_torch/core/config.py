@@ -9,8 +9,10 @@ and ``slo`` (which ``runtime.serveloop.ServeLoop`` reads off its
 loader's config), and ``admission``, ``breaker`` and ``serve`` (which
 ``runtime.service`` and ``runtime.stream`` read), and ``fleet`` (the
 serving fleet's topology and health knobs, which
-``runtime.fleetserve.main`` reads). The reference's other sections
-(tracing, dst, parallel), its agent fields, its TOML
+``runtime.fleetserve.main`` reads), and ``parallel`` (the mesh layout
+and the sharded verdict lane, which ``parallel.mesh`` and
+``parallel.sharding.stage_for_lane`` read). The reference's other
+sections (tracing, dst), its agent fields, its TOML
 reader and the environment settings of fields that no ported module
 reads yet (``identity_regen_debounce_s``, the tenant quantum and quota
 TTL, the REST API's ``admission.api_max_inflight``) come with the
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 
@@ -364,6 +366,26 @@ class CanaryConfig:
 
 
 @dataclasses.dataclass
+class ParallelConfig:
+    """Mesh / sharding layout (the reference's ``ParallelConfig``)."""
+
+    data_axis: str = "data"        # DP over the flow batch
+    expert_axis: str = "expert"    # EP over DFA banks
+    mesh_shape: Optional[Tuple[int, ...]] = None  # None → all ranks on data
+    use_expert_axis: bool = False
+    #: sharded verdict lane ``parallel.sharding.stage_for_lane``
+    #: builds: "auto" (DP — zero collectives at verdict batch shapes),
+    #: "dp", "ep" (bank-sharded one-shot all-to-all re-shard), "cp"
+    #: (payload-sharded blockwise scan, one carry exchange per sharded
+    #: field). Every lane is verdict-bit-equal — the knob only moves
+    #: time and memory.
+    lane: str = "auto"
+    #: CP inner composition block (bytes per blockwise-SP block inside
+    #: each rank's payload shard — parallel/cp.py)
+    cp_block: int = 256
+
+
+@dataclasses.dataclass
 class Config:
     """Root config (DaemonConfig analog)."""
 
@@ -392,6 +414,8 @@ class Config:
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     tenant: TenantConfig = dataclasses.field(default_factory=TenantConfig)
     canary: CanaryConfig = dataclasses.field(default_factory=CanaryConfig)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
 
     @classmethod
     def from_env(cls, env=os.environ) -> "Config":
@@ -473,6 +497,11 @@ class Config:
         if "CILIUM_TPU_EXPLAIN_CAPACITY" in env:
             cfg.provenance.explain_capacity = int(
                 env["CILIUM_TPU_EXPLAIN_CAPACITY"])
+        if env.get("CILIUM_TPU_PARALLEL_LANE", "") in (
+                "auto", "dp", "ep", "cp"):
+            cfg.parallel.lane = env["CILIUM_TPU_PARALLEL_LANE"]
+        if "CILIUM_TPU_CP_BLOCK" in env:
+            cfg.parallel.cp_block = int(env["CILIUM_TPU_CP_BLOCK"])
         if "CILIUM_TPU_FLEET_REPLICAS" in env:
             cfg.fleet.replicas = int(env["CILIUM_TPU_FLEET_REPLICAS"])
         if "CILIUM_TPU_FLEET_HEARTBEAT_INTERVAL_S" in env:

@@ -564,13 +564,18 @@ def fused_scan_field(arrays, prefix: str, data, lengths, valid,
             data, lengths, impl=dfa_impl,
             extra_accept=(arrays["rp_path_gaccept"] if want_groups
                           else None))
-    zero = torch.zeros((), dtype=torch.int32, device=data.device)
-    if want_groups:
-        w3, g3 = out
-        gwords = torch.where(valid[:, None],
-                             nfa_kernel._or_reduce(g3, 1), zero)
-    else:
-        w3, gwords = out, None
+    return field_words(out, valid, want_groups)
+
+
+def field_words(out, valid, want_groups: bool = False):
+    """A banked scan's accept words ``[B, NB, W]`` (with the group
+    plane's ``[B, NB, Gw]`` as a tuple under ``want_groups``) → flat
+    match words [B, NW] (+ bank-ORed group words [B, Gw]), zero on the
+    rows whose field is not valid."""
+    w3, g3 = out if want_groups else (out, None)
+    zero = torch.zeros((), dtype=torch.int32, device=w3.device)
+    gwords = None if g3 is None else torch.where(
+        valid[:, None], nfa_kernel._or_reduce(g3, 1), zero)
     flat = w3.reshape(w3.shape[0], -1)
     return torch.where(valid[:, None], flat, zero), gwords
 
@@ -608,11 +613,7 @@ def fused_verdict_step(arrays, batch, *, impl_plan=(),
     absent default to the dense arm. ``dfa_impl`` ("gather" /
     "oblivious") is the arm of the dense-planned fields. Without a
     staged plan the resolve runs per rule (``verdict._verdict_core``)."""
-    from cilium_tpu_torch.engine.verdict import (
-        _verdict_core,
-        batch_field,
-        unpack_batch,
-    )
+    from cilium_tpu_torch.engine.verdict import batch_field, unpack_batch
 
     b = unpack_batch(batch) if "scalars" in batch else batch
     ms, auth_src_dst = policy_lookup(
@@ -630,8 +631,17 @@ def fused_verdict_step(arrays, batch, *, impl_plan=(),
         words.append(w)
         if gw is not None:
             gwords = gw
+    return resolve_words(arrays, b, ms, auth_src_dst, words, gwords)
+
+
+def resolve_words(arrays, b, ms, auth_src_dst, words, gwords):
+    """One batch's resolve from its mapstate and its fields' match
+    words: factored when the plan is staged (``rp_g_method``), else per
+    rule (``verdict._verdict_core``)."""
+    from cilium_tpu_torch.engine.verdict import _verdict_core
+
     gen_cols = (b["gen_proto"], b["gen_pairs"])
-    if not plan_on:
+    if "rp_g_method" not in arrays:
         return _verdict_core(arrays, ms, b["l7_types"], tuple(words),
                              kafka_columns(b), auth_src_dst, b,
                              gen_cols=gen_cols)

@@ -1,7 +1,7 @@
 """The metric families the port's capture replay, verdict memo,
 online serving path, loader plane, verdict service, stream and serving
-fleet, the scan-arm autotuner, the DNS proxy and the engine's phase
-probes report, under the reference's names (``runtime/metrics.py``),
+fleet, the scan-arm autotuner, the DNS proxy, the engine's phase
+probes and the parallel layer's collective ledger report, under the reference's names (``runtime/metrics.py``),
 and the part of its registry they use: counters (``inc``/``get``),
 gauges (``set_gauge``), histograms (``observe``/``histo_sum``/
 ``histo_count``/``histogram``),
@@ -229,6 +229,13 @@ ENGINE_PHASE_SECONDS = "cilium_tpu_engine_phase_seconds"
 #: intentional host-device sync points executed, by site (phase-probe
 #: completion forcing)
 ENGINE_HOST_SYNCS = "cilium_tpu_engine_host_syncs_total"
+
+# -- the collective ledger (parallel/collectives.py)
+#: collective ops recorded at trace time, by site/op/axis (count per
+#: compiled block) — in the port, per executed lane call
+COLLECTIVE_OPS = "cilium_tpu_collective_ops_total"
+#: collective payload bytes (as-traced shapes), by site/op/axis
+COLLECTIVE_BYTES = "cilium_tpu_collective_bytes_total"
 
 #: latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS: Tuple[float, ...] = (

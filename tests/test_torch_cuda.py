@@ -15,7 +15,11 @@ stacks: KD, and K2 and K1 wherever they take the stack, at each lane
 policy's l7g automaton, and the memcache policy (whose l7g stack both
 take) through the fused step and v3 capture replay on each arm. The
 sequence-parallel payload scan (plain torch on the card) against KD and
-K2, and ``lb_lookup`` on the card against its ``device="cpu"`` run.
+K2, and ``lb_lookup`` on the card against its ``device="cpu"`` run. The
+parallel layer in a one-rank NCCL world in the test's process: the DP,
+EP and CP verdict lanes against the fused step on the card (EP launches
+KD), the Ulysses, TP and CP scans against KD, ``payload_scan_cp``
+against ``payload_scan_sp``, with their collective budgets.
 """
 
 import numpy as np
@@ -799,3 +803,144 @@ def test_lb_lookup_on_card_equals_cpu(cuda):
             assert torch.equal(outs[0][key].cpu(), outs[1][key]), key
         hits = int((outs[1]["backend"] >= 0).sum())
         assert (hits > 0.5 * n) if packed.n_services > 1 else hits == 0
+
+
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    """A one-rank NCCL world in this process (the card's only
+    communicator; ranks that share it run on gloo)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    yield cuda
+    dist.destroy_process_group()
+
+
+def _http_policy_and_batch(n_rules=40, n_flows=256):
+    from cilium_tpu_torch.engine.compiled import (
+        encode_flows,
+        flowbatch_to_host_dict,
+    )
+
+    pi, sc = synth.realize_scenario(
+        synth.scenario_by_name("http", n_rules, n_flows))
+    cfg = EngineConfig()
+    cfg.bank_size = 8
+    pol = CompiledPolicy.build(pi, cfg)
+    host = flowbatch_to_host_dict(
+        encode_flows(sc.flows, pol.kafka_interns, cfg))
+    return pol, cfg, host
+
+
+@pytest.mark.parametrize("lane", ["dp", "ep", "cp"])
+def test_parallel_lanes_on_one_nccl_rank_equal_the_fused_step(nccl_rank,
+                                                              lane):
+    """``stage_for_lane`` on a one-rank NCCL world on the card: all ten
+    lanes equal the single-device fused step; EP runs KD and records
+    one all-to-all, CP one carry exchange a sharded field, DP none."""
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+    from cilium_tpu_torch.tools.parallel_lanes import run_lane
+
+    pol, cfg, host = _http_policy_and_batch()
+    engine = TorchVerdictEngine(pol, cfg=cfg)
+    want = {k: v.cpu().numpy() for k, v in engine.verdict_batch_arrays(
+        batch_to_device(host, nccl_rank)).items()}
+    res = run_lane(lane, {"arrays": pol.arrays, "batch": host},
+                   device="cuda", cp_block=8)
+    for name in OUTPUT_LANES:
+        np.testing.assert_array_equal(res["out"][name], want[name], name)
+    sites = [(r["site"], r["op"], r["count_per_block"])
+             for r in res["ledger"]]
+    if lane == "dp":
+        assert sites == []
+    elif lane == "ep":
+        assert sites == [("ulysses.switch", "all_to_all", 1)]
+        assert res["kd_launches"] >= 5
+    else:
+        assert sites and all(s.startswith("cp.carry.") and c == 1
+                             for s, _, c in sites)
+
+
+@pytest.mark.parametrize("lane", ["ulysses", "tp_banked", "cp_scan"])
+def test_parallel_scans_on_one_nccl_rank_equal_kd(nccl_rank, lane):
+    """The raw sharded scans on a one-rank NCCL world against KD on the
+    same path stack; TP's ledger: L psums and four accept planes."""
+    from cilium_tpu_torch.tools.parallel_lanes import run_lane
+
+    pol, _, host = _http_policy_and_batch()
+    a = pol.arrays
+    g = {"trans": a["path_trans"], "byteclass": a["path_byteclass"],
+         "start": a["path_start"], "accept": a["path_accept"],
+         "data": host["path_data"],
+         "lengths": np.ascontiguousarray(
+             np.minimum(host["path_data"].shape[1],
+                        np.arange(len(host["path_data"])) % 40))
+         .astype(np.int32)}
+    t = {k: _t(v.view(np.int32) if v.dtype == np.uint32 else v, nccl_rank)
+         for k, v in g.items()}
+    want = dfa_dense_cuda.dense_scan_cuda(
+        t["trans"], t["byteclass"], t["start"], t["data"], t["lengths"],
+        accept=t["accept"]).cpu().numpy()
+    res = run_lane(lane, g, device="cuda", cp_block=8)
+    np.testing.assert_array_equal(res["out"], want)
+    if lane == "tp_banked":
+        counts = {r["site"]: r["count_per_block"] for r in res["ledger"]}
+        assert counts == {"tp.scan_step": g["data"].shape[1],
+                          "tp.accept_plane": 4}
+
+
+def test_payload_scan_cp_on_one_nccl_rank_equals_sp(nccl_rank):
+    from cilium_tpu_torch.engine.longscan import payload_scan_sp
+    from cilium_tpu_torch.tools.parallel_lanes import run_lane
+
+    rng = np.random.default_rng(5)
+    s, k, b, l = 64, 16, 300, 1024
+    g = {"trans": rng.integers(0, s, (s, k)).astype(np.int32),
+         "byteclass": rng.integers(0, k, 256).astype(np.int32),
+         "start": 3, "data": rng.integers(0, 256, (b, l)).astype(np.uint8),
+         "lengths": rng.integers(0, l + 1, b).astype(np.int32)}
+    want = payload_scan_sp(*(_t(g[x], nccl_rank) for x in
+                             ("trans", "byteclass")), 3,
+                           _t(g["data"], nccl_rank),
+                           _t(g["lengths"], nccl_rank), block=256)
+    res = run_lane("payload_cp", g, device="cuda", cp_block=256)
+    np.testing.assert_array_equal(res["out"], want.cpu().numpy())
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_run_pipelined_on_the_card_equals_the_sequential_loop(cuda, depth):
+    """The CUDA branch of ``run_pipelined``: the copies go out of the
+    pinned ring on a side stream, each batch's step runs on the current
+    stream after its copy's event, and every batch arrives intact even
+    when a slow step keeps the ring's slots busy (a slot refilled before
+    its copy finished would hand a later batch's bytes to an earlier
+    step)."""
+    from cilium_tpu_torch.engine.verdict import batch_to_device
+    from cilium_tpu_torch.parallel.pipeline import collect, run_pipelined
+
+    pol, cfg, host = _http_policy_and_batch()
+    engine = TorchVerdictEngine(pol, cfg=cfg)
+    step, arrays = engine._step, engine._arrays
+    rng = np.random.default_rng(3)
+    batches = [host] + [{k: v[p] for k, v in host.items()} for p in
+                        (rng.permutation(len(host["scalars"]))
+                         for _ in range(6))]
+    compute = torch.cuda.current_stream()
+    seen = []
+
+    def slow_step(a, b):
+        seen.append((torch.cuda.current_stream() == compute,
+                     {v.device.type for v in b.values()}))
+        torch.cuda._sleep(5_000_000)   # ~ms on the card: copies queue up
+        return step(a, b)
+
+    got = collect(run_pipelined(slow_step, arrays, batches, depth=depth))
+    want = collect([step(arrays, batch_to_device(b, cuda)) for b in batches])
+    assert seen == [(True, {"cuda"})] * len(batches)
+    for g, w in zip(got, want):
+        for name in OUTPUT_LANES:
+            np.testing.assert_array_equal(g[name], w[name], name)

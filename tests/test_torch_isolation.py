@@ -60,7 +60,15 @@ _EXPECTED = ("cilium_tpu_torch.engine.longscan",
              "cilium_tpu_torch.engine.replay",
              "cilium_tpu_torch.ingest.binary",
              "cilium_tpu_torch.ingest.columnar",
+             "cilium_tpu_torch.parallel.collectives",
+             "cilium_tpu_torch.parallel.cp",
+             "cilium_tpu_torch.parallel.mesh",
              "cilium_tpu_torch.parallel.multihost",
+             "cilium_tpu_torch.parallel.pipeline",
+             "cilium_tpu_torch.parallel.sharding",
+             "cilium_tpu_torch.parallel.tp",
+             "cilium_tpu_torch.parallel.ulysses",
+             "cilium_tpu_torch.tools.parallel_lanes",
              "cilium_tpu_torch.policy.compiler.bankplan",
              "cilium_tpu_torch.policy.compiler.compilequeue",
              "cilium_tpu_torch.policy.oracle",
@@ -169,3 +177,44 @@ def test_dispatch_routes_cpu_tensors_to_the_plain_versions():
     b = dfa_oblivious_cuda.dfa_finals_oblivious(trans, bc, start, data, lens)
     assert torch.equal(a, b)
     assert all(k.launches == 0 for k in _build.KERNELS.values())
+
+
+def test_parallel_entry_points_raise_when_cuda_is_absent(monkeypatch,
+                                                         tmp_path):
+    """The parallel layer's entry points default to ``cuda`` like the
+    engine's: without CUDA a mesh, the staged lanes, `run_lane`
+    and the pipeline raise unless the caller names the CPU; a gloo mesh of CUDA ranks
+    stages payloads through host memory, a CPU one never does."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.parallel import collectives, mesh, pipeline
+    from cilium_tpu_torch.parallel.sharding import stage_for_lane
+    from cilium_tpu_torch.tools.parallel_lanes import mesh_probe, run_lane
+
+    with pytest.raises(RuntimeError, match="initialised"):
+        mesh.make_mesh((1,), ("data",), device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.run_pipelined(lambda a, b: b, {}, [{}])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.make_mesh((1,), ("data",))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            stage_for_lane(Config(), {}, {})
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_lane("dp", {})
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh_probe((1,), ("data",))
+        cpu = mesh.make_mesh((1,), ("data",), device="cpu")
+        assert cpu.backend == "gloo" and not collectives._staged(cpu)
+        cuda = mesh.Mesh(cpu.devices, ("data",), {}, 0, "gloo",
+                         torch.device("cuda"))
+        assert collectives._staged(cuda)
+    finally:
+        dist.destroy_process_group()

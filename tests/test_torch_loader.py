@@ -340,7 +340,8 @@ def test_config_deviations_and_from_env():
     ported = {f.name for f in dataclasses.fields(pc)}
     assert ported == {"enable_tpu_offload", "policy_audit_mode", "engine",
                       "loader", "compile", "slo", "provenance", "tenant",
-                      "canary", "admission", "breaker", "serve", "fleet"}
+                      "canary", "admission", "breaker", "serve", "fleet",
+                      "parallel"}
 
     def sections(cfg):
         d = dataclasses.asdict(cfg)
