@@ -273,7 +273,33 @@ Phases, in order (any failure exits non-zero before the result line):
    after the single-device results and read after (a) and (c); the
    ranks of (b) count their own. A ``parallel: {...}`` line carries the
    numbers;
-15. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+15. deterministic simulation testing (``runtime/dst.py``): ``DSTWorld``
+   over the port's engine on the card — its loader's engine, session
+   memo, serving ring and fleet staged there, its multichip arm on two
+   gloo ranks sharing the card. (a) seeds 0-24 of ``generate(seed,
+   max_events=12)`` through ``dst.sweep`` (25 of the 200-schedule
+   sweep's seeds, the reference's own 25-schedule record): zero
+   violations; schedules, distinct schedules, simulated and wall
+   seconds, KD launches and each event kind's wall ms; seeds 0-4 run
+   again on the CPU in the worker pool during phases 2-14, their
+   digests equal to the card's; (b) seeds 0-4 under
+   ``CILIUM_TPU_DFA_IMPL=pallas``: traces equal to (a)'s, K2 launched,
+   no fallback warning; (c) the committed regression case with its
+   mutation (``rollback-artifact-key``: ``oracle-agreement`` at index
+   4) and the reference search's first positional-banks seed (11:
+   ``o-delta-compile`` at index 2), each caught on the card with the
+   CPU run's violation, detail included, and clean without its
+   mutation; (d) host only: 10000 label sets through two
+   ``ClusterIdentityAllocator`` instances over one ``KVStore`` and a
+   fresh replaying one, all equal, and 10000 announcements through
+   ``LocalStatePublisher`` → ``KVStore`` → ``RemoteCluster`` into an
+   ``IPCache``, each tagged with the remote cluster; host ms and
+   events/s. The counts are set to 0 before (a), (b) and (c) and read
+   after each (the multichip ranks' own launches are not in them). KD
+   and K2 are then held exactly against their plain versions at every
+   launch shape the worlds of (a) and (b) staged. A ``dst: {...}``
+   line carries the numbers;
+16. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -6383,6 +6409,390 @@ def parallel_phase(loader_engine, flows, card):
     return report, launches, variants
 
 
+# ------------------------------------------------------------- phase 15
+#: 15a: seeds 0..DST_SEEDS-1 of ``generate(seed, max_events=12)`` on
+#: the card — 25 of the 200-schedule sweep's seeds, the size of the
+#: reference's own 25-schedule record (``BENCH_DST_r06.jsonl``, line 2)
+DST_SEEDS, DST_MAX_EVENTS = 25, 12
+#: 15a/15b: the seeds replayed once more on the CPU (digests equal to
+#: the card's) and under ``CILIUM_TPU_DFA_IMPL=pallas`` (traces equal)
+DST_RECHECK_SEEDS = 5
+#: 15c: the committed regression case (mutation rollback-artifact-key)
+#: and the first seed of ``search(25)`` that catches positional-banks in
+#: the reference's search (the JAX package on the CPU: seed 11,
+#: o-delta-compile at index 2)
+DST_REGRESSION = os.path.join("tests", "dst", "regressions",
+                              "dst_seed2_e27df4160b0adb25.json")
+POSITIONAL_BANKS_SEED = 11
+#: 15d: label sets and endpoint announcements (phase 10's identities)
+MESH_SCALE = 10_000
+#: the world's event kinds → the DSTWorld method that runs each
+DST_EVENT_METHODS = {"world": "__init__", "churn": "churn",
+                     "churn-burst": "churn_burst", "traffic": "traffic",
+                     "serve": "serve", "fleet": "fleet",
+                     "multichip": "multichip",
+                     "clustermesh": "clustermesh_sync",
+                     "tenant": "tenant_isolation", "storm": "storm",
+                     "drain-restore": "drain_restore",
+                     "liveness": "check_liveness"}
+
+
+def dst_cpu_job(seed, events=None, mutation=""):
+    """One schedule on the CPU (a worker process of the pool; it never
+    touches the card) → its digest, trace and violation."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cilium_tpu_torch.runtime import dst, faults
+
+    os.environ.pop(faults.MUTATION_ENV, None)
+    if mutation:
+        os.environ[faults.MUTATION_ENV] = mutation
+    try:
+        res = dst.run_schedule(seed, events=events, device="cpu")
+    finally:
+        os.environ.pop(faults.MUTATION_ENV, None)
+    return {k: res[k] for k in ("seed", "digest", "trace", "violation")}
+
+
+def start_dst_cpu(pool):
+    """Submit phase 15's CPU replays: seeds 0-4, the regression case
+    with its mutation and the positional-banks seed with its."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, DST_REGRESSION)) as fp:
+        case = json.load(fp)
+    jobs = {("seed", s): pool.submit(dst_cpu_job, s)
+            for s in range(DST_RECHECK_SEEDS)}
+    jobs["regression"] = pool.submit(dst_cpu_job, case["seed"],
+                                     case["events"], case["mutation"])
+    jobs["positional"] = pool.submit(dst_cpu_job, POSITIONAL_BANKS_SEED,
+                                     None, "positional-banks")
+    return case, jobs
+
+
+@contextlib.contextmanager
+def dst_event_timing(ms):
+    """While open, append each outermost world event's wall ms (the
+    host clock) to ``ms[kind]``: the world's methods are wrapped, and
+    run unchanged."""
+    from cilium_tpu_torch.runtime.dst import DSTWorld
+
+    depth = [0]
+    saved = {name: getattr(DSTWorld, name)
+             for name in DST_EVENT_METHODS.values()}
+
+    def wrap(kind, real):
+        def timed(self, *a, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return real(self, *a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    ms.setdefault(kind, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+        return timed
+
+    for kind, name in DST_EVENT_METHODS.items():
+        setattr(DSTWorld, name, wrap(kind, saved[name]))
+    try:
+        yield
+    finally:
+        for name, real in saved.items():
+            setattr(DSTWorld, name, real)
+
+
+@contextlib.contextmanager
+def dst_launches_noted(noted):
+    """While open, keep the inputs of the first KD and K2 launch at
+    each distinct shape (``noted[(kernel, key)]``): the launchers are
+    wrapped, and run unchanged."""
+    from cilium_tpu_torch.engine import dfa_dense_cuda, dfa_oblivious_cuda
+
+    kd, k2 = (dfa_dense_cuda.dense_scan_cuda,
+              dfa_oblivious_cuda.dfa_finals_oblivious_cuda)
+
+    def key(trans, data, lengths, *extra):
+        return (tuple(trans.shape), tuple(data.shape), tuple(data.stride()),
+                tuple(lengths.shape)) + tuple(
+                    None if e is None else tuple(e.shape) for e in extra)
+
+    def kd_noted(trans, byteclass, start, data, lengths, accept=None,
+                 extra=None, _variant=None):
+        noted.setdefault(("KD", key(trans, data, lengths, accept, extra)),
+                         ((trans, byteclass, start, data, lengths),
+                          {"accept": accept, "extra": extra}))
+        return kd(trans, byteclass, start, data, lengths, accept=accept,
+                  extra=extra, _variant=_variant)
+
+    def k2_noted(trans, byteclass, start, data, lengths):
+        noted.setdefault(("K2", key(trans, data, lengths)),
+                         ((trans, byteclass, start, data, lengths), {}))
+        return k2(trans, byteclass, start, data, lengths)
+
+    dfa_dense_cuda.dense_scan_cuda = kd_noted
+    dfa_oblivious_cuda.dfa_finals_oblivious_cuda = k2_noted
+    try:
+        yield
+    finally:
+        dfa_dense_cuda.dense_scan_cuda = kd
+        dfa_oblivious_cuda.dfa_finals_oblivious_cuda = k2
+
+
+def dst_sweep(noted, card):
+    """15a: the sweep on the card, each event kind's wall ms."""
+    import torch
+
+    from cilium_tpu_torch.runtime import dst
+
+    results, ms = {}, {}
+    reset_counts()
+    with dst_event_timing(ms), dst_launches_noted(noted):
+        line, failing, _ = dst.sweep(
+            DST_SEEDS, max_events=DST_MAX_EVENTS, device=DEVICE,
+            log=log, on_result=lambda r: results.__setitem__(r["seed"], r))
+    torch.cuda.synchronize()
+    launches = counts()
+    check(failing is None and line["violations"] == 0,
+          f"[dst] the sweep violated an invariant: "
+          f"{failing and (failing['seed'], failing['violation'])}")
+    check(line["value"] == DST_SEEDS, f"[dst] ran {line['value']} schedules")
+    check(launches["KD"] > 0, f"[dst] KD never launched: {launches}")
+    events = sum(len(r["events"]) + 1 for r in results.values())
+    line.update({
+        "launches": launches,
+        "kd_launches_per_schedule": launches["KD"] / DST_SEEDS,
+        "events": events,
+        "wall_s_per_schedule": line["wall_s"] / DST_SEEDS,
+        "event_ms": {k: {"n": len(v), "mean": statistics.fmean(v),
+                         "p50": statistics.median(v), "max": max(v)}
+                     for k, v in sorted(ms.items())},
+        "card": card})
+    log(f"[dst] 15a: {line['value']} schedules on the card, "
+        f"{line['distinct_schedules']} distinct, 0 violations, "
+        f"{line['simulated_s']} s simulated in {line['wall_s']} s wall "
+        f"({line['speedup_vs_real_time']}x); KD {launches['KD']} launches "
+        f"({line['kd_launches_per_schedule']:.0f} a schedule)")
+    return line, results
+
+
+def dst_pallas(results, noted):
+    """15b: seeds 0-4 again with the oblivious arm (K2) picked by each
+    world's engines: the same traces, K2 launched, no fallback."""
+    import torch
+
+    from cilium_tpu_torch.runtime import dst
+
+    prev = os.environ.get("CILIUM_TPU_DFA_IMPL")
+    os.environ["CILIUM_TPU_DFA_IMPL"] = "pallas"
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                dst_launches_noted(noted):
+            warnings.simplefilter("always")
+            got = {s: dst.run_schedule(s, max_events=DST_MAX_EVENTS,
+                                       device=DEVICE)
+                   for s in range(DST_RECHECK_SEEDS)}
+    finally:
+        if prev is None:
+            os.environ.pop("CILIUM_TPU_DFA_IMPL", None)
+        else:
+            os.environ["CILIUM_TPU_DFA_IMPL"] = prev
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    fallbacks = [str(w.message) for w in caught
+                 if "falling back" in str(w.message)]
+    check(not fallbacks, f"[dst pallas] the oblivious arm fell back: "
+                         f"{fallbacks[:2]}")
+    check(launches["K2"] > 0, f"[dst pallas] K2 never launched: {launches}")
+    for s, res in got.items():
+        check(res["trace"] == results[s]["trace"]
+              and res["digest"] == results[s]["digest"],
+              f"[dst pallas] seed {s}: the trace under the oblivious arm "
+              f"differs from the gather arm's")
+    log(f"[dst] 15b: seeds 0-{DST_RECHECK_SEEDS - 1} under "
+        f"CILIUM_TPU_DFA_IMPL=pallas: traces equal to 15a's, K2 "
+        f"{launches['K2']} launches, KD {launches['KD']}, no fallback, "
+        f"{wall:.1f} s")
+    return {"seeds": DST_RECHECK_SEEDS, "wall_s": wall,
+            "launches": launches, "warnings": len(caught)}
+
+
+def dst_planted(case, cpu):
+    """15c: the planted bugs on the card, each caught as the reference
+    catches it (the recorded index and invariant; the case's recorded
+    detail lists the 23 probe flows of an older world, so the detail is
+    held to the CPU run's) and clean without its mutation."""
+    from cilium_tpu_torch.runtime import dst, faults
+
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    for name, seed, events, mutation, want in (
+            ("regression", case["seed"], case["events"], case["mutation"],
+             case["violation"]),
+            ("positional-banks", POSITIONAL_BANKS_SEED, None,
+             "positional-banks",
+             {"index": 2, "invariant": "o-delta-compile"})):
+        os.environ[faults.MUTATION_ENV] = mutation
+        try:
+            bad = dst.run_schedule(seed, events=events,
+                                   max_events=DST_MAX_EVENTS, device=DEVICE)
+        finally:
+            os.environ.pop(faults.MUTATION_ENV, None)
+        clean = dst.run_schedule(seed, events=events,
+                                 max_events=DST_MAX_EVENTS, device=DEVICE)
+        v = bad["violation"]
+        check(v is not None and (v["index"], v["invariant"]) ==
+              (want["index"], want["invariant"]),
+              f"[dst planted {name}] on the card: {v}, want {want}")
+        ref = cpu["regression" if name == "regression" else "positional"]
+        check(v == ref["violation"],
+              f"[dst planted {name}] the card's violation {v} differs from "
+              f"the CPU's {ref['violation']}")
+        check(clean["violation"] is None,
+              f"[dst planted {name}] violates without the mutation: "
+              f"{clean['violation']}")
+        out[name] = {"seed": seed, "mutation": mutation, "violation": v}
+        log(f"[dst] 15c: {mutation} caught on the card at seed {seed}: "
+            f"{v['invariant']} at index {v['index']} (detail equal to the "
+            f"CPU run's); clean without it")
+    out["launches"] = counts()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dst_mesh_scale():
+    """15d (host only): the identity and clustermesh planes at phase
+    10's 10000 identities."""
+    from cilium_tpu_torch.clustermesh import (
+        CLUSTER_LABEL_KEY,
+        ClusterMesh,
+        LocalStatePublisher,
+    )
+    from cilium_tpu_torch.core.identity import IdentityAllocator
+    from cilium_tpu_torch.core.labels import SOURCE_K8S, LabelSet
+    from cilium_tpu_torch.identity_kvstore import ClusterIdentityAllocator
+    from cilium_tpu_torch.ipcache import IPCache
+    from cilium_tpu_torch.kvstore import KVStore
+
+    n = MESH_SCALE
+    pool = [LabelSet.from_dict({"app": f"a{i % 97}", "ns": f"n{i // 97}"})
+            for i in range(n)]
+    store = KVStore()
+    a = ClusterIdentityAllocator(store).start()
+    b = ClusterIdentityAllocator(store).start()
+    t0 = time.perf_counter()
+    ids_a = [a.allocate(lbls) for lbls in pool]
+    ids_b = [b.allocate(lbls) for lbls in pool]
+    alloc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = ClusterIdentityAllocator(store).start()
+    ids_f = [fresh.lookup_by_labels(lbls) for lbls in pool]
+    replay_s = time.perf_counter() - t0
+    for x in (a, b, fresh):
+        x.close()
+    check(ids_a == ids_b == ids_f and len(set(ids_a)) == n,
+          f"[dst mesh] the allocators disagree on {n} label sets")
+    remote_alloc = IdentityAllocator()
+    remote_ipc = IPCache(remote_alloc)
+    mesh_store = KVStore()
+    pub = LocalStatePublisher(mesh_store, "alpha", remote_alloc, remote_ipc,
+                              lease_ttl=3600.0)
+    local_alloc = IdentityAllocator()
+    local_ipc = IPCache(local_alloc)
+    mesh = ClusterMesh(local_alloc, local_ipc)
+    rc = mesh.connect("alpha", mesh_store)
+    ips = [f"10.{8 + i // 62500}.{(i // 250) % 250}.{i % 250 + 1}"
+           for i in range(n)]
+    t0 = time.perf_counter()
+    for i, ip in enumerate(ips):
+        nid = remote_alloc.allocate(LabelSet.from_dict(
+            {"meshapp": f"m{i % 50}"}))
+        remote_ipc.upsert(f"{ip}/32", nid)
+    pub.heartbeat()
+    announce_s = time.perf_counter() - t0
+    tagged = 0
+    for ip in ips:
+        nid = local_ipc.lookup(ip)
+        lbls = local_alloc.lookup(nid) if nid is not None else None
+        tag = lbls.get(CLUSTER_LABEL_KEY, SOURCE_K8S) if lbls else None
+        tagged += tag is not None and tag.value == "alpha"
+    entries = rc.num_entries()
+    mesh.close()
+    check(tagged == n and entries == n,
+          f"[dst mesh] {tagged} of {n} announcements resolved with the "
+          f"remote cluster tag ({entries} entries)")
+    out = {"label_sets": n, "allocate_ms": alloc_s * 1e3,
+           "allocate_per_s": 2 * n / alloc_s, "replay_ms": replay_s * 1e3,
+           "announcements": n, "announce_ms": announce_s * 1e3,
+           "announce_per_s": n / announce_s, "host_only": True}
+    log(f"[dst] 15d (host only, no device work): {n} label sets through "
+        f"two allocators over one kvstore in {out['allocate_ms']:.0f} ms "
+        f"({out['allocate_per_s']:.0f} allocations/s), a fresh replay in "
+        f"{out['replay_ms']:.0f} ms, all equal; {n} announcements "
+        f"publisher -> kvstore -> remote cluster -> ipcache in "
+        f"{out['announce_ms']:.0f} ms ({out['announce_per_s']:.0f}/s), "
+        f"every one tagged alpha")
+    return out
+
+
+def dst_hold(errs, noted):
+    """KD and K2 exactly against their plain versions at every launch
+    shape the DST worlds staged (15a and 15b)."""
+    from cilium_tpu_torch.engine import dfa_dense_cuda, dfa_oblivious_cuda
+
+    held = {"KD": 0, "K2": 0}
+    for (kid, key), (args, kw) in sorted(noted.items(), key=str):
+        NB, S, K = args[0].shape
+        what = f"dst {(NB, S, K)} B={args[3].shape[0]} L={args[3].shape[1]}" \
+               f"{' accept' if kw.get('accept') is not None else ''}" \
+               f"{' extra' if kw.get('extra') is not None else ''}"
+        if kid == "KD":
+            hold(errs, "KD", what, dfa_dense_cuda.dense_scan_cuda(*args, **kw),
+                 dfa_dense_cuda.dense_scan_plain(*args, **kw))
+        else:
+            hold(errs, "K2", what,
+                 dfa_oblivious_cuda.dfa_finals_oblivious_cuda(*args),
+                 dfa_oblivious_cuda.dfa_finals_oblivious_plain(*args))
+        held[kid] += 1
+    return held
+
+
+def dst_phase(errs, dst_jobs, card):
+    """Phase 15 (see the module docstring) → (report, launches by
+    pass)."""
+    t0 = time.perf_counter()
+    case, jobs = dst_jobs
+    noted = {}
+    log("phase 15a: the DST sweep on the card")
+    sweep, results = dst_sweep(noted, card)
+    cpu = {k: f.result() for k, f in jobs.items()}
+    for s in range(DST_RECHECK_SEEDS):
+        check(cpu[("seed", s)]["digest"] == results[s]["digest"],
+              f"[dst] seed {s}: the card's digest {results[s]['digest']} "
+              f"differs from the CPU's {cpu[('seed', s)]['digest']}")
+    log(f"[dst] 15a: seeds 0-{DST_RECHECK_SEEDS - 1} on the CPU (in the "
+        f"worker pool): digests equal to the card's")
+    log("phase 15b: seeds 0-4 under CILIUM_TPU_DFA_IMPL=pallas")
+    pallas = dst_pallas(results, noted)
+    log("phase 15c: the planted bugs on the card")
+    planted = dst_planted(case, cpu)
+    log("phase 15d: the identity and clustermesh planes at mesh scale "
+        "(host only)")
+    mesh = dst_mesh_scale()
+    log(f"phase 15: KD and K2 at the {len(noted)} launch shapes the DST "
+        f"worlds staged, against their plain versions")
+    held = dst_hold(errs, noted)
+    report = {"sweep": sweep, "pallas": pallas, "planted": planted,
+              "mesh": mesh, "held_shapes": held, "card": card,
+              "wall_s": time.perf_counter() - t0}
+    launches = {"dst-sweep": sweep["launches"], "dst-pallas":
+                pallas["launches"], "dst-planted": planted["launches"]}
+    return report, launches
+
+
 def kd_variants():
     """KD's launches by variant since the counts were last set to 0."""
     from cilium_tpu_torch.engine import _build
@@ -6415,14 +6825,16 @@ def main() -> int:
         ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
         oracle_jobs = start_oracle(pool)
-        return run_phases(torch, smi, card, oracle_jobs,
-                          pool.submit(lb_world))
+        lb_job = pool.submit(lb_world)
+        # phase 15's CPU replays, queued behind the oracle samples
+        dst_jobs = start_dst_cpu(pool)
+        return run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
 
-def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
-    """Phases 2-15 (see the module docstring)."""
+def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
+    """Phases 2-16 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     log("phase 2: build")
@@ -6563,6 +6975,10 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
     par_report, par_launches, par_variants = parallel_phase(
         loader_engines["loader-path"], scenario.flows, card)
     log(f"phase 14 wall {par_report['wall_s']:.1f} s")
+    log("phase 15: deterministic simulation testing — DSTWorld over the "
+        "port's engine on the card")
+    dst_report, dst_launches = dst_phase(errs, dst_jobs, card)
+    log(f"phase 15 wall {dst_report['wall_s']:.1f} s")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -6576,6 +6992,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
     phase_launches.update(baseline_launches)
     phase_launches.update(lbsp_launches)
     phase_launches["parallel"] = par_launches
+    phase_launches.update(dst_launches)
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -6628,6 +7045,8 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
             "baseline_shapes": {
                 n: r["rows"].get(kid, [])
                 for n, r in baseline_report["kernels"].items()},
+            # phase 15: the DST worlds' launch shapes held exactly
+            "dst_shapes_held": dst_report["held_shapes"].get(kid, 0),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -6653,6 +7072,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job) -> int:
     log("baseline: " + json.dumps(baseline_report))
     log("lb_sp_probe: " + json.dumps(lbsp_report))
     log("parallel: " + json.dumps(par_report))
+    log("dst: " + json.dumps(dst_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

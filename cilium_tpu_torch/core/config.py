@@ -11,12 +11,12 @@ loader's config), and ``admission``, ``breaker`` and ``serve`` (which
 serving fleet's topology and health knobs, which
 ``runtime.fleetserve.main`` reads), and ``parallel`` (the mesh layout
 and the sharded verdict lane, which ``parallel.mesh`` and
-``parallel.sharding.stage_for_lane`` read). The reference's other
-sections (tracing, dst), its agent fields, its TOML
+``parallel.sharding.stage_for_lane`` read), and ``dst`` (the seeded
+fault-schedule search, which ``runtime.dst.main`` reads). The
+reference's other section (tracing), its agent fields, its TOML
 reader and the environment settings of fields that no ported module
-reads yet (``identity_regen_debounce_s``, the tenant quantum and quota
-TTL, the REST API's ``admission.api_max_inflight``) come with the
-modules that read them.
+reads yet (``identity_regen_debounce_s``, the REST API's
+``admission.api_max_inflight``) come with the modules that read them.
 
 Two deliberate deviations from the reference, each tested
 (``tests/test_torch_loader.py``):
@@ -286,6 +286,23 @@ class ProvenanceConfig:
 
 
 @dataclasses.dataclass
+class DSTConfig:
+    """Deterministic simulation testing (runtime/dst.py): seeded
+    fault-schedule search over the serving plane under virtual time
+    (runtime/simclock.py). ``seed`` pins one schedule for replay —
+    the same seed reproduces a byte-identical event trace; the sweep
+    (``python -m cilium_tpu_torch.runtime.dst``) runs ``schedules``
+    seeds of up to ``max_events`` events each and fails on any
+    invariant violation. ``mutation`` arms a known-fixed planted bug
+    (faults.MUTATIONS) so the lane can prove the search catches it."""
+
+    seed: int = 0
+    schedules: int = 200
+    max_events: int = 12
+    mutation: str = ""
+
+
+@dataclasses.dataclass
 class FleetConfig:
     """Horizontal serving fleet (runtime/fleetserve.py): N agent
     replicas behind a stream-affinity rendezvous router with per-host
@@ -411,6 +428,7 @@ class Config:
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
     provenance: ProvenanceConfig = dataclasses.field(
         default_factory=ProvenanceConfig)
+    dst: DSTConfig = dataclasses.field(default_factory=DSTConfig)
     fleet: FleetConfig = dataclasses.field(default_factory=FleetConfig)
     tenant: TenantConfig = dataclasses.field(default_factory=TenantConfig)
     canary: CanaryConfig = dataclasses.field(default_factory=CanaryConfig)
@@ -502,6 +520,10 @@ class Config:
             cfg.parallel.lane = env["CILIUM_TPU_PARALLEL_LANE"]
         if "CILIUM_TPU_CP_BLOCK" in env:
             cfg.parallel.cp_block = int(env["CILIUM_TPU_CP_BLOCK"])
+        if "CILIUM_TPU_DST_SEED" in env:
+            cfg.dst.seed = int(env["CILIUM_TPU_DST_SEED"])
+        if "CILIUM_TPU_DST_MUTATION" in env:
+            cfg.dst.mutation = env["CILIUM_TPU_DST_MUTATION"]
         if "CILIUM_TPU_FLEET_REPLICAS" in env:
             cfg.fleet.replicas = int(env["CILIUM_TPU_FLEET_REPLICAS"])
         if "CILIUM_TPU_FLEET_HEARTBEAT_INTERVAL_S" in env:
@@ -527,6 +549,12 @@ class Config:
         if "CILIUM_TPU_TENANT_MAX_SHARE" in env:
             cfg.tenant.max_share = float(
                 env["CILIUM_TPU_TENANT_MAX_SHARE"])
+        if "CILIUM_TPU_TENANT_QUANTUM_S" in env:
+            cfg.tenant.quantum_s = float(
+                env["CILIUM_TPU_TENANT_QUANTUM_S"])
+        if "CILIUM_TPU_TENANT_QUOTA_TTL_S" in env:
+            cfg.tenant.quota_ttl_s = float(
+                env["CILIUM_TPU_TENANT_QUOTA_TTL_S"])
         if env.get("CILIUM_TPU_CANARY", "").lower() in (
                 "1", "true", "yes"):
             cfg.canary.enabled = True

@@ -18,8 +18,12 @@ Points the port registers: ``engine.dispatch`` (device dispatch,
 (``runtime/loader.py``), ``loader.bank_compile``
 (``policy/compiler/bankplan.py``), ``compile.worker``
 (``policy/compiler/compilequeue.py``), ``artifact.fetch``
-(``runtime/checkpoint.py``) and ``canary.dispatch``
-(``runtime/canary.py``).
+(``runtime/checkpoint.py``), ``canary.dispatch``
+(``runtime/canary.py``), ``kvstore.watch`` (``kvstore.py``),
+``kvstore.churn_storm`` (``identity_kvstore.py``),
+``clustermesh.session`` and ``clustermesh.heartbeat``
+(``clustermesh.py``) and ``tenant.quota`` (``runtime/tenant.py``),
+among others.
 
 Usage::
 
@@ -201,12 +205,23 @@ def maybe_fail(point: str) -> None:
         raise exc
 
 
-#: names a known FIXED bug to re-introduce, so a schedule search can
-#: prove it would have caught it: "rollback-artifact-key" (the loader's
-#: rollback keeps the aborted revision's artifact key) or
-#: "positional-banks" (bankplan groups positionally). Off (empty) in
-#: production; read per call so tests toggle it with monkeypatch
+#: DST mutation testing (runtime/dst.py): ``CILIUM_TPU_DST_MUTATION``
+#: names a known FIXED bug to re-introduce, so the schedule search can
+#: prove it would have caught the bug. Off (empty) in production; the
+#: env var is read per call so tests toggle it with monkeypatch.
 MUTATION_ENV = "CILIUM_TPU_DST_MUTATION"
+
+#: mutation name → where the planted bug lives (introspection/docs;
+#: the reference's words, without its history notes)
+MUTATIONS: Dict[str, str] = {
+    "rollback-artifact-key":
+        "Loader.regenerate rollback keeps _last_artifact_key at the "
+        "aborted revision",
+    "positional-banks":
+        "bankplan.partition_patterns groups positionally — one delete "
+        "shifts every later bank",
+}
+
 
 def mutation_active(name: str) -> bool:
     """True when the named planted bug is armed. The seams guard their

@@ -1,12 +1,14 @@
 """The metric families the port's capture replay, verdict memo,
 online serving path, loader plane, verdict service, stream and serving
 fleet, the scan-arm autotuner, the DNS proxy, the engine's phase
-probes and the parallel layer's collective ledger report, under the reference's names (``runtime/metrics.py``),
-and the part of its registry they use: counters (``inc``/``get``),
-gauges (``set_gauge``), histograms (``observe``/``histo_sum``/
-``histo_count``/``histogram``),
+probes, the parallel layer's collective ledger and the cluster state
+planes (kvstore, identities, clustermesh, tenant quotas) report, under
+the reference's names (``runtime/metrics.py``), and the part of its
+registry they use: counters (``inc``/``get``), gauges (``set_gauge``),
+histograms (``observe``/``histo_sum``/``histo_count``/``histogram``),
 :class:`SpanStat`, and the Prometheus text the service's ``metrics``
-op returns (``expose``).
+op returns (``expose``, with the reference's ``# HELP`` text for the
+families in :data:`HELP`).
 """
 
 from __future__ import annotations
@@ -230,12 +232,49 @@ ENGINE_PHASE_SECONDS = "cilium_tpu_engine_phase_seconds"
 #: completion forcing)
 ENGINE_HOST_SYNCS = "cilium_tpu_engine_host_syncs_total"
 
+# -- the cluster state planes (kvstore.py, identity_kvstore.py,
+# clustermesh.py, runtime/tenant.py)
+#: watch callbacks that raised and were isolated (kvstore.py)
+KVSTORE_WATCH_ERRORS = "cilium_tpu_kvstore_watch_errors_total"
+#: undecodable remote-cluster kvstore events, by cluster
+CLUSTERMESH_DECODE_ERRORS = "cilium_tpu_clustermesh_decode_errors_total"
+#: gauge: 1 while a remote cluster's session is live, by cluster
+CLUSTERMESH_READY = "cilium_tpu_clustermesh_ready"
+#: gauge: identities known to the cluster-scope cache
+IDENTITIES_CLUSTER = "cilium_tpu_identities_cluster"
+#: orphan kvstore identities the operator's GC reaped
+IDENTITY_GC = "cilium_tpu_operator_identities_gc_total"
+#: identity-churn events a debounce window absorbed
+IDENTITY_REGEN_COALESCED = "cilium_tpu_identity_regen_coalesced_total"
+#: per-tenant quota-store reads, by result (``live`` = an unexpired
+#: declared share, ``lapsed`` = TTL expiry fell back to the
+#: conservative default, ``fault-default`` = the ``tenant.quota``
+#: read was lost and the conservative default applied)
+TENANT_QUOTA_READS = "cilium_tpu_tenant_quota_reads_total"
+
 # -- the collective ledger (parallel/collectives.py)
 #: collective ops recorded at trace time, by site/op/axis (count per
 #: compiled block) — in the port, per executed lane call
 COLLECTIVE_OPS = "cilium_tpu_collective_ops_total"
 #: collective payload bytes (as-traced shapes), by site/op/axis
 COLLECTIVE_BYTES = "cilium_tpu_collective_bytes_total"
+
+#: ``# HELP`` text by family, the reference's words
+HELP: Dict[str, str] = {
+    KVSTORE_WATCH_ERRORS:
+        "kvstore watch callbacks that raised and were isolated",
+    CLUSTERMESH_DECODE_ERRORS: "undecodable remote-cluster kvstore events",
+    CLUSTERMESH_READY: "1 when the remote cluster's session is live",
+    IDENTITIES_CLUSTER: "identities known to the cluster-scope cache",
+    IDENTITY_GC: "kvstore identities garbage-collected",
+    IDENTITY_REGEN_COALESCED:
+        "identity-churn events absorbed by an already-armed "
+        "regeneration debounce window (storm size minus the "
+        "one regeneration that covered it)",
+    TENANT_QUOTA_READS:
+        "per-tenant quota-store reads, by result (live / "
+        "lapsed / fault-default)",
+}
 
 #: latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -337,7 +376,8 @@ class Metrics:
                             h.counts))
 
     def expose(self) -> str:
-        """Prometheus text format: one ``# TYPE`` line per family,
+        """Prometheus text format: one ``# TYPE`` line per family
+        (after its ``# HELP`` line, where :data:`HELP` has one),
         cumulative ``_bucket{le=...}`` series ending ``+Inf`` plus
         ``_count``/``_sum`` per histogram series."""
         out = []
@@ -349,6 +389,8 @@ class Metrics:
             last = None
             for (name, labels), v in items:
                 if name != last:
+                    if name in HELP:
+                        out.append(f"# HELP {name} {HELP[name]}")
                     out.append(f"# TYPE {name} {typ}")
                     last = name
                 out.append(f"{_fmt(name, labels)} {_num(v)}")

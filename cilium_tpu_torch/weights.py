@@ -12,11 +12,16 @@ comparison operators the resolve needs, and the bits are what matter.
 table (``PackedLB``) for ``loadbalancer.lb_lookup``. There the uint32
 columns are addresses that the lookup orders and hashes, so they are
 widened to int64, not re-read as bit patterns.
+
+``store_from_reference`` is the cluster state carried across: a
+kvstore's contents (``list_prefix("")`` of either package's store) as
+a port ``KVStore``, so a port identity allocator or clustermesh watcher
+started over it sees the reference's identities and announcements.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -60,3 +65,15 @@ def lb_arrays_from_reference(packed, device: DeviceLike = None
         a = a.astype(np.int64) if a.dtype == np.uint32 else a.copy()
         out.append(torch.from_numpy(a).to(dev))
     return tuple(out)
+
+
+def store_from_reference(items: Mapping[str, str]):
+    """{key: value} (a store's ``list_prefix("")``) → a port
+    ``KVStore`` holding the same keys and values, set in sorted key
+    order. Leases do not carry: every key is set without one."""
+    from cilium_tpu_torch.kvstore import KVStore
+
+    store = KVStore()
+    for key in sorted(items):
+        store.set(key, items[key])
+    return store

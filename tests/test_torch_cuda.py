@@ -19,7 +19,10 @@ K2, and ``lb_lookup`` on the card against its ``device="cpu"`` run. The
 parallel layer in a one-rank NCCL world in the test's process: the DP,
 EP and CP verdict lanes against the fused step on the card (EP launches
 KD), the Ulysses, TP and CP scans against KD, ``payload_scan_cp``
-against ``payload_scan_sp``, with their collective budgets.
+against ``payload_scan_sp``, with their collective budgets. A DST
+schedule with a ``multichip`` and a ``serve`` event gives the same trace
+on the card as on the CPU, and the committed regression case reproduces
+on the card.
 """
 
 import numpy as np
@@ -944,3 +947,48 @@ def test_run_pipelined_on_the_card_equals_the_sequential_loop(cuda, depth):
     for g, w in zip(got, want):
         for name in OUTPUT_LANES:
             np.testing.assert_array_equal(g[name], w[name], name)
+
+
+def test_dst_schedule_with_multichip_and_serve_on_card_equals_cpu(cuda):
+    """A DST schedule with a ``multichip`` and a ``serve`` event (and a
+    dispatch fault, traffic and a churn) gives the same trace on the
+    card as on the CPU: the world's engine, memo, ring and the two gloo
+    ranks' DP and CP lanes on ``cuda``."""
+    from cilium_tpu_torch.runtime import dst
+
+    events = [["fault", "engine.dispatch", 1], ["traffic"], ["serve", 4],
+              ["churn", "add", 1], ["multichip"], ["serve", 2]]
+    got = dst.run_schedule(0, events=events, device="cuda")
+    want = dst.run_schedule(0, events=events, device="cpu")
+    assert got["violation"] is None
+    assert got["trace"] == want["trace"]
+    assert got["digest"] == want["digest"]
+    mc = [e["out"] for e in got["trace"] if e["event"] == ["multichip"]]
+    assert mc[0]["devices"] == 2 and not mc[0].get("faulted")
+
+
+def test_dst_regression_case_reproduces_on_card(cuda, monkeypatch):
+    """The committed regression case replays on the card to the CPU
+    run's violation (the recorded index and invariant), and is clean
+    without its mutation."""
+    import json
+    import os
+
+    from cilium_tpu_torch.runtime import dst, faults
+
+    path = os.path.join(os.path.dirname(__file__), "dst", "regressions",
+                        "dst_seed2_e27df4160b0adb25.json")
+    with open(path) as fp:
+        case = json.load(fp)
+    monkeypatch.setenv(faults.MUTATION_ENV, case["mutation"])
+    got = dst.run_schedule(case["seed"], events=case["events"],
+                           device="cuda")
+    want = dst.run_schedule(case["seed"], events=case["events"],
+                            device="cpu")
+    assert got["violation"] == want["violation"]
+    assert (got["violation"]["index"], got["violation"]["invariant"]) == \
+        (case["violation"]["index"], case["violation"]["invariant"])
+    monkeypatch.delenv(faults.MUTATION_ENV)
+    clean = dst.run_schedule(case["seed"], events=case["events"],
+                             device="cuda")
+    assert clean["violation"] is None

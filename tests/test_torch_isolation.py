@@ -40,7 +40,13 @@ def _all_modules():
 
 
 #: modules every slice so far added, which the walk must find
-_EXPECTED = ("cilium_tpu_torch.engine.longscan",
+_EXPECTED = ("cilium_tpu_torch.clustermesh",
+             "cilium_tpu_torch.core.identity_cache",
+             "cilium_tpu_torch.identity_kvstore",
+             "cilium_tpu_torch.kvstore",
+             "cilium_tpu_torch.runtime.dst",
+             "cilium_tpu_torch.runtime.tenant",
+             "cilium_tpu_torch.engine.longscan",
              "cilium_tpu_torch.engine.megakernel",
              "cilium_tpu_torch.engine.phases",
              "cilium_tpu_torch.fqdn",
@@ -218,3 +224,27 @@ def test_parallel_entry_points_raise_when_cuda_is_absent(monkeypatch,
         assert collectives._staged(cuda)
     finally:
         dist.destroy_process_group()
+
+
+def test_dst_entry_points_raise_when_cuda_is_absent(monkeypatch, tmp_path):
+    """``DSTWorld`` and ``run_schedule`` (and so ``search`` and
+    ``main``) default to ``cuda`` like the engine: without CUDA they
+    raise unless the caller names the CPU, and ``run_schedule`` raises
+    before it makes its artifact-cache directory."""
+    import tempfile
+
+    from cilium_tpu_torch.runtime import dst
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dst.DSTWorld(str(tmp_path))
+    made = []
+    monkeypatch.setattr(tempfile, "mkdtemp",
+                        lambda *a, **k: made.append(1) or str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dst.run_schedule(0, events=[["traffic"]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dst.search(1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dst.main(["--replay", "--seed", "0"])
+    assert made == []

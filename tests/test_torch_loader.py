@@ -341,7 +341,7 @@ def test_config_deviations_and_from_env():
     assert ported == {"enable_tpu_offload", "policy_audit_mode", "engine",
                       "loader", "compile", "slo", "provenance", "tenant",
                       "canary", "admission", "breaker", "serve", "fleet",
-                      "parallel"}
+                      "parallel", "dst"}
 
     def sections(cfg):
         d = dataclasses.asdict(cfg)
@@ -370,7 +370,11 @@ def test_config_deviations_and_from_env():
            "CILIUM_TPU_SERVE_LEASE_TTL_S": "7.5",
            "CILIUM_TPU_SERVE_PACK_INTERVAL_MS": "0.5",
            "CILIUM_TPU_POLICY_AUDIT_MODE": "1",
-           "CILIUM_TPU_FLEET_SUSPICION_TTL_S": "2.5"}
+           "CILIUM_TPU_FLEET_SUSPICION_TTL_S": "2.5",
+           "CILIUM_TPU_DST_SEED": "9",
+           "CILIUM_TPU_DST_MUTATION": "positional-banks",
+           "CILIUM_TPU_TENANT_QUANTUM_S": "2.5",
+           "CILIUM_TPU_TENANT_QUOTA_TTL_S": "7"}
     jd = dataclasses.asdict(JAX.config.Config.from_env(env))
     jd["admission"].pop("api_max_inflight")
     pd = dataclasses.asdict(PORT.config.Config.from_env(env))
