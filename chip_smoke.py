@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order (any failure exits non-zero before the result line):
+Phases (any failure exits non-zero before the result line), in order
+but for 15 and 14, which run, in that order, inside phase 10:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the hand-written kernels (KD, K1, K2) from
@@ -89,7 +90,7 @@ Phases, in order (any failure exits non-zero before the result line):
    each, zero stale verdicts against the plain engine of the committed
    snapshot (and, after every delete and the last add, against the CPU
    oracle on a 500-flow sample, computed in worker processes during
-   phases 2-7), 1-3 bank compiles an add and none a delete (the banks
+   phases 3-7), 1-3 bank compiles an add and none a delete (the banks
    are content-addressed), memo misses exactly on the rows the delta
    names, and update-to-enforcement ms (regenerate to the first pack
    served under it). Then a rollback (the swap point injected once: the
@@ -138,8 +139,10 @@ Phases, in order (any failure exits non-zero before the result line):
    stream session's first delta scan. A ``service: {...}`` line
    carries the numbers;
 10. the cluster-mesh lanes, each through the port's entry points in a
-   spawned process of its own, one after another (each reads its own
-   peak RSS and launch counts): first (step 0) the 27-bank churn lane
+   spawned process of its own (each reads its own peak RSS and launch
+   counts; the two lanes on the wall clock one after another with
+   nothing beside them, then the two on the simulation clock side by
+   side, with phases 15 and 14 in this process): first (step 0) the 27-bank churn lane
    (``tools/churn_lane.run``, the reference's ``make churn``: 12
    identities x 8 paths, bank size 4, 56 CNP and FQDN updates through a
    live replay session; zero stale and ERROR verdicts, O(delta) bank
@@ -207,7 +210,7 @@ Phases, in order (any failure exits non-zero before the result line):
    100000 flows). The host seconds of the scenario, the resolve, the
    compile, the encode and the staging are printed apart; then
    ``bench.py``'s timing: fqdn completion-forced batch p50/p99 and
-   pipelined verdicts/s (median of 5 windows), mixed and clustermesh
+   pipelined verdicts/s (median of 3 windows), mixed and clustermesh
    every chunk of 8192 staged before the timer, a forced latency pass
    per chunk and one throughput pass. All ten lanes equal a
    ``device="cpu"`` engine on every fqdn flow and on the first, the last
@@ -244,7 +247,7 @@ Phases, in order (any failure exits non-zero before the result line):
    (16381 slots: a 67 MB slab; a quarter of the services with ClientIP
    affinity, a quarter of the VIPs above 2**31), the manager built,
    packed and asked ``select()`` for 4096 flows in the worker pool
-   during phases 2-7: 65536 flows (80 % to live frontends), all three
+   during phases 3-7: 65536 flows (80 % to live frontends), all three
    outputs equal to the ``device="cpu"`` run, the sample to
    ``select()``, the empty manager's pack missing on the card; median
    of 25 forced calls, a traced call, the byte bound; (c) the phase
@@ -257,7 +260,10 @@ Phases, in order (any failure exits non-zero before the result line):
    kernels and ms from one traced call beside its ms; both metric
    families must receive observations. A ``lb_sp_probe: {...}`` line
    carries the numbers;
-14. the parallel layer (``cilium_tpu_torch/parallel``) at phase 8's
+14. (run after phase 15, while phase 10's soak and fleet are on: it
+   holds bit-equality and the collective ledgers, and checks no time;
+   its walls are read beside those lanes) the parallel layer
+   (``cilium_tpu_torch/parallel``) at phase 8's
    loader-built http-1000 policy (path stack (7, 2048, 28)), B = 8192,
    every lane through ``tools/parallel_lanes.run_lane`` (the entry
    points ``stage_for_lane``, ``ulysses_scan_banked``,
@@ -283,16 +289,20 @@ Phases, in order (any failure exits non-zero before the result line):
    after the single-device results and read after (a) and (c); the
    ranks of (b) count their own. A ``parallel: {...}`` line carries the
    numbers;
-15. deterministic simulation testing (``runtime/dst.py``): ``DSTWorld``
+15. (run while phase 10's soak and fleet are on, right after its storm:
+   DST is deterministic by construction and reads nothing off the wall
+   clock that it checks) deterministic simulation testing
+   (``runtime/dst.py``): ``DSTWorld``
    over the port's engine on the card — its loader's engine, session
    memo, serving ring and fleet staged there, its multichip arm on two
-   gloo ranks sharing the card. (a) seeds 0-24 of ``generate(seed,
-   max_events=12)`` through ``dst.sweep`` (25 of the 200-schedule
-   sweep's seeds, the reference's own 25-schedule record): zero
+   gloo ranks sharing the card. (a) seeds 0-11 of ``generate(seed,
+   max_events=12)`` through ``dst.sweep`` (12 of the 200-schedule
+   sweep's seeds; the reference's own record has 25): zero
    violations; schedules, distinct schedules, simulated and wall
    seconds, KD launches and each event kind's wall ms; seeds 0-4 run
-   again on the CPU in the worker pool during phases 2-14, their
-   digests equal to the card's; (b) seeds 0-4 under
+   again on the CPU in the worker pool during phases 2-10, their
+   digests equal to the card's (their wall seconds are read beside
+   phase 10's soak and fleet); (b) seeds 0-4 under
    ``CILIUM_TPU_DFA_IMPL=pallas``: traces equal to (a)'s, K2 launched,
    no fallback warning; (c) the committed regression case with its
    mutation (``rollback-artifact-key``: ``oracle-agreement`` at index
@@ -330,9 +340,44 @@ Phases, in order (any failure exits non-zero before the result line):
    normalize and validate all of them and gate clean. Iterations (not shapes) are cut to keep the phase
    near 180 s (``BENCH16_*``). KD, K2 and K1 are then held exactly
    against their plain versions at every launch shape the tools staged
-   in this process and at the sweep's banks. A ``bench: {...}`` line
-   carries the numbers;
-17. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+   in this process and at the sweep's banks, and timed at those banks
+   (device, call and plain ms beside the bound). A ``bench: {...}``
+   line carries the numbers;
+17. the observability and ingest plane at phase 8's loader-built
+   http-1000 policy: the scenario's flows repeated to 65536 records and
+   written by the port's writers as a flowpb stream (absolute
+   ``http.url``, as Hubble writes it), JSONL and a binary v2 capture.
+   (a) The flowpb capture through ``replay_chunks`` under a
+   ``ReplayCursor`` in chunks of 8192 (``cmd_replay``'s unit), each
+   chunk verdicted on the card (``verdict_flows``, ``auto``: KD) and
+   fanned out as the reference's ``Agent.fan_out`` does
+   (``MonitorAgent.notify_batch``, ``annotate_flows`` with the engine's
+   attribution map, ``Observer.observe``; one trace a chunk), while an
+   ``Observer`` (capacity 4096) runs ``FlowMetrics``, a ``FlowExporter``
+   and a sequence recorder, a ``HubbleServer`` serves a ``HubbleClient``
+   following from seq 0, a ``MonitorServer`` serves two
+   ``monitor_follow`` subscribers (``medium``, ``maximum``) and an
+   ``AccessLogServer`` takes 1000 access-log records of the scenario's
+   HTTP flows. Every flow the follower received equals the annotated
+   flow at its seq, and received + lost = 66536 = ``server_status``'s
+   ``seen``; each subscriber's events are ``events_from_outputs``' at
+   its level, in order, and with its ``lost`` make up all of them; a
+   filtered ``get_flows`` (``DROPPED``, an ``http_path`` regex) equals
+   the same filter over the ring; the first chunk's fan-out on the card
+   equals the plain path's (``device="cpu"``): annotated flows, events,
+   exporter lines, ``FlowMetrics`` and monitor-event deltas, stamps
+   aside. (b) The flowpb capture again under ``nfa-bitset`` (K1). (c)
+   JSONL through the same object path; the binary capture through
+   ``replay_chunks(decode=False)`` into ``CaptureReplay`` (``--fast``).
+   (d) A replay killed after 3 committed chunks with the fourth
+   processed and not committed, then resumed from the cursor. The
+   verdict counts are equal across (a)-(d). Launch counts are zeroed
+   before and read after the phase (KD and K1 must have launched); KD
+   and K1 are then held exactly against their plain versions at every
+   launch shape the phase staged. An ``observe: {...}`` line carries
+   records/s a format, host ms a chunk by stage, the follower's and the
+   subscribers' losses and the launches;
+18. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -449,15 +494,17 @@ DRAIN_PENDING, DRAIN_DEADLINE_MS = 16, 2000.0
 #: soak's streams, virtual seconds and armed serve faults; the fleet's
 #: streams, hosts, virtual seconds, emitting fraction, armed heartbeat
 #: and handoff faults and its handoff floor; and the time the three
-#: lanes, run one after another, may take in all. To keep the three,
-#: run in turn, near 300 s of wall, the soak's virtual seconds are cut
-#: from the reference's 120 to 60 (every stream still arrives within
-#: the 30 s ramp) and the storm's updates from 56 to 28. The fleet keeps
+#: lanes may take in all. The soak and the fleet run side by side (both
+#: read their latencies on the simulation clock); the soak's virtual
+#: seconds are cut from the reference's 120 to 40 (every stream still arrives within
+#: the 30 s ramp; the soak's wall is ~0.13 s a 50 ms pack) and the
+#: storm's updates from 56 to 20 (60 and 28 until phase 17 needed the
+#: room). The fleet keeps
 #: its 120: its wall is its 1.05M arrivals, which fewer virtual seconds
 #: barely shorten, and at 60 its failover replays all but vanish
 CHURN_IDENTITIES, CHURN_CNPS, CHURN_UPDATES, CHURN_WORKERS = \
-    10_000, 5_000, 28, 4
-SOAK_STREAMS, SOAK_VIRTUAL_S, SOAK_FAULTS = 100_000, 60.0, 12
+    10_000, 5_000, 20, 4
+SOAK_STREAMS, SOAK_VIRTUAL_S, SOAK_FAULTS = 100_000, 40.0, 12
 FLEET_STREAMS, FLEET_HOSTS, FLEET_VIRTUAL_S = 1_050_000, 4, 120.0
 FLEET_ACTIVE, FLEET_FAULTS, FLEET_MIN_HANDOFFS = 0.02, 8, 400
 LANE_TIMEOUT_S = 600.0
@@ -490,10 +537,11 @@ BASELINE_LANES = (("fqdn", 10, 10_000), ("mixed", 0, 1_000_000),
 CM_IDENTITIES = 10_000
 #: ``bench.py``'s timing defaults: warm-up calls, batches a window
 #: (``--iters``), latency samples (``--lat-iters``), the fqdn lane's
-#: throughput windows and the seconds a window is cycled to; the
-#: streamed lanes' latency chunks at most
+#: throughput windows (3, cut from 5 to make room for phase 17) and the
+#: seconds a window is cycled to; the streamed lanes' latency chunks at
+#: most
 BENCH_WARMUP, BENCH_ITERS, BENCH_LAT_ITERS = 3, 20, 100
-BENCH_WINDOWS, BENCH_WINDOW_S, BENCH_STREAM_LAT = 5, 1.5, 32
+BENCH_WINDOWS, BENCH_WINDOW_S, BENCH_STREAM_LAT = 3, 1.5, 32
 #: the streamed lanes' chunks held against the plain engine: the first,
 #: the last and every tenth; the CPU oracle's sample (``--check``)
 HOLD_EVERY, BASELINE_ORACLE_SAMPLE = 10, 500
@@ -539,8 +587,18 @@ CONFIGS = {
 }
 
 
+#: the script's start, for the elapsed seconds of each phase's header
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line. A phase's header also goes to standard error with
+    the seconds since the start, so that the end of the error stream
+    says where a run that overran its limit was."""
     print(msg, flush=True)
+    if msg.startswith("phase "):
+        print(f"chip_smoke +{time.perf_counter() - T_START:.1f} s: "
+              f"{msg[:96]}", file=sys.stderr, flush=True)
 
 
 class SmokeFailure(Exception):
@@ -4043,57 +4101,93 @@ LANES = {"bank27": bank27_lane, "churn": churn_lane, "soak": soak_lane,
          "serve": fleet_lane}
 
 
+@contextlib.contextmanager
 def fleet_phase(card):
-    """Phase 10: the three cluster-mesh lanes, one after another, each
-    in a spawned process of its own (its own interpreter, CUDA context
-    and peak RSS), so that no lane's host clock runs beside another's.
-    Returns the report and each lane's counts."""
+    """Phase 10: the cluster-mesh lanes, each in a spawned process of
+    its own (its own interpreter, CUDA context and peak RSS). The two
+    lanes timed on the wall clock (the 27-bank lane, whose p99 arms the
+    storm's gate, then the storm) run one after another while this
+    process waits, so that no other work runs beside theirs; then the
+    soak and the fleet, whose latencies are read on the simulation
+    clock, are started side by side and the block runs (phase 15,
+    deterministic by construction, and phase 14, which checks no time,
+    run there). Yields a function that
+    waits for them → (report, launches by lane, KD variants by lane,
+    what the holds need)."""
     ctx = multiprocessing.get_context("spawn")
     t0 = time.perf_counter()
-    got, walls = {}, {}
-    for n in LANES:
-        t1 = time.perf_counter()
-        left = LANE_TIMEOUT_S - (t1 - t0)
-        pool = ctx.Pool(1)
-        try:
-            # the storm's p99 gate: the 27-bank lane's p99 on this card
-            kw = ({"base_p99_ms": got["bank27"]["p99_ms"]}
-                  if n == "churn" else None)
-            job = pool.apply_async(lane_child, (n, card, kw))
-            try:
-                report, err = job.get(timeout=max(1.0, left))
-            except multiprocessing.TimeoutError:
-                raise SmokeFailure(f"[fleet {n}] the lanes ran past "
-                                   f"{LANE_TIMEOUT_S} s") from None
-        finally:
+    got, walls, pools, jobs = {}, {}, {}, {}
+
+    def start(n):
+        pools[n] = ctx.Pool(1)
+        # the storm's p99 gate: the 27-bank lane's p99 on this card
+        kw = ({"base_p99_ms": got["bank27"]["p99_ms"]}
+              if n == "churn" else None)
+        jobs[n] = (pools[n].apply_async(lane_child, (n, card, kw)),
+                   time.perf_counter())
+
+    def wait_all():
+        # each lane read as it ends, so that its wall is its own
+        while jobs:
+            for n, (job, t1) in list(jobs.items()):
+                left = LANE_TIMEOUT_S - (time.perf_counter() - t0)
+                if not job.ready() and left > 0:
+                    continue
+                del jobs[n]
+                try:
+                    report, err = job.get(timeout=max(1.0, left))
+                except multiprocessing.TimeoutError:
+                    raise SmokeFailure(f"[fleet {n}] the lanes ran past "
+                                       f"{LANE_TIMEOUT_S} s") from None
+                check(err is None, f"[fleet {n}] the lane failed: {err}")
+                got[n] = report
+                # the lane's process, spawn and import included
+                walls[n] = time.perf_counter() - t1
+                pool = pools.pop(n)
+                pool.terminate()
+                pool.join()
+            time.sleep(0.05)
+
+    def finish():
+        wait_all()
+        wall = time.perf_counter() - t0
+        soak, serve = got["soak"], got["serve"]
+        # the fleet's p99 gate: at most twice the single host's, both
+        # read on the simulation clock of this run
+        check(serve["virtual_p99_ms"] <= 2.0 * soak["virtual_p99_ms"],
+              f"[fleet serve] virtual p99 {serve['virtual_p99_ms']} ms "
+              f"over twice the soak's {soak['virtual_p99_ms']} ms")
+        serve["single_host_virtual_p99_ms"] = soak["virtual_p99_ms"]
+        launches = {n: got[n].pop("launches") for n in LANES}
+        variants = {n: got[n].pop("kd_variants") for n in LANES}
+        held = {"policies": got["churn"].pop("policies"),
+                "flows": got["churn"].pop("flows"),
+                "pack_records": soak["pack_records"]}
+        report = {"card": card, "wall_s": wall, "process_wall_s": walls,
+                  "side_by_side": ["soak", "serve", "phase 15",
+                                   "phase 14"],
+                  "bank27": got["bank27"],
+                  "churn": got["churn"], "soak": soak, "serve": serve,
+                  "cuts": {"churn_updates": (CHURN_UPDATES, 56),
+                           "soak_virtual_s": (SOAK_VIRTUAL_S, 120.0),
+                           "serve_virtual_s": (FLEET_VIRTUAL_S, 120.0)}}
+        log(f"phase 10 wall {wall:.1f} s (bank27 then churn alone, then "
+            f"soak and serve side by side, phases 15 and 14 beside them; "
+            f"each lane's process "
+            f"{', '.join(f'{n} {w:.1f} s' for n, w in walls.items())})")
+        return report, launches, variants, held
+
+    try:
+        for n in ("bank27", "churn"):
+            start(n)
+            wait_all()
+        start("soak")
+        start("serve")
+        yield finish
+    finally:
+        for pool in pools.values():
             pool.terminate()
             pool.join()
-        check(err is None, f"[fleet {n}] the lane failed: {err}")
-        got[n] = report
-        # the lane's process, spawn and import included
-        walls[n] = time.perf_counter() - t1
-    wall = time.perf_counter() - t0
-    soak, serve = got["soak"], got["serve"]
-    # the fleet's p99 gate: at most twice the single host's, both read
-    # on the simulation clock of this run
-    check(serve["virtual_p99_ms"] <= 2.0 * soak["virtual_p99_ms"],
-          f"[fleet serve] virtual p99 {serve['virtual_p99_ms']} ms over "
-          f"twice the soak's {soak['virtual_p99_ms']} ms")
-    serve["single_host_virtual_p99_ms"] = soak["virtual_p99_ms"]
-    launches = {n: r.pop("launches") for n, r in got.items()}
-    variants = {n: r.pop("kd_variants") for n, r in got.items()}
-    held = {"policies": got["churn"].pop("policies"),
-            "flows": got["churn"].pop("flows"),
-            "pack_records": soak["pack_records"]}
-    report = {"card": card, "wall_s": wall, "process_wall_s": walls,
-              "bank27": got["bank27"],
-              "churn": got["churn"], "soak": soak, "serve": serve,
-              "cuts": {"churn_updates": (CHURN_UPDATES, 56),
-                       "soak_virtual_s": (SOAK_VIRTUAL_S, 120.0),
-                       "serve_virtual_s": (FLEET_VIRTUAL_S, 120.0)}}
-    log(f"phase 10 wall {wall:.1f} s (the lanes one after another; each "
-        f"lane's process {', '.join(f'{n} {w:.1f} s' for n, w in walls.items())})")
-    return report, launches, variants, held
 
 
 def gpu_clocks() -> str:
@@ -5634,7 +5728,7 @@ def lb_world():
     """Build phase 13's ``ServiceManager`` (one Maglev table of
     DEFAULT_TABLE_SIZE slots a service, ~0.1 s each on one core), pack
     it and answer ``select()`` for the first LB_SAMPLE flows. Runs in a
-    worker process during phases 2-7; returns what pickles (the packed
+    worker process during phases 3-7; returns what pickles (the packed
     arrays, the flow columns, the answers as (ip, port) or None) — a
     ``ServiceManager`` holds a lock and does not."""
     import ipaddress
@@ -6124,11 +6218,12 @@ def lb_sp_probe_phase(lb_job, loader_engine, capture_engine, caps, flows,
 #: loader-built http-1000 policy (path stack (7, 2048, 28)), one batch
 #: of PAR_B flows — in a one-rank NCCL world in this process, then in
 #: worlds of PAR_WORLDS spawned ranks sharing the card (gloo, payloads
-#: staged through pinned host memory); PAR_REPS timed calls a lane;
+#: staged through pinned host memory); PAR_REPS timed calls a lane (2,
+#: cut from 3 to make room for phase 17);
 #: payload_scan_cp on the path bank at PAR_PATH_L and on
 #: tests/test_longscan.py's PATTERNS bank at PAR_PATTERNS_L; the
 #: pipelined batches
-PAR_B, PAR_WORLDS, PAR_REPS, PAR_TIMEOUT_S = 8192, (2, 4), 3, 300.0
+PAR_B, PAR_WORLDS, PAR_REPS, PAR_TIMEOUT_S = 8192, (2, 4), 2, 300.0
 PAR_PATH_L, PAR_PATTERNS_L = 1024, 2048
 PAR_PIPE_BATCHES, PAR_PIPE_DEPTH, PAR_PIPE_ROUNDS = 8, 2, 10
 LONG_PATTERNS = [".*attack-signature.*", ".*(GET|POST) /evil.*",
@@ -6507,9 +6602,11 @@ def parallel_phase(loader_engine, flows, card):
 
 # ------------------------------------------------------------- phase 15
 #: 15a: seeds 0..DST_SEEDS-1 of ``generate(seed, max_events=12)`` on
-#: the card — 25 of the 200-schedule sweep's seeds, the size of the
+#: the card — 12 of the 200-schedule sweep's seeds, cut from the
 #: reference's own 25-schedule record (``BENCH_DST_r06.jsonl``, line 2)
-DST_SEEDS, DST_MAX_EVENTS = 25, 12
+#: to make room for phase 17 (each seed ~4.5 s, its multichip worlds'
+#: spawns the most of it); the 200-schedule sweep runs apart
+DST_SEEDS, DST_MAX_EVENTS = 12, 12
 #: 15a/15b: the seeds replayed once more on the CPU (digests equal to
 #: the card's) and under ``CILIUM_TPU_DFA_IMPL=pallas`` (traces equal)
 DST_RECHECK_SEEDS = 5
@@ -6883,7 +6980,9 @@ def dst_phase(errs, dst_jobs, card):
     held = dst_hold(errs, noted)
     report = {"sweep": sweep, "pallas": pallas, "planted": planted,
               "mesh": mesh, "held_shapes": held, "card": card,
-              "wall_s": time.perf_counter() - t0}
+              "wall_s": time.perf_counter() - t0,
+              # its walls are read with phase 10's soak and fleet running
+              "beside": ["fleet soak", "fleet serve"]}
     launches = {"dst-sweep": sweep["launches"], "dst-pallas":
                 pallas["launches"], "dst-planted": planted["launches"]}
     return report, launches
@@ -6893,22 +6992,26 @@ def dst_phase(errs, dst_jobs, card):
 #: defaults but for the iterations cut to keep the phase near 180 s
 #: (PERF.md section 4 lists each cut): bench.py's latency samples 100 ->
 #: 20, its throughput windows 5 x 1.5 s -> 3 x 0.5 s, the capture lane's
-#: chunk samples 200 -> 20 (its provenance A/B keeps 6 pairs of 1.5 s
-#: windows), the kafka frame windows 3 -> 1, the --check oracle sample 500 -> 50 flows
+#: chunk samples 200 -> 20 (its provenance A/B keeps its 6 pairs, each
+#: window cycled to 0.5 s, not 1.5: BENCH16_PROV_WINDOW_S, to make room
+#: for phase 17), the kafka frame windows 3 -> 1, the --check oracle sample 500 -> 50 flows
 #: (at 1000 rules the oracle takes ~70 ms a flow on one core); the service's
 #: closed loop one deadline (2 ms) of the three, its open and stream
 #: points 1 s each at one offered rate; bench_sp's 10 forced calls a
-#: shape -> 3; bench_multichip's 5 windows -> 3
+#: shape -> 3; bench_multichip's 5 windows -> 3; bench_protocols' timed
+#: replays a lane 3 -> 1 (phase 11 times the same lanes at 3)
 BENCH16_BENCH_ARGS = ["--lat-iters", "20", "--windows", "3",
                       "--window-s", "0.5", "--capture-lat", "20",
                       "--frame-windows", "1"]
 BENCH16_CHECK_SAMPLE = 50
+BENCH16_PROV_WINDOW_S = 0.5
 BENCH16_CAPTURE_RECORDS = 200_000
 BENCH16_SERVICE_ARGS = ["--deadlines", "2", "--open-rates", "2000",
                         "--open-duration", "1", "--stream",
                         "--stream-rates", "200000", "--stream-duration",
                         "1"]
 BENCH16_SP_ITERS, BENCH16_MC_WINDOWS = 3, 3
+BENCH16_PROTOCOLS_ARGS = ["--reps", "1"]
 #: the canary lane at ``make canary-smoke``'s sizes
 BENCH16_CANARY_ARGS = ["--chunks", "48", "--pool-chunks", "12"]
 #: the reference's fused/three-op speedup target (bench_kernel.py)
@@ -7019,6 +7122,8 @@ def bench_phase(card):
     env0 = {k: os.environ.get(k) for k in (
         "CILIUM_TPU_CACHE_DIR", "CILIUM_TPU_DST_SEED",
         "CILIUM_TPU_DST_DIGEST")}
+    prov_window_s = bench.PROV_WINDOW_S
+    bench.PROV_WINDOW_S = BENCH16_PROV_WINDOW_S
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp, \
             kernel_launches_noted(noted):
         os.environ["CILIUM_TPU_CACHE_DIR"] = os.path.join(tmp, "cache")
@@ -7120,7 +7225,7 @@ def bench_phase(card):
                   + str([{k: ln.get(k) for k in (
                       "metric", "errors", "stale", "lost", "samples")}
                       for ln in points]))
-            lane("protocols", bench_protocols.main, [])
+            lane("protocols", bench_protocols.main, BENCH16_PROTOCOLS_ARGS)
             lane("multichip-1", bench_multichip.main, [
                 "--ranks", "1", "--backend", "nccl", "--windows",
                 str(BENCH16_MC_WINDOWS)])
@@ -7162,6 +7267,7 @@ def bench_phase(card):
                 traj = json.load(f)
         finally:
             gc.unfreeze()
+            bench.PROV_WINDOW_S = prov_window_s
             for k, v in env0.items():
                 os.environ.pop(k, None)
                 if v is not None:
@@ -7183,31 +7289,28 @@ def bench_phase(card):
               "speedup_target": BENCH16_SPEEDUP_TARGET,
               "cuts": {"bench": BENCH16_BENCH_ARGS,
                        "check_sample": (BENCH16_CHECK_SAMPLE, 500),
+                       "prov_window_s": (BENCH16_PROV_WINDOW_S,
+                                         prov_window_s),
                        "service": BENCH16_SERVICE_ARGS,
                        "sp_iters": (BENCH16_SP_ITERS, 10),
+                       "protocols": BENCH16_PROTOCOLS_ARGS,
                        "multichip_windows": (BENCH16_MC_WINDOWS, 5)}}
     return report, launches, variants, noted
 
 
-def bench_hold(errs, noted):
-    """Phase 16's kernels held exactly against their plain versions: KD,
-    K2 and K1 at every launch shape the tools staged in this process,
-    and at ``tools/bench_kernel``'s sweep banks on its probe batch
-    (K2 too, though the sweep's dense arm ran KD)."""
-    import numpy as np
-    import torch
-
+def hold_noted(errs, noted, tag):
+    """Every launch shape ``kernel_launches_noted`` kept, held exactly
+    against the kernel's plain version on those inputs → shapes held by
+    kernel."""
     from cilium_tpu_torch.engine import (
         dfa_dense_cuda,
         dfa_oblivious_cuda,
         nfa_cuda,
     )
-    from cilium_tpu_torch.tools import bench_kernel
-    from cilium_tpu_torch.weights import arrays_from_reference
 
     held = {"KD": 0, "K1": 0, "K2": 0}
     for (kid, _), (args, kw) in sorted(noted.items(), key=str):
-        what = (f"bench {tuple(args[0].shape)} B={args[-2].shape[0]} "
+        what = (f"{tag} {tuple(args[0].shape)} B={args[-2].shape[0]} "
                 f"L={args[-2].shape[1]}"
                 f"{' accept' if kw.get('accept') is not None else ''}"
                 f"{' extra' if kw.get('extra') is not None else ''}")
@@ -7222,6 +7325,29 @@ def bench_hold(errs, noted):
             hold(errs, "K1", what, nfa_cuda.nfa_finals_cuda(*args),
                  nfa_cuda.nfa_finals_plain(*args))
         held[kid] += 1
+    return held
+
+
+def bench_hold(errs, noted, card):
+    """Phase 16's kernels held exactly against their plain versions: KD,
+    K2 and K1 at every launch shape the tools staged in this process,
+    and at ``tools/bench_kernel``'s sweep banks on its probe batch
+    (K2 too, though the sweep's dense arm ran KD); then each kernel's
+    device, call and plain times and its bound at the sweep banks
+    (``sweep-<bank>`` rows, by :func:`kernel_times`)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.engine import (
+        dfa_dense_cuda,
+        dfa_oblivious_cuda,
+        nfa_cuda,
+    )
+    from cilium_tpu_torch.tools import bench_kernel
+    from cilium_tpu_torch.weights import arrays_from_reference
+
+    held = hold_noted(errs, noted, "bench")
+    rows = {}
     rng = np.random.default_rng(16)
     B, L = bench_kernel.SWEEP_BATCH, bench_kernel.SWEEP_WIDTH
     sweep = {}
@@ -7247,7 +7373,581 @@ def bench_hold(errs, noted):
              nfa_cuda.nfa_finals_plain(*nfa, data, lens))
         sweep[name] = {"dense": list(shape),
                        "nfa": list(nfa[1].shape)}
-    return {"noted": held, "sweep": sweep}
+        # device, call and plain times and the bound of each kernel at
+        # the bank, by phase 4's code (the bank's arrays under the
+        # bank's name as the field prefix)
+        arr = {f"{name}_{k}": v for k, v in st.items()}
+        arr.update({f"{name}_nfa_{k}": t for k, t in zip(
+            ("follow", "acc_cls", "byteclass", "start"), nfa)})
+        for kid, rs in kernel_times({name: (arr, data, lens)},
+                                    {name: (arr, data, lens)}, {}, {},
+                                    card, tag="sweep-").items():
+            rows.setdefault(kid, []).extend(rs)
+    return {"noted": held, "sweep": sweep, "rows": rows}
+
+
+#: phase 17: the observability and ingest plane at phase 8's loader-built
+#: http-1000 policy. The scenario's flows repeated to OBSERVE_RECORDS
+#: records, replayed in chunks of BATCH (``cmd_replay``'s unit,
+#: ``cfg.engine.batch_size``); the access-log records fed to the
+#: access-log socket (the scenario's HTTP flows); the chunks the
+#: kill-and-resume pass commits before it processes one more and stops;
+#: the filtered query's path regex; how long a follower may take to
+#: catch up once the replay ends
+OBSERVE_RECORDS, OBSERVE_ACCESSLOG, OBSERVE_KILL_AFTER = 65536, 1000, 3
+OBSERVE_FILTER_PATH = r"^/api/v[0-9]+/"
+OBSERVE_CATCH_UP_S = 60.0
+
+
+class _SeqRecorder:
+    """An ``Observer`` handler that keeps every observed flow at its
+    ring sequence (handlers run under the observer's write lock, right
+    after the ring write, so the list index is the seq)."""
+
+    def __init__(self):
+        self.flows = []
+
+    def process(self, flows):
+        self.flows.extend(flows)
+
+
+def _stampless(d):
+    """A flow dict without the stamps that are not data (the annotate
+    time and the trace id)."""
+    return {k: v for k, v in d.items() if k not in ("time", "trace_id")}
+
+
+def _wait_until(cond, what, timeout=OBSERVE_CATCH_UP_S):
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout,
+              f"[observe] timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _mix(out):
+    import numpy as np
+
+    return np.bincount(np.asarray(out["verdict"]), minlength=8)
+
+
+def observe_captures(tmp, flows):
+    """Phase 17's three captures of the same OBSERVE_RECORDS records:
+    flowpb (absolute ``http.url``, as Hubble's parser writes it, so the
+    host survives the wire), JSONL and binary v2 → (paths, write s)."""
+    import dataclasses
+
+    from cilium_tpu_torch.ingest import binary, flowpb
+    from cilium_tpu_torch.ingest.hubble import write_jsonl
+
+    n = len(flows)
+    recs = [flows[i % n] for i in range(OBSERVE_RECORDS)]
+    absolute = [dataclasses.replace(f, http=dataclasses.replace(
+        f.http, path=f"http://{f.http.host}{f.http.path}"))
+        if f.http is not None and f.http.host else f for f in flows]
+    paths = {fmt: os.path.join(tmp, f"capture.{fmt}")
+             for fmt in ("flowpb", "jsonl", "binary")}
+    secs = {}
+    for fmt, write in (("flowpb", lambda p: flowpb.write_pb_capture(
+            p, (absolute[i % n] for i in range(OBSERVE_RECORDS)))),
+                       ("jsonl", lambda p: write_jsonl(p, recs)),
+                       ("binary", lambda p: binary.write_capture_l7(p, recs))):
+        t0 = time.perf_counter()
+        check(write(paths[fmt]) == OBSERVE_RECORDS,
+              f"[observe] the {fmt} writer wrote a short capture")
+        secs[fmt] = time.perf_counter() - t0
+    check(flowpb.looks_like_pb_capture(paths["flowpb"])
+          and binary.capture_version(paths["binary"]) == 2,
+          "[observe] the captures do not sniff as written")
+    return paths, secs
+
+
+def accesslog_lines(flows):
+    """OBSERVE_ACCESSLOG Envoy access-log records (JSON lines) of the
+    scenario's HTTP flows."""
+    out = []
+    for i, f in enumerate(x for x in flows if x.http is not None):
+        if i == OBSERVE_ACCESSLOG:
+            break
+        out.append(json.dumps({
+            "entry_type": "Request", "is_ingress": True,
+            "timestamp": 1753866000.0 + i,
+            "source_security_id": f.src_identity,
+            "destination_security_id": f.dst_identity,
+            "source_address": f"10.0.0.9:{40000 + i}",
+            "destination_address": f"10.0.0.2:{f.dport}",
+            "http": {"method": f.http.method, "path": f.http.path,
+                     "host": f.http.host,
+                     "headers": [{"key": k, "value": v}
+                                 for k, v in f.http.headers]}}))
+    check(len(out) == OBSERVE_ACCESSLOG, "[observe] too few HTTP flows")
+    return out
+
+
+def fan_out_pass(engine, chunks, monitor, observer, stages=None,
+                 cursor=None):
+    """``cmd_replay``'s object path over ``chunks`` (``replay_chunks``'
+    generator) with the fan-out sequence the reference keeps in
+    ``Agent.fan_out``: ``verdict_flows`` (one readback a batch, numpy),
+    ``monitor.notify_batch``, ``annotate_flows`` with the engine's
+    attribution map, ``observer.observe``; one trace a chunk; then the
+    chunk's index committed to ``cursor`` (commit after process).
+    ``stages`` collects host ms a chunk by stage. → (verdict mix, the
+    monitor's returned events, the chunks with their outputs)."""
+    import numpy as np
+
+    from cilium_tpu_torch.engine.verdict import AUTH_UNENFORCED
+    from cilium_tpu_torch.hubble.observer import annotate_flows
+    from cilium_tpu_torch.runtime.tracing import TRACER
+
+    mix = np.zeros(8, dtype=np.int64)
+    events, kept = [], []
+    it = iter(chunks)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            commit, chunk = next(it)
+        except StopIteration:
+            break
+        t1 = time.perf_counter()
+        with TRACER.trace("replay.chunk", chunk=int(commit)):
+            out = engine.verdict_flows(chunk, authed_pairs=AUTH_UNENFORCED)
+            t2 = time.perf_counter()
+            events += monitor.notify_batch(chunk, out)
+            t3 = time.perf_counter()
+            annotate_flows(chunk, out,
+                           amap=getattr(engine, "attribution", None))
+            t4 = time.perf_counter()
+            observer.observe(chunk)
+            t5 = time.perf_counter()
+        if cursor is not None:
+            cursor.commit(commit)
+        mix += _mix(out)
+        kept.append((chunk, out))
+        if stages is not None:
+            for k, a, b in (("decode", t0, t1), ("verdict_flows", t1, t2),
+                            ("monitor", t2, t3), ("annotate", t3, t4),
+                            ("observe", t4, t5)):
+                stages.setdefault(k, []).append((b - a) * 1e3)
+    return mix, events, kept
+
+
+def observe_cpu_hold(engine, capture, tmp):
+    """The first chunk's fan-out on the card and on the plain path
+    (``device="cpu"``), each into fresh consumers: annotated flows,
+    returned events, the exporter's lines, the ``FlowMetrics`` and
+    ``cilium_tpu_monitor_events_total`` deltas equal (stamps aside)."""
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.hubble import FlowExporter, FlowMetrics, Observer
+    from cilium_tpu_torch.ingest.cursor import replay_chunks
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.monitor import MonitorAgent, event_to_dict
+    from cilium_tpu_torch.runtime.metrics import METRICS, Metrics
+
+    def monitor_counts():
+        with METRICS._lock:
+            return {k: v for k, v in METRICS._counters.items()
+                    if k[0] == "cilium_tpu_monitor_events_total"}
+
+    got = {}
+    plain = TorchVerdictEngine(engine.policy, device="cpu", cfg=engine.cfg)
+    for name, eng in (("card", engine), ("plain", plain)):
+        m = Metrics()
+        path = os.path.join(tmp, f"first-chunk-{name}.jsonl")
+        ex = FlowExporter(path)
+        obs = Observer(handlers=[FlowMetrics(m), ex])
+        before = monitor_counts()
+        _, events, kept = fan_out_pass(
+            eng, replay_chunks(capture, chunk_size=BATCH, limit=BATCH),
+            MonitorAgent(), obs)
+        ex.close()
+        after = monitor_counts()
+        with open(path) as f:
+            lines = [_stampless(json.loads(s)) for s in f]
+        ((chunk, out),) = kept
+        check(all(f.trace_id for f in chunk),
+              f"[observe {name}] a flow without its chunk's trace id")
+        got[name] = {
+            "flows": [_stampless(flow_to_dict(f)) for f in chunk],
+            "events": [{k: v for k, v in event_to_dict(e).items()
+                        if k != "ts"} for e in events],
+            "exported": lines,
+            "flow_metrics": dict(m._counters),
+            "monitor_metrics": {k: v - before.get(k, 0.0)
+                                for k, v in after.items()}}
+    for k, want in got["plain"].items():
+        check(got["card"][k] == want,
+              f"[observe] the first chunk's {k} differ between the card "
+              f"and the plain path")
+    n = len(got["card"]["flows"])
+    log(f"[observe plain] first chunk: {n} annotated flows, "
+        f"{len(got['card']['events'])} events, {n} exported lines, "
+        f"{len(got['card']['flow_metrics'])} FlowMetrics series and the "
+        f"monitor-event deltas equal to the plain path (stamps aside)")
+    return {"flows": n, "events": len(got["card"]["events"]),
+            "monitor_events_delta": sum(
+                got["card"]["monitor_metrics"].values())}
+
+
+def monitor_reader(stream, out, errors):
+    try:
+        for ev in stream:
+            out.append(ev)
+    except (ConnectionError, OSError):
+        pass                       # the stream closed: the phase is done
+    except Exception as e:  # noqa: BLE001 — reported as the phase's failure
+        errors.append(repr(e))
+
+
+def observe_phase(engine, flows, card):
+    """Phase 17 (see the module docstring) → (report, the phase's
+    launches, KD's launches by variant, the launch shapes noted)."""
+    import dataclasses
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.core.flow import Verdict
+    from cilium_tpu_torch.engine.replay import CaptureReplay
+    from cilium_tpu_torch.engine.verdict import (
+        AUTH_UNENFORCED,
+        TorchVerdictEngine,
+    )
+    from cilium_tpu_torch.hubble import (
+        FlowExporter,
+        FlowFilter,
+        FlowMetrics,
+        HubbleClient,
+        HubbleServer,
+        Observer,
+    )
+    from cilium_tpu_torch.hubble.accesslog_server import AccessLogServer
+    from cilium_tpu_torch.hubble.server import filter_to_dict
+    from cilium_tpu_torch.ingest.cursor import ReplayCursor, replay_chunks
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.monitor import (
+        AggregationLevel,
+        MonitorAgent,
+        MonitorServer,
+        event_to_dict,
+        events_from_outputs,
+        monitor_follow,
+    )
+    from cilium_tpu_torch.runtime.metrics import METRICS
+    from cilium_tpu_torch.runtime.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    noted, launches, rates, report = {}, {}, {}, {"card": card}
+    # a replay traces every chunk, as the tracer's defaults do (phase
+    # 16's service tool turns the process's tracer off)
+    tracer0 = (TRACER.enabled, TRACER.sample_rate)
+    TRACER.configure(enabled=True, sample_rate=1.0)
+    # every engine this phase stages takes the gather arm, as phase 8's
+    # loader engine did
+    os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+    # a short directory: unix socket paths stay under 108 bytes
+    tmp = tempfile.mkdtemp(prefix="cs17")
+    try:
+        paths, report["write_s"] = observe_captures(tmp, flows)
+        log(f"[observe] {OBSERVE_RECORDS} records written as flowpb, JSONL "
+            f"and binary v2 in " + ", ".join(
+                f"{k} {v:.2f} s" for k, v in report["write_s"].items()))
+        lines = accesslog_lines(flows)
+        with kernel_launches_noted(noted):
+            reset_counts()
+            c0 = counts()
+            # -- 17a: flowpb → cursor → the card → the fan-out, with every
+            # consumer attached
+            recorder = _SeqRecorder()
+            observer = Observer(handlers=[
+                FlowMetrics(), FlowExporter(os.path.join(tmp, "flows.jsonl")),
+                recorder])
+            monitor = MonitorAgent()
+            hub = HubbleServer(observer, os.path.join(tmp, "hubble.sock"))
+            mon = MonitorServer(monitor, os.path.join(tmp, "monitor.sock"))
+            al = AccessLogServer(observer, os.path.join(tmp, "al.sock"))
+            streams, threads, errors = {}, [], []
+            follower = HubbleClient(hub.socket_path)
+            followed = []
+            try:
+                hub.start()
+                mon.start()
+                al.start()
+
+                def follow():
+                    try:
+                        for d in follower.get_flows(
+                                follow=True, timeout=OBSERVE_CATCH_UP_S,
+                                since_seq=0):
+                            followed.append((follower.last_seq, d))
+                    except (ConnectionError, OSError):
+                        pass            # closed once it caught up
+                    except Exception as e:  # noqa: BLE001
+                        errors.append(repr(e))
+
+                got_ev = {}
+                for level in ("medium", "maximum"):
+                    streams[level] = monitor_follow(mon.socket_path,
+                                                    level=level)
+                    got_ev[level] = []
+                    threads.append(threading.Thread(
+                        target=monitor_reader,
+                        args=(streams[level], got_ev[level], errors)))
+                threads.append(threading.Thread(target=follow))
+                for t in threads:
+                    t.start()
+                _wait_until(lambda: mon.num_clients() == 2,
+                            "the monitor subscribers")
+
+                def feed_accesslog():
+                    import socket as _socket
+
+                    try:
+                        with _socket.socket(_socket.AF_UNIX,
+                                            _socket.SOCK_STREAM) as s:
+                            s.connect(al.socket_path)
+                            for lo in range(0, len(lines), 100):
+                                s.sendall(("\n".join(lines[lo:lo + 100])
+                                           + "\n").encode())
+                                time.sleep(0.02)
+                    except Exception as e:  # noqa: BLE001
+                        errors.append(repr(e))
+
+                al0 = METRICS.get("cilium_tpu_accesslog_records_total")
+                feeder = threading.Thread(target=feed_accesslog)
+                cursor = ReplayCursor(os.path.join(tmp, "cursor.json"),
+                                      paths["flowpb"])
+                stages = {}
+                t0 = time.perf_counter()
+                feeder.start()
+
+                mix, _, kept = fan_out_pass(
+                    engine, replay_chunks(paths["flowpb"], chunk_size=BATCH,
+                                          cursor=cursor),
+                    monitor, observer, stages, cursor)
+                torch.cuda.synchronize()
+                rates["flowpb"] = OBSERVE_RECORDS / (time.perf_counter() - t0)
+                check(cursor.load() == OBSERVE_RECORDS,
+                      f"[observe] the cursor stands at {cursor.load()}")
+                feeder.join(timeout=OBSERVE_CATCH_UP_S)
+                _wait_until(lambda: METRICS.get(
+                    "cilium_tpu_accesslog_records_total") - al0
+                    == OBSERVE_ACCESSLOG, "the access-log records")
+                total = OBSERVE_RECORDS + OBSERVE_ACCESSLOG
+                check(observer.seen == total,
+                      f"[observe] the observer saw {observer.seen}, not "
+                      f"{total}")
+                _wait_until(lambda: follower.last_seq == total - 1,
+                            "the Hubble follower")
+                follower.close()
+                # the monitor followers: what each read plus what its
+                # queue dropped is every event at its level
+                want_ev = {lv: [] for lv in got_ev}
+                for chunk, out in kept:
+                    for lv in want_ev:
+                        want_ev[lv] += [
+                            {k: v for k, v in event_to_dict(e).items()
+                             if k != "ts"}
+                            for e in events_from_outputs(
+                                chunk, out, AggregationLevel[lv.upper()])]
+                clients = {c.level: c for c in list(mon._clients)}
+                subs = {}
+                for lv in got_ev:
+                    c = clients[int(AggregationLevel[lv.upper()])]
+                    _wait_until(lambda: len(got_ev[lv]) + c.lost
+                                == len(want_ev[lv]),
+                                f"the {lv} monitor subscriber")
+                    it = iter(want_ev[lv])
+                    check(all(any({k: v for k, v in e.items() if k != "ts"}
+                                  == w for w in it) for e in got_ev[lv]),
+                          f"[observe] the {lv} subscriber's events are not "
+                          f"events_from_outputs' at its level, in order")
+                    subs[lv] = {"received": len(got_ev[lv]), "lost": c.lost,
+                                "expected": len(want_ev[lv])}
+                # filtered queries against the same filter on the ring
+                q = HubbleClient(hub.socket_path)
+                filtered = {}
+                for name, flt in (
+                        ("dropped", FlowFilter(verdict=Verdict.DROPPED)),
+                        ("path", FlowFilter(http_path=OBSERVE_FILTER_PATH)),
+                        ("both", FlowFilter(verdict=Verdict.DROPPED,
+                                            http_path=OBSERVE_FILTER_PATH))):
+                    got_q = list(q.get_flows(flt=filter_to_dict(flt)))
+                    want_q = [flow_to_dict(f)
+                              for f in observer.get_flows(flt=flt)]
+                    check(got_q == want_q and len(got_q) > 0,
+                          f"[observe] the {name} get_flows returned "
+                          f"{len(got_q)} flows, the ring's filter "
+                          f"{len(want_q)}")
+                    filtered[name] = len(got_q)
+                status = q.server_status()
+            finally:
+                follower.close()
+                for s in streams.values():
+                    s.close()
+                al.stop()
+                mon.stop()
+                hub.stop()
+                for h in observer.handlers:
+                    if hasattr(h, "close"):
+                        h.close()
+                for t in threads:
+                    t.join(timeout=10)
+            check(not errors, f"[observe] consumer errors: {errors}")
+            check(status["seen"] == total,
+                  f"[observe] server_status seen {status['seen']}")
+            lost = observer.lost_reported
+            check(len(followed) + lost == total,
+                  f"[observe] the follower got {len(followed)} flows and "
+                  f"{lost} lost of {total}")
+            check(all(flow_to_dict(recorder.flows[s]) == d
+                      for s, d in followed),
+                  "[observe] a followed flow differs from the card pass's "
+                  "annotated flow at its seq")
+            check(all(f.trace_id for c, _ in kept for f in c),
+                  "[observe] an annotated flow without its trace id")
+            # the server's serialization of one chunk (flow_to_dict and
+            # the JSON line a get_flows stream sends)
+            t1 = time.perf_counter()
+            for s, f in enumerate(kept[0][0]):
+                json.dumps({"flow": flow_to_dict(f), "seq": s})
+            serialize_ms = (time.perf_counter() - t1) * 1e3
+            launches["observe-flowpb"] = _count_delta(c0)
+            report["flowpb"] = {
+                "mix": mix.tolist(), "stage_ms_per_chunk": {
+                    k: statistics.mean(v) for k, v in stages.items()},
+                "serialize_ms_per_chunk": serialize_ms,
+                "follower": {"received": len(followed), "lost": lost},
+                "monitor_subscribers": subs,
+                "filtered": filtered, "seen": status["seen"],
+                "accesslog_records": OBSERVE_ACCESSLOG}
+            log(f"[observe flowpb] {rates['flowpb']:.0f} records/s end to "
+                f"end; host ms a chunk " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in
+                    report["flowpb"]["stage_ms_per_chunk"].items())
+                + f", server serialization {serialize_ms:.1f}; follower "
+                f"{len(followed)} received + {lost} lost = {total}; "
+                f"monitor {subs}; filtered {filtered}; mix {mix.tolist()}; "
+                f"launches {launches['observe-flowpb']} on {card}")
+            report["plain"] = observe_cpu_hold(engine, paths["flowpb"], tmp)
+
+            # -- 17b: the same capture under nfa-bitset, verdicts only
+            c1 = counts()
+            nfa = TorchVerdictEngine(engine.policy, device=DEVICE,
+                                     cfg=dataclasses.replace(
+                                         engine.cfg, kernel_impl="nfa-bitset"))
+            t0 = time.perf_counter()
+            nfa_mix = sum(_mix(nfa.verdict_flows(
+                c, authed_pairs=AUTH_UNENFORCED)) for _, c in replay_chunks(
+                    paths["flowpb"], chunk_size=BATCH))
+            torch.cuda.synchronize()
+            rates["flowpb-nfa-bitset"] = OBSERVE_RECORDS / (
+                time.perf_counter() - t0)
+            launches["observe-nfa-bitset"] = _count_delta(c1)
+            check(launches["observe-nfa-bitset"]["K1"] > 0,
+                  "[observe nfa-bitset] K1 never launched")
+            check(nfa_mix.tolist() == mix.tolist(),
+                  f"[observe nfa-bitset] verdict counts {nfa_mix.tolist()} "
+                  f"against auto's {mix.tolist()}")
+
+            # -- 17c: JSONL through the same object path; binary v2
+            # through replay_chunks(decode=False) into CaptureReplay
+            # (no socket attached: its stage split is the fan-out's
+            # without the consumers' threads)
+            c2 = counts()
+            jobs = Observer(handlers=[FlowMetrics()])
+            jstages = {}
+            t0 = time.perf_counter()
+            jmix, _, _ = fan_out_pass(engine, replay_chunks(
+                paths["jsonl"], chunk_size=BATCH), MonitorAgent(), jobs,
+                jstages)
+            torch.cuda.synchronize()
+            rates["jsonl"] = OBSERVE_RECORDS / (time.perf_counter() - t0)
+            launches["observe-jsonl"] = _count_delta(c2)
+            report["jsonl"] = {"stage_ms_per_chunk": {
+                k: statistics.mean(v) for k, v in jstages.items()}}
+            log(f"[observe jsonl] {rates['jsonl']:.0f} records/s end to "
+                f"end, no socket attached; host ms a chunk " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in
+                    report["jsonl"]["stage_ms_per_chunk"].items())
+                + f" on {card}")
+            c3 = counts()
+            t0 = time.perf_counter()
+            session, bmix = None, np.zeros(8, dtype=np.int64)
+            for _, raw in replay_chunks(paths["binary"], chunk_size=BATCH,
+                                        decode=False):
+                if session is None:
+                    # as cmd_replay --fast builds it from the first chunk
+                    session = CaptureReplay(engine, raw.l7_all, raw.offsets,
+                                            raw.blob, engine.cfg,
+                                            gen=raw.gen_all)
+                    session.stage_rows(raw.records_all, raw.l7_all)
+                    session.stage_unique(engine.cfg.stage_unique_drop_ratio)
+                bmix += _mix(session.verdict_chunk(
+                    raw.records, raw.l7, authed_pairs=AUTH_UNENFORCED,
+                    start=raw.start))
+            torch.cuda.synchronize()
+            rates["binary"] = OBSERVE_RECORDS / (time.perf_counter() - t0)
+            launches["observe-binary"] = _count_delta(c3)
+            for fmt, m in (("jsonl", jmix), ("binary", bmix)):
+                check(m.tolist() == mix.tolist(),
+                      f"[observe {fmt}] verdict counts {m.tolist()} against "
+                      f"flowpb's {mix.tolist()}")
+
+            # -- 17d: killed after OBSERVE_KILL_AFTER committed chunks
+            # with one more processed and not committed, then resumed
+            c4 = counts()
+            kcur = ReplayCursor(os.path.join(tmp, "kill.json"),
+                                paths["flowpb"])
+            done = np.zeros(8, dtype=np.int64)
+            for n, (idx, chunk) in enumerate(replay_chunks(
+                    paths["flowpb"], chunk_size=BATCH, cursor=kcur)):
+                out = _mix(engine.verdict_flows(
+                    chunk, authed_pairs=AUTH_UNENFORCED))
+                if n == OBSERVE_KILL_AFTER:
+                    break                   # killed before the commit
+                done += out
+                kcur.commit(idx)
+            resumed_at = kcur.load()
+            runs = 0
+            for idx, chunk in replay_chunks(paths["flowpb"],
+                                            chunk_size=BATCH, cursor=kcur):
+                done += _mix(engine.verdict_flows(
+                    chunk, authed_pairs=AUTH_UNENFORCED))
+                kcur.commit(idx)
+                runs += 1
+            launches["observe-resume"] = _count_delta(c4)
+            check(resumed_at == OBSERVE_KILL_AFTER * BATCH
+                  and done.tolist() == mix.tolist()
+                  and kcur.load() == OBSERVE_RECORDS,
+                  f"[observe resume] resumed at {resumed_at}, counts "
+                  f"{done.tolist()} against {mix.tolist()}")
+            phase, variants = counts(), kd_variants()
+    finally:
+        import shutil
+
+        TRACER.configure(enabled=tracer0[0], sample_rate=tracer0[1])
+        shutil.rmtree(tmp, ignore_errors=True)
+    for kid in ("KD", "K1"):
+        check(phase[kid] > 0, f"[observe] {kid} never launched in phase 17")
+    report.update({
+        "records": OBSERVE_RECORDS, "chunk": BATCH,
+        "records_per_s": rates, "mix": mix.tolist(),
+        "launches": launches, "phase_launches": phase,
+        "resume": {"resumed_at": resumed_at, "chunks_after": runs},
+        "wall_s": time.perf_counter() - t_phase})
+    log(f"[observe] records/s: " + ", ".join(
+        f"{k} {v:.0f}" for k, v in rates.items()) + f"; verdict counts equal "
+        f"across flowpb, JSONL, binary, nfa-bitset and the resumed replay "
+        f"(resumed at {resumed_at}, {runs} chunks after); phase launches "
+        f"{phase} on {card}")
+    return report, phase, variants, noted
+
+
+def _count_delta(c0):
+    return {k: v - c0[k] for k, v in counts().items()}
 
 
 def kd_variants():
@@ -7266,7 +7966,7 @@ def main() -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from cilium_tpu_torch.engine import _build  # noqa: F401 (fails alone)
+    from cilium_tpu_torch.engine import _build  # fails alone
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -7275,8 +7975,14 @@ def main() -> int:
     check(bool(smi), "nvidia-smi printed nothing")
     card = smi.splitlines()[0]
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    # the kernels build before the worker pool starts, so that nvcc has
+    # the host's cores to itself
+    log("phase 2: build")
+    secs = _build.build()
+    log(f"  built {len(_build.KERNELS)} kernels in {secs:.1f}s "
+        f"(nvcc in parallel)")
     # phase 8's oracle samples, computed on the host's other cores while
-    # phases 2-7 run (spawned processes: none of them touches the card)
+    # phases 3-7 run (spawned processes: none of them touches the card)
     # and phase 13's service table (its Maglev tables, ~100 s on a core)
     pool = concurrent.futures.ProcessPoolExecutor(
         ORACLE_WORKERS, mp_context=multiprocessing.get_context("spawn"))
@@ -7291,13 +7997,9 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
-    """Phases 2-17 (see the module docstring)."""
+    """Phases 2 (its SASS checks) to 18 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
-    log("phase 2: build")
-    secs = _build.build()
-    log(f"  built {len(_build.KERNELS)} kernels in {secs:.1f}s "
-        f"(nvcc in parallel)")
     tensor_ops = sass_tensor_ops()
     kd_sass = sass_kd()
 
@@ -7387,8 +8089,22 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
         f"set-up)")
     log("phase 10: the cluster-mesh lanes (churn storm, serve soak, "
         "serving fleet)")
-    fleet_report, fleet_launches, fleet_variants, fleet_held = \
-        fleet_phase(card)
+    with fleet_phase(card) as fleet_done:
+        log("phase 15: deterministic simulation testing — DSTWorld over "
+            "the port's engine on the card, beside phase 10's soak and "
+            "fleet")
+        dst_report, dst_launches = dst_phase(errs, dst_jobs, card)
+        log(f"phase 15 wall {dst_report['wall_s']:.1f} s")
+        log("phase 14: the parallel layer (DP, EP, CP and TP lanes, the "
+            "collective ledger, the pipeline) on one NCCL rank and on "
+            "spawned gloo ranks sharing the card, beside phase 10's soak "
+            "and fleet")
+        par_report, par_launches, par_variants = parallel_phase(
+            loader_engines["loader-path"], scenario.flows, card)
+        par_report["beside"] = ["fleet soak", "fleet serve"]
+        log(f"phase 14 wall {par_report['wall_s']:.1f} s")
+        fleet_report, fleet_launches, fleet_variants, fleet_held = \
+            fleet_done()
     churn = fleet_report["churn"]
     churn["phase8_enforce_ms"] = {
         "p50": loader_report["churn"]["enforce_ms_p50"],
@@ -7435,16 +8151,6 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
         lb_job, loader_engines["loader-path"], auto_engine, caps,
         scenario.flows, cfg, card)
     log(f"phase 13 wall {lbsp_report['wall_s']:.1f} s")
-    log("phase 14: the parallel layer (DP, EP, CP and TP lanes, the "
-        "collective ledger, the pipeline) on one NCCL rank and on spawned "
-        "gloo ranks sharing the card")
-    par_report, par_launches, par_variants = parallel_phase(
-        loader_engines["loader-path"], scenario.flows, card)
-    log(f"phase 14 wall {par_report['wall_s']:.1f} s")
-    log("phase 15: deterministic simulation testing — DSTWorld over the "
-        "port's engine on the card")
-    dst_report, dst_launches = dst_phase(errs, dst_jobs, card)
-    log(f"phase 15 wall {dst_report['wall_s']:.1f} s")
     t16 = time.perf_counter()
     log("phase 16: the bench plane — tools/bench.py and the other bench "
         "lanes, the canary lane and perf_report, on the card")
@@ -7453,10 +8159,25 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     log(f"phase 16: KD, K2 and K1 at the {len(bench_noted)} launch shapes "
         f"the tools staged and at the sweep banks, against their plain "
         f"versions")
-    bench_report["held"] = bench_hold(errs, bench_noted)
+    bench_report["held"] = bench_hold(errs, bench_noted, card)
+    for kid, rs in bench_report["held"]["rows"].items():
+        rows[kid].extend(rs)
     bench_report["wall_s_with_holds"] = time.perf_counter() - t16
     log(f"phase 16 wall {bench_report['wall_s']:.1f} s "
         f"({bench_report['wall_s_with_holds']:.1f} s with the holds)")
+    t17 = time.perf_counter()
+    log("phase 17: the observability and ingest plane — flowpb, JSONL and "
+        "binary captures through the replay cursor, the fan-out into the "
+        "monitor and the Hubble observer, their sockets, the exporter and "
+        "the metrics")
+    observe_report, observe_launches, observe_variants, observe_noted = \
+        observe_phase(loader_engines["loader-path"], scenario.flows, card)
+    log(f"phase 17: KD and K1 at the {len(observe_noted)} launch shapes "
+        f"the phase staged, against their plain versions")
+    observe_report["held"] = hold_noted(errs, observe_noted, "observe")
+    observe_report["wall_s_with_holds"] = time.perf_counter() - t17
+    log(f"phase 17 wall {observe_report['wall_s']:.1f} s "
+        f"({observe_report['wall_s_with_holds']:.1f} s with the holds)")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -7472,6 +8193,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_launches["parallel"] = par_launches
     phase_launches.update(dst_launches)
     phase_launches.update(bench_launches)
+    phase_launches["observe"] = observe_launches
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -7486,6 +8208,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_variants.update(lbsp_variants)
     phase_variants["parallel"] = par_variants
     phase_variants.update(bench_variants)
+    phase_variants["observe"] = observe_variants
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -7532,6 +8255,8 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
             "bench_sweep_banks": {n: v["nfa" if kid == "K1" else "dense"]
                                   for n, v in
                                   bench_report["held"]["sweep"].items()},
+            # phase 17: the launch shapes of the observability plane
+            "observe_shapes_held": observe_report["held"].get(kid, 0),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -7559,6 +8284,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     log("parallel: " + json.dumps(par_report))
     log("dst: " + json.dumps(dst_report))
     log("bench: " + json.dumps(bench_report))
+    log("observe: " + json.dumps(observe_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,19 @@
-"""Hubble flow serde (the part of the reference's ``ingest/hubble.py``
-the explain plane needs): ``flow_to_dict`` writes the ``flowpb.Flow``
-JSON shape (``api/v1/flow/flow.proto``) for the fields the engine
-consumes, ``flow_from_dict`` reads it back (the explain query's
-re-resolve), and ``_to_time`` reads its time stamps.
+"""Hubble flow JSONL reader/writer — the counterpart of the reference's
+``ingest/hubble.py``.
+
+Schema mirrors ``flowpb.Flow`` JSON encoding (``api/v1/flow/flow.proto``)
+for the fields the engine consumes: ``flow_to_dict`` writes it,
+``flow_from_dict`` reads it back into a Flow and
+``flow_dict_to_columns`` into the flat column tuple of
+``ingest.columnar``; ``_to_time`` reads its time stamps. A "Hubble
+capture replay" is a stream of these JSON objects, one per line — the
+exporter's on-disk format (``write_jsonl`` / ``read_jsonl``).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+from typing import Dict, Iterable, Iterator, Optional
 
 from cilium_tpu_torch.core.flow import (
     DNSInfo,
@@ -244,3 +250,110 @@ def flow_from_dict(d: Dict) -> Flow:
                     for k, v in (g.get("fields") or {}).items()},
         )
     return f
+
+
+def flow_dict_to_columns(d: Dict) -> tuple:
+    """One flowpb JSON object → the flat column tuple of
+    ``ingest.columnar`` (COLUMN_FIELDS order) — the Flow-object-free
+    half of :func:`flow_from_dict`, sharing its field semantics
+    (url split, host lowering, header serialization, qname
+    sanitization) so the columnar and object ingest paths can never
+    disagree on what a policy regex sees."""
+    from cilium_tpu_torch.engine.compiled import serialize_headers
+    from cilium_tpu_torch.policy.compiler import matchpattern
+
+    if isinstance(d.get("flow"), dict):
+        inner = dict(d["flow"])
+        for k in ("node_name", "time"):
+            inner.setdefault(k, d.get(k))
+        d = inner
+    verdict = int(_VERDICT_NAMES.get(d.get("verdict", ""),
+                                     Verdict.VERDICT_UNKNOWN))
+    direction = int(_DIR_NAMES.get(d.get("traffic_direction", ""),
+                                   TrafficDirection.INGRESS))
+    src = d.get("source") or {}
+    dst = d.get("destination") or {}
+    proto, dport, sport = int(Protocol.TCP), 0, 0  # Flow() default
+    l4 = d.get("l4") or {}
+    for name, p in (("TCP", Protocol.TCP), ("UDP", Protocol.UDP),
+                    ("SCTP", Protocol.SCTP)):
+        if name in l4:
+            proto = int(p)
+            dport = int(l4[name].get("destination_port", 0))
+            sport = int(l4[name].get("source_port", 0))
+    for name, p in (("ICMPv4", Protocol.ICMP),
+                    ("ICMPv6", Protocol.ICMPV6)):
+        if name in l4:
+            proto = int(p)
+            dport = int(l4[name].get("type", 0))
+    l7t = int(L7Type.NONE)
+    path = method = host = headers = qname = kclient = ktopic = b""
+    kapi = kver = 0
+    gproto = b""
+    gpairs: tuple = ()
+    l7 = d.get("l7") or {}
+    if "http" in l7:
+        h = l7["http"]
+        l7t = int(L7Type.HTTP)
+        url, url_host = split_http_url(h.get("url", ""))
+        path = url.encode("utf-8")
+        method = (h.get("method", "") or "").encode("utf-8")
+        host = ((h.get("host", "") or url_host).lower()
+                .encode("utf-8"))
+        headers = serialize_headers(tuple(
+            (x.get("key", ""), x.get("value", ""))
+            for x in (h.get("headers") or ())))
+    elif "kafka" in l7:
+        k = l7["kafka"]
+        l7t = int(L7Type.KAFKA)
+        kapi = int(k.get("api_key", 0))
+        kver = int(k.get("api_version", 0))
+        kclient = (k.get("client_id", "") or "").encode("utf-8")
+        ktopic = (k.get("topic", "") or "").encode("utf-8")
+    elif "dns" in l7:
+        q = l7["dns"].get("query", "")
+        l7t = int(L7Type.DNS)
+        if q:
+            qname = matchpattern.sanitize_name(q).encode("utf-8")
+    elif "generic" in l7:
+        g = l7["generic"]
+        l7t = int(L7Type.GENERIC)
+        gproto = (g.get("proto", "") or "").encode("utf-8")
+        gpairs = tuple(
+            (str(k).encode("utf-8"), str(v).encode("utf-8"))
+            for k, v in sorted((g.get("fields") or {}).items())
+            if str(k))
+    return (_to_time(d.get("time")), verdict, direction,
+            int(src.get("identity", 0) or 0),
+            int(dst.get("identity", 0) or 0),
+            sport, dport, proto, l7t,
+            path, method, host, headers, qname,
+            kclient, ktopic, kapi, kver, gproto, gpairs)
+
+
+def write_jsonl(path: str, flows: Iterable[Flow]) -> int:
+    n = 0
+    with open(path, "w") as fp:
+        for f in flows:
+            fp.write(json.dumps(flow_to_dict(f)) + "\n")
+            n += 1
+    return n
+
+
+def read_jsonl(path: str, start: int = 0,
+               limit: Optional[int] = None) -> Iterator[Flow]:
+    """Stream flows from a JSONL capture; ``start`` supports replay-
+    cursor resume (SURVEY.md §5.4). Lines may be flowpb JSON (bare or
+    exporter-enveloped) or Envoy accesslog entries — see
+    ingest/accesslog.py."""
+    from cilium_tpu_torch.ingest.accesslog import parse_capture_line
+
+    with open(path) as fp:
+        for i, line in enumerate(fp):
+            if i < start:
+                continue
+            if limit is not None and i >= start + limit:
+                return
+            line = line.strip()
+            if line:
+                yield parse_capture_line(json.loads(line))

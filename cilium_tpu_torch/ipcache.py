@@ -4,7 +4,9 @@ reference's ``ipcache.py``, copied).
 The join point where FQDN-resolved IPs become matchable identities:
 IPs/prefixes map to (usually local-scoped CIDR) identities, and the
 SelectorCache is told of each new one so resolved policy stays
-incremental. ``lookup`` is a longest-prefix match.
+incremental. ``lookup`` is a longest-prefix match: one probe of the
+prefix map a prefix length present, longest first (the reference scans
+every entry; the answers are the same).
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ class IPCache:
         self._selector_cache = selector_cache
         # prefix → identity
         self._by_prefix: Dict[ipaddress._BaseNetwork, NumericIdentity] = {}
+        # (IP version, prefix length) → entries of that length
+        self._lengths: Dict[Tuple[int, int], int] = {}
         self._listeners: List[Callable[[str, NumericIdentity, bool], None]] = []
 
     def upsert(self, prefix: str,
@@ -58,6 +62,9 @@ class IPCache:
                 identity = self._allocator.allocate(labels)
                 if self._selector_cache is not None:
                     self._selector_cache.add_identity(identity, labels)
+            if nid is None:
+                key = (net.version, net.prefixlen)
+                self._lengths[key] = self._lengths.get(key, 0) + 1
             self._by_prefix[net] = identity  # insert or remap
         for fn in self._listeners:
             fn(str(net), identity, True)
@@ -67,6 +74,11 @@ class IPCache:
         net = ipaddress.ip_network(prefix, strict=False)
         with self._lock:
             nid = self._by_prefix.pop(net, None)
+            if nid is not None:
+                key = (net.version, net.prefixlen)
+                self._lengths[key] -= 1
+                if not self._lengths[key]:
+                    del self._lengths[key]
         if nid is not None:
             for fn in self._listeners:
                 fn(str(net), nid, False)
@@ -74,12 +86,14 @@ class IPCache:
     def lookup(self, ip: str) -> Optional[NumericIdentity]:
         """Longest-prefix match (the BPF ipcache is an LPM trie)."""
         addr = ipaddress.ip_address(ip)
-        best: Tuple[int, Optional[NumericIdentity]] = (-1, None)
         with self._lock:
-            for net, nid in self._by_prefix.items():
-                if addr in net and net.prefixlen > best[0]:
-                    best = (net.prefixlen, nid)
-        return best[1]
+            for version, plen in sorted(self._lengths, reverse=True):
+                if version == addr.version:
+                    nid = self._by_prefix.get(ipaddress.ip_network(
+                        (addr, plen), strict=False))
+                    if nid is not None:
+                        return nid
+        return None
 
     def subscribe(self, fn: Callable[[str, NumericIdentity, bool], None]):
         self._listeners.append(fn)

@@ -24,7 +24,10 @@ schedule with a ``multichip`` and a ``serve`` event gives the same trace
 on the card as on the CPU, and the committed regression case reproduces
 on the card. The bench plane: KD, K2 and K1 at ``tools/bench_kernel``'s
 sweep banks, and ``tools/bench.py --config http --check`` at a small
-size on the card with 0 mismatches.
+size on the card with 0 mismatches. The observability plane: one 8192-flow
+chunk of a flowpb capture through the replay cursor and the fan-out
+sequence on the card, its annotated flows, events and exported lines
+equal to the plain path's.
 """
 
 import numpy as np
@@ -1055,3 +1058,62 @@ def test_bench_http_check_on_card_has_no_mismatch(cuda, tmp_path,
     assert line["device"].startswith("cuda")
     assert line["capture_records"] == 20000
     assert _build.KERNELS["KD"].launches > 0
+
+
+def test_fan_out_on_card_equals_the_plain_path(cuda, tmp_path, monkeypatch):
+    """One 8192-flow chunk of a flowpb capture through the replay cursor
+    and the fan-out sequence (``notify_batch``, ``annotate_flows`` with
+    the attribution map, ``observe``) on the card and on the plain path:
+    annotated flows, events and the exporter's lines equal; KD launched
+    on the card."""
+    import copy
+    import json
+
+    from cilium_tpu_torch.engine.verdict import AUTH_UNENFORCED
+    from cilium_tpu_torch.hubble import (
+        FlowExporter,
+        FlowMetrics,
+        Observer,
+        annotate_flows,
+    )
+    from cilium_tpu_torch.ingest import flowpb
+    from cilium_tpu_torch.ingest.cursor import ReplayCursor, replay_chunks
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.monitor import MonitorAgent, event_to_dict
+    from cilium_tpu_torch.runtime import simclock
+    from cilium_tpu_torch.runtime.metrics import Metrics
+
+    monkeypatch.setattr(simclock, "wall", lambda: 1753866000.25)
+    per_identity, sc = synth.realize_scenario(
+        synth.scenario_by_name("http", 40, 8192))
+    policy = CompiledPolicy.build(per_identity, EngineConfig())
+    cap = str(tmp_path / "cap.pb")
+    flowpb.write_pb_capture(cap, sc.flows)
+    cursor = ReplayCursor(str(tmp_path / "cursor.json"), cap)
+    ((commit, chunk),) = list(replay_chunks(cap, chunk_size=8192,
+                                            cursor=cursor))
+    assert commit == 8192
+    got = {}
+    for dev in ("cuda", "cpu"):
+        engine = TorchVerdictEngine(policy, device=dev)
+        flows = copy.deepcopy(chunk)
+        path = str(tmp_path / f"{dev}.jsonl")
+        m, ex = Metrics(), FlowExporter(path)
+        obs, mon = Observer(handlers=[FlowMetrics(m), ex]), MonitorAgent()
+        _build.reset_launches()
+        out = engine.verdict_flows(flows, authed_pairs=AUTH_UNENFORCED)
+        assert all(isinstance(v, np.ndarray) for v in out.values())
+        events = mon.notify_batch(flows, out)
+        annotate_flows(flows, out, amap=engine.attribution)
+        obs.observe(flows)
+        ex.close()
+        if dev == "cuda":
+            assert _build.KERNELS["KD"].launches > 0
+        with open(path) as f:
+            lines = [json.loads(s) for s in f]
+        got[dev] = ([flow_to_dict(f) for f in flows],
+                    [event_to_dict(e) for e in events], lines,
+                    dict(m._counters))
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][2] == got["cuda"][0]
+    assert len({d["verdict"] for d in got["cuda"][0]}) > 1

@@ -488,6 +488,42 @@ def test_cidr_labels_and_ipcache_equal_the_reference():
     assert out["cilium_tpu_torch.ipcache"] == out["cilium_tpu.ipcache"]
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ipcache_lookup_equals_the_reference_under_churn(seed):
+    """The port probes one prefix length at a time; the reference scans
+    every entry. Nested and overlapping IPv4 and IPv6 prefixes, remaps
+    and deletes (a length emptied and filled again) give the same
+    longest-prefix answers."""
+    rng = np.random.default_rng(seed)
+
+    def prefix():
+        if rng.random() < 0.3:
+            return f"2001:db8:{rng.integers(0, 4):x}::/{rng.integers(32, 129)}"
+        return (f"10.{rng.integers(0, 3)}.{rng.integers(0, 3)}."
+                f"{rng.integers(0, 4)}/{rng.integers(0, 33)}")
+
+    ops = [(rng.choice(["up", "up", "del"]), prefix(),
+            int(rng.integers(100, 110))) for _ in range(300)]
+    ips = ([f"10.{a}.{b}.{c}" for a in range(3) for b in range(3)
+            for c in range(5)] + ["11.0.0.1", "2001:db8::1",
+                                  "2001:db8:3::ffff", "2001:db9::1"])
+    out = {}
+    for mod in (ipcache, jax_ipcache):
+        c = mod.IPCache(IdentityAllocator() if mod is ipcache
+                        else JaxAllocator())
+        looks = []
+        for op, p, nid in ops:
+            if op == "up":
+                c.upsert(p, identity=nid)
+            else:
+                c.delete(p)
+            looks.append([None if (x := c.lookup(ip)) is None else int(x)
+                          for ip in ips])
+        out[mod.__name__] = (looks, c.dump())
+    assert out["cilium_tpu_torch.ipcache"] == out["cilium_tpu.ipcache"]
+    assert any(v is not None for v in out["cilium_tpu.ipcache"][0][-1])
+
+
 def test_dns_cache_equals_the_reference():
     got, want = DNSCache(min_ttl=5), JaxDNSCache(min_ttl=5)
     for c in (got, want):

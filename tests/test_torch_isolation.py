@@ -100,7 +100,28 @@ _EXPECTED = ("cilium_tpu_torch.clustermesh",
              "cilium_tpu_torch.tools.bench_multichip",
              "cilium_tpu_torch.tools.bench_sp",
              "cilium_tpu_torch.tools.churn_lane",
-             "cilium_tpu_torch.tools.prov_noise")
+             "cilium_tpu_torch.tools.prov_noise",
+             "cilium_tpu_torch.ingest.flowpb",
+             "cilium_tpu_torch.ingest.accesslog",
+             "cilium_tpu_torch.ingest.cursor",
+             "cilium_tpu_torch.ingest.hubble",
+             "cilium_tpu_torch.monitor",
+             "cilium_tpu_torch.hubble.ring",
+             "cilium_tpu_torch.hubble.observer",
+             "cilium_tpu_torch.hubble.metrics",
+             "cilium_tpu_torch.hubble.exporter",
+             "cilium_tpu_torch.hubble.server",
+             "cilium_tpu_torch.hubble.accesslog_server",
+             "cilium_tpu_torch.runtime.unixsock")
+
+#: the observability and ingest plane's modules
+_OBSERVE = tuple(m for m in _EXPECTED
+                 if m.startswith(("cilium_tpu_torch.ingest.",
+                                  "cilium_tpu_torch.hubble.",
+                                  "cilium_tpu_torch.monitor",
+                                  "cilium_tpu_torch.runtime.unixsock"))
+                 and m not in ("cilium_tpu_torch.ingest.binary",
+                               "cilium_tpu_torch.ingest.columnar"))
 
 #: the bench plane's modules: their CLIs print to stdout and write a
 #: file only where --out names one
@@ -160,6 +181,17 @@ def test_bench_tools_import_no_jax_cilium_tpu_or_root_bench(module):
     roots = _imported_roots(path)
     assert not roots & {"jax", "jaxlib", "cilium_tpu", "yaml"}, roots
     assert not {r for r in roots if r.startswith("bench")}, roots
+
+
+@pytest.mark.parametrize("module", _OBSERVE)
+def test_observability_modules_import_no_jax_or_cilium_tpu(module):
+    """The observability plane's modules import nothing of JAX, the JAX
+    package or ``yaml`` at any depth of the file (their lazy imports
+    included)."""
+    import importlib
+
+    roots = _imported_roots(importlib.import_module(module).__file__)
+    assert not roots & {"jax", "jaxlib", "cilium_tpu", "yaml"}, roots
 
 
 def _out_defaults(module):
