@@ -377,7 +377,39 @@ but for 15 and 14, which run, in that order, inside phase 10:
    launch shape the phase staged. An ``observe: {...}`` line carries
    records/s a format, host ms a chunk by stage, the follower's and the
    subscribers' losses and the launches;
-18. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+18. the node-local agent at the http scenario (1000 rules x 10000
+   flows, batches of 8192, ``Config.from_env()``, uncut): (a)
+   ``Agent(device="cuda")`` with its API, verdict-service, monitor and
+   Hubble sockets in a temporary directory; (b) the scenario's endpoints,
+   ``checkout`` and ``payments`` and 8 bystanders over ``PUT
+   /v1/endpoint/{id}`` (IPs from IPAM's ``pod_cidr``), the 1000 rules by
+   ``Agent.policy_add`` (one regeneration: its span split into the
+   loader's compile and stage and the rest, the resolve), and
+   ``auth-required.yaml`` as YAML over ``PUT /v1/policy``; ``GET
+   /v1/healthz`` reports an engine revision; (c) ``process_flows`` over
+   the 10000 flows, all ten lanes equal to a plain engine
+   (``device="cpu"``) of the agent loader's policy, then timed (host ms a
+   batch, a traced batch's device ms); (d) ``checkout`` -> ``payments``
+   on 8443 drops, forwards after ``PUT /v1/auth``, drops after ``DELETE
+   /v1/auth``; (e) ``PUT /v1/policy/trace`` on 32 of the endpoints'
+   label pairs and ``GET /v1/explain`` for a chunk served through a
+   ``ServeLoop`` on the agent's loader under a pinned trace id, each
+   equal to the in-process call; ``PATCH /v1/config`` off (the CPU
+   oracle, whose verdicts on 64 flows equal the card's) and on (a
+   ``TorchVerdictEngine`` on the card again, KD launching); (f) ``PUT
+   /v1/profile`` in device mode for 1 s while a thread runs
+   ``process_flows`` (the Chrome trace names KD's kernel), then in host
+   mode (the stacks hold ``process_flows``); (g) over the service socket
+   ``policy_get``, ``status``, ``profile`` and a bulk ``verdict`` that
+   reaches the monitor; the CNI plugin's ADD, CHECK and DEL as
+   ``python -m cilium_tpu_torch.cni`` subprocesses against the API
+   socket; ``POST /v1/drain``. Launch counts are zeroed before and read
+   after the phase (KD must have launched); KD, K2 and K1 are then held
+   exactly against their plain versions at every launch shape the phase
+   staged. An ``agent: {...}`` line carries one regeneration's split,
+   ``process_flows`` ms, each REST op's p50/p99, the CNI ADD's ms and
+   the launches;
+19. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -7946,6 +7978,513 @@ def observe_phase(engine, flows, card):
     return report, phase, variants, noted
 
 
+# ------------------------------------------------------------- phase 18
+#: phase 18: the node-local agent at the http scenario (N_RULES x
+#: N_FLOWS in batches of BATCH, uncut), driven as an operator drives it:
+#: endpoints and policy in over REST, verdicts out of ``process_flows``.
+#: Cut in iterations only: the label pairs the trace samples, each REST
+#: op's timed repetitions (p50/p99; the auth put/delete cycles and the
+#: re-PUTs of the auth policy among them), the gate's off/on round trips,
+#: the timed ``process_flows`` passes over the scenario, the bystander
+#: endpoints PUT beside the scenario's (samples of the PUT's latency),
+#: the flows the CPU oracle verdicts while the gate is off (0.8 ms a flow
+#: at 1000 rules on the card's host), the served chunk ``/v1/explain``
+#: reads, and the profile windows
+AGENT_TRACE_PAIRS, AGENT_REST_REPS, AGENT_PASSES = 32, 50, 10
+AGENT_GATE_ROUNDS = 5
+AGENT_BYSTANDERS, AGENT_ORACLE_SAMPLE, AGENT_EXPLAIN_FLOWS = 8, 64, 4
+AGENT_PROFILE_S, AGENT_HOST_PROFILE_S = 1.0, 0.5
+#: the CNI plugin's network configuration on its standard input
+AGENT_NETCONF = json.dumps({"cniVersion": "1.0.0", "name": "cilium-tpu",
+                            "type": "cilium-tpu-cni"})
+
+
+def span_sums():
+    """The loader's and the endpoint manager's span totals (s) and the
+    regenerations counted so far."""
+    from cilium_tpu_torch.runtime.metrics import METRICS
+
+    out = {s: METRICS.histo_sum("cilium_tpu_span_seconds", {"span": s})
+           for s in ("endpoint_regeneration", "policy_compile",
+                     "policy_stage")}
+    out["regenerations"] = METRICS.histo_count(
+        "cilium_tpu_span_seconds", {"span": "endpoint_regeneration"})
+    return out
+
+
+def cni_exec(command, api_sock, container, cwd):
+    """The CNI plugin as the container runtime execs it:
+    ``python -m cilium_tpu_torch.cni`` with the ``CNI_*`` environment
+    and the netconf on standard input → (rc, result, wall s)."""
+    env = {k: v for k, v in os.environ.items()
+           if k in ("PATH", "HOME", "TMPDIR", "LANG")}
+    env.update({"CNI_COMMAND": command, "CNI_CONTAINERID": container,
+                "CNI_IFNAME": "eth0", "CNI_NETNS": "/var/run/netns/cs18",
+                "CNI_ARGS": "K8S_POD_NAMESPACE=default;K8S_POD_NAME=cs18-0",
+                "CILIUM_TPU_API_SOCKET": api_sock})
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "cilium_tpu_torch.cni"],
+                       input=AGENT_NETCONF, capture_output=True, text=True,
+                       env=env, cwd=cwd, timeout=120)
+    wall = time.perf_counter() - t0
+    check(p.stdout.strip() != "", f"[agent cni] {command} printed nothing "
+          f"(rc {p.returncode}): {p.stderr[-500:]}")
+    return p.returncode, json.loads(p.stdout), wall
+
+
+def agent_phase(card):
+    """Phase 18 (see the module docstring) → (report, the phase's
+    launches, KD's launches by variant, the launch shapes noted)."""
+    import ipaddress
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from cilium_tpu_torch import cni
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.core.flow import (
+        Flow,
+        Protocol,
+        TrafficDirection,
+        Verdict,
+    )
+    from cilium_tpu_torch.core.labels import LabelSet
+    from cilium_tpu_torch.endpoint import with_cluster_label
+    from cilium_tpu_torch.engine.verdict import (
+        OUTPUT_LANES,
+        TorchVerdictEngine,
+    )
+    from cilium_tpu_torch.ingest import synth
+    from cilium_tpu_torch.ingest.binary import (
+        capture_from_bytes,
+        capture_to_bytes,
+    )
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.policy.api.cnp import CiliumNetworkPolicy
+    from cilium_tpu_torch.policy.trace import trace
+    from cilium_tpu_torch.runtime.api import APIClient
+    from cilium_tpu_torch.runtime.explain import EXPLAIN, resolve_explain
+    from cilium_tpu_torch.runtime.serveloop import ServeLoop
+    from cilium_tpu_torch.runtime.service import VerdictClient
+    from cilium_tpu_torch.runtime.tracing import TRACER
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    noted, rest, report = {}, {}, {"card": card, "rules": N_RULES,
+                                   "flows": N_FLOWS, "batch": BATCH}
+
+    def timed(op, fn, *a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        rest.setdefault(op, []).append(time.perf_counter() - t0)
+        return r
+
+    # the agent's engines take the gather arm, as phase 8's loader did;
+    # its service traces every request, as the tracer's defaults do
+    os.environ["CILIUM_TPU_DFA_IMPL"] = "gather"
+    tracer0 = (TRACER.enabled, TRACER.sample_rate)
+    TRACER.configure(enabled=True, sample_rate=1.0)
+    # a short directory: unix socket paths stay under 108 bytes
+    tmp = tempfile.mkdtemp(prefix="cs18")
+    socks = {k: os.path.join(tmp, f"{k}.sock")
+             for k in ("api", "svc", "mon", "hub")}
+    sc = synth.synth_http_scenario(N_RULES, N_FLOWS)
+    flows = sc.flows
+    cfg = Config.from_env()
+    cfg.configure_logging = False
+    cfg.loader.cache_dir = os.path.join(tmp, "cache")
+    agent = None
+    try:
+        with kernel_launches_noted(noted):
+            reset_counts()
+            c0 = counts()
+            # -- 18a: the agent with its sockets
+            t0 = time.perf_counter()
+            agent = Agent(cfg, device=DEVICE, socket_path=socks["svc"],
+                          api_socket_path=socks["api"],
+                          monitor_socket_path=socks["mon"],
+                          hubble_socket_path=socks["hub"]).start()
+            report["start_ms"] = (time.perf_counter() - t0) * 1e3
+            check(agent.device.type == DEVICE
+                  and agent.loader.device.type == DEVICE
+                  and agent.dns_proxy.device.type == DEVICE,
+                  f"[agent] the agent, its loader and its DNS proxy must "
+                  f"run on {DEVICE}")
+            client = APIClient(socks["api"])
+            pod_cidr = ipaddress.ip_network(cfg.pod_cidr)
+
+            # -- 18b: endpoints over REST (IPs from IPAM), the 1000 rules
+            # in process, the auth policy as YAML over REST
+            ids, labels_of = {}, {}
+            eps = [(name, dict(lbl)) for name, lbl in
+                   sorted(sc.endpoints.items())]
+            ns = {"io.kubernetes.pod.namespace": "default"}
+            eps += [("checkout", dict(ns, app="checkout")),
+                    ("payments", dict(ns, app="payments"))]
+            eps += [(f"bystander{i}", {"app": f"bystander{i}"})
+                    for i in range(AGENT_BYSTANDERS)]
+            for i, (name, lbl) in enumerate(eps):
+                code, ep = timed("PUT /v1/endpoint", client.endpoint_put,
+                                 100 + i, lbl)
+                check(code == 201 and ipaddress.ip_address(ep["ipv4"])
+                      in pod_cidr, f"[agent] PUT /v1/endpoint {name}: "
+                      f"{code} {ep}")
+                ids[name], labels_of[name] = ep["identity"], ep["labels"]
+            agent.endpoint_manager.regenerate_all(wait=True)
+            s0 = span_sums()
+            t0 = time.perf_counter()
+            agent.policy_add(CiliumNetworkPolicy(
+                name="synth-http", namespace="default",
+                rules=tuple(sc.rules)))
+            wall = time.perf_counter() - t0
+            s1 = span_sums()
+            d = {k: s1[k] - s0[k] for k in s1}
+            report["regeneration"] = {
+                "wall_ms": wall * 1e3,
+                "regenerations": d["regenerations"],
+                "regeneration_ms": d["endpoint_regeneration"] * 1e3,
+                "compile_ms": d["policy_compile"] * 1e3,
+                "stage_ms": d["policy_stage"] * 1e3,
+                # the rest of the regeneration span: the resolve, the
+                # proxy ports and the DNS proxy's allow-sets
+                "resolve_ms": (d["endpoint_regeneration"]
+                               - d["policy_compile"]
+                               - d["policy_stage"]) * 1e3}
+            with open(os.path.join(here, "examples", "policies", "l7",
+                                   "auth-required.yaml")) as fp:
+                auth_yaml = fp.read()
+            code, body = timed("PUT /v1/policy", client.policy_put_yaml,
+                               auth_yaml)
+            check(code == 200 and body["count"] == 1,
+                  f"[agent] PUT /v1/policy: {code} {body}")
+            health = timed("GET /v1/healthz", client.healthz)
+            check(health["status"] == "ok" and health["engine_revision"] > 0,
+                  f"[agent] healthz {health}")
+            engine = agent.loader.engine
+            check(isinstance(engine, TorchVerdictEngine)
+                  and engine.device.type == DEVICE,
+                  f"[agent] the served engine is {type(engine).__name__}")
+            report["path_stack"] = list(
+                engine.policy.arrays["path_trans"].shape)
+            log(f"[agent] {len(eps)} endpoints over REST, {N_RULES} rules "
+                f"and auth-required.yaml: one regeneration "
+                f"{report['regeneration']['regeneration_ms']:.1f} ms (compile "
+                f"{report['regeneration']['compile_ms']:.1f}, stage "
+                f"{report['regeneration']['stage_ms']:.1f}, resolve and the "
+                f"rest {report['regeneration']['resolve_ms']:.1f}); engine "
+                f"revision {health['engine_revision']}, path stack "
+                f"{tuple(report['path_stack'])}")
+
+            # -- 18c: process_flows, all ten lanes against a plain engine
+            for f in flows:
+                f.src_identity, f.dst_identity = ids["client"], ids["server"]
+            batches = [flows[lo:lo + BATCH]
+                       for lo in range(0, len(flows), BATCH)]
+            plain = TorchVerdictEngine(engine.policy, device="cpu",
+                                       cfg=engine.cfg)
+            card_out = []
+            for k, b in enumerate(batches):
+                got = agent.process_flows(b)
+                want = plain.verdict_flows(
+                    b, authed_pairs=agent.auth.pairs_array())
+                assert_lanes(f"[agent] process_flows batch {k}", got, want)
+                card_out.append(got)
+            mix = np.bincount(np.concatenate(
+                [o["verdict"] for o in card_out]), minlength=6).tolist()
+            check(mix[int(Verdict.DROPPED)] > 0
+                  and mix[int(Verdict.REDIRECTED)] > 0,
+                  f"[agent] implausible verdict mix {mix}")
+            host = []
+            for _ in range(AGENT_PASSES):
+                for b in batches:
+                    t0 = time.perf_counter()
+                    agent.process_flows(b)
+                    host.append(time.perf_counter() - t0)
+            kern = profile_kernels(lambda: agent.process_flows(batches[0]),
+                                   reps=1)
+            report["process_flows"] = {
+                "batches": len(batches), "mix": mix,
+                "host_ms": quantiles_ms(host),
+                "device_ms": sum(ms for _, ms in kern.values()) or None,
+                "device_kernels": sum(n for n, _ in kern.values()),
+                "kd_in_trace": any("dfa_dense_kernel" in k for k in kern)}
+            log(f"[agent] process_flows: ten lanes equal to the plain "
+                f"engine on {len(batches)} batches; mix {mix}; a batch of "
+                f"{BATCH} host p50 "
+                f"{report['process_flows']['host_ms']['p50_ms']:.2f} ms, "
+                f"device {report['process_flows']['device_ms']} ms in "
+                f"{report['process_flows']['device_kernels']} kernels")
+
+            # -- 18d: mutual auth through the REST face
+            pay = Flow(src_identity=ids["checkout"],
+                       dst_identity=ids["payments"], dport=8443,
+                       protocol=Protocol.TCP,
+                       direction=TrafficDirection.INGRESS)
+            states = []
+            for step in ("before", "put", "delete"):
+                if step == "put":
+                    code, _ = timed("PUT /v1/auth", client.auth_put,
+                                    ids["checkout"], ids["payments"])
+                    check(code == 201, f"[agent] PUT /v1/auth: {code}")
+                elif step == "delete":
+                    code, body = timed("DELETE /v1/auth", client.auth_delete,
+                                       ids["checkout"], ids["payments"])
+                    check(code == 200 and body["deleted"],
+                          f"[agent] DELETE /v1/auth: {code} {body}")
+                got = agent.process_flows([pay])
+                assert_lanes(f"[agent] auth {step}", got, plain.verdict_flows(
+                    [pay], authed_pairs=agent.auth.pairs_array()))
+                states.append((int(got["verdict"][0]),
+                               bool(got["auth_required"][0])))
+            check(states == [(2, True), (1, True), (2, True)],
+                  f"[agent] checkout -> payments:8443 before / after PUT / "
+                  f"after DELETE /v1/auth: {states}")
+            report["auth"] = states
+            for _ in range(AGENT_REST_REPS - 1):
+                timed("PUT /v1/auth", client.auth_put, ids["checkout"],
+                      ids["payments"])
+                timed("DELETE /v1/auth", client.auth_delete,
+                      ids["checkout"], ids["payments"])
+            check(not agent.auth.is_authed(ids["checkout"],
+                                           ids["payments"]),
+                  "[agent] the auth cycles left the pair authed")
+
+            # -- 18e: REST answers equal the in-process calls
+            names = [n for n, _ in eps]
+            pairs = [(a, b) for a in names for b in names if a != b]
+            rng = np.random.default_rng(18)
+            pick = rng.choice(len(pairs), size=min(AGENT_TRACE_PAIRS,
+                                                   len(pairs)),
+                              replace=False)
+            verdicts = []
+            for i, j in enumerate(pick):
+                a, b = pairs[j]
+                dport = (80, 8443)[i % 2]
+                got = timed("PUT /v1/policy/trace", client.policy_trace,
+                            labels_of[a], labels_of[b], dport=dport)
+                want = trace(
+                    agent.repo,
+                    with_cluster_label(LabelSet.parse(labels_of[a]),
+                                       cfg.cluster_name),
+                    with_cluster_label(LabelSet.parse(labels_of[b]),
+                                       cfg.cluster_name),
+                    dport=dport, cluster_name=cfg.cluster_name)
+                check(got == json.loads(json.dumps(want)),
+                      f"[agent] trace {a} -> {b}:{dport} over REST {got} "
+                      f"!= in process {want}")
+                verdicts.append(got["verdict"])
+            check({"ALLOWED", "DENIED"} <= set(verdicts),
+                  f"[agent] the trace sample saw only {set(verdicts)}")
+            tid = "18a9e1d7c0ffee18"
+            EXPLAIN.clear()
+            loop = ServeLoop(agent.loader, capacity=8, lease_ttl_s=60.0,
+                             pack_interval_s=0.01)
+            lease = loop.connect("cs18")
+            with TRACER.trace("stream.chunk", trace_id=tid):
+                ticket = loop.submit(lease, *capture_from_bytes(
+                    capture_to_bytes(flows[:AGENT_EXPLAIN_FLOWS])))
+            loop.step()
+            check(ticket.done, "[agent] the traced chunk was not served")
+            code, got = timed("GET /v1/explain", client.request, "GET",
+                              f"/v1/explain?trace_id={tid}")
+            want = json.loads(json.dumps(resolve_explain(agent.loader, tid),
+                                         default=str))
+            check(code == 200 and got == want and got["found"]
+                  and got.get("served_equals_fresh") is not False,
+                  f"[agent] GET /v1/explain {code}: REST and in-process "
+                  f"answers differ or were not found")
+            for _ in range(AGENT_REST_REPS):
+                timed("GET /v1/healthz", client.healthz)
+                timed("GET /v1/endpoint", client.endpoints)
+                timed("GET /v1/policy", client.policy_get)
+                timed("GET /v1/debuginfo", client.debuginfo)
+                timed("GET /v1/explain", client.request, "GET",
+                      f"/v1/explain?trace_id={tid}")
+                a, b = pairs[pick[0]]
+                timed("PUT /v1/policy/trace", client.policy_trace,
+                      labels_of[a], labels_of[b], dport=80)
+            # re-PUTs of the auth policy: an upsert and one regeneration
+            # each, the served revision moving on
+            rev0 = agent.loader.revision
+            for _ in range(AGENT_REST_REPS - 1):
+                code, _ = timed("PUT /v1/policy", client.policy_put_yaml,
+                                auth_yaml)
+                check(code == 200, f"[agent] re-PUT /v1/policy: {code}")
+            check(agent.loader.revision > rev0
+                  and len(agent.repo.rules()) == 2,
+                  f"[agent] re-PUTs: revision {rev0} -> "
+                  f"{agent.loader.revision}, "
+                  f"{len(agent.repo.rules())} rules")
+            # the gate off (the CPU oracle) and back on (the card)
+            sample = flows[:AGENT_ORACLE_SAMPLE]
+            code, _ = timed("PATCH /v1/config", client.patch_config,
+                            enable_tpu_offload=False)
+            check(code == 200 and not isinstance(agent.loader.engine,
+                                                 TorchVerdictEngine)
+                  and not agent.dns_proxy.use_tpu,
+                  f"[agent] PATCH off: {code}, "
+                  f"{type(agent.loader.engine).__name__}")
+            t0 = time.perf_counter()
+            oracle = agent.process_flows(sample)
+            report["oracle_ms_a_flow"] = \
+                (time.perf_counter() - t0) * 1e3 / len(sample)
+            check(np.array_equal(oracle["verdict"],
+                                 card_out[0]["verdict"][:len(sample)]),
+                  "[agent] the oracle's verdicts differ from the card's")
+            code, _ = timed("PATCH /v1/config", client.patch_config,
+                            enable_tpu_offload=True)
+            engine = agent.loader.engine
+            check(code == 200 and isinstance(engine, TorchVerdictEngine)
+                  and engine.device.type == DEVICE and agent.dns_proxy.use_tpu,
+                  f"[agent] PATCH on: {code}, {type(engine).__name__}")
+            kd0 = counts()["KD"]
+            assert_lanes("[agent] after the gate's round trip",
+                         agent.process_flows(batches[0]), card_out[0])
+            check(counts()["KD"] > kd0 or DEVICE == "cpu",
+                  "[agent] KD did not launch after PATCH back on")
+            for _ in range(AGENT_GATE_ROUNDS - 1):
+                for on in (False, True):
+                    code, _ = timed("PATCH /v1/config", client.patch_config,
+                                    enable_tpu_offload=on)
+                    check(code == 200 and isinstance(
+                        agent.loader.engine, TorchVerdictEngine) == on,
+                        f"[agent] PATCH {on}: {code}")
+            check(agent.loader.engine.device.type == DEVICE,
+                  "[agent] the gate's round trips left the card")
+
+            # -- 18f: the profiler over REST while process_flows runs
+            stop = threading.Event()
+            drove = []
+
+            def drive():
+                while not stop.is_set():
+                    agent.process_flows(batches[0])
+                    drove.append(1)
+
+            prof = {}
+            for mode, secs in (("device", AGENT_PROFILE_S),
+                               ("host", AGENT_HOST_PROFILE_S)):
+                if mode == "device" and DEVICE == "cpu":
+                    continue  # a CPU rehearsal: device mode needs CUDA
+                stop.clear()
+                t = threading.Thread(target=drive)
+                t.start()
+                try:
+                    time.sleep(0.2)  # the thread is inside process_flows
+                    code, body = timed(
+                        f"PUT /v1/profile {mode}", client.request, "PUT",
+                        "/v1/profile",
+                        {"mode": mode, "seconds": secs,
+                         "out": os.path.join(tmp, f"prof-{mode}")})
+                finally:
+                    stop.set()
+                    t.join(timeout=120)
+                check(code == 200, f"[agent] PUT /v1/profile {mode}: "
+                      f"{code} {body}")
+                with open(body["path"]) as fp:
+                    text = fp.read()
+                if mode == "device":
+                    names = {e.get("name", "") for e in
+                             json.loads(text).get("traceEvents", [])}
+                    hit = any("dfa_dense_kernel" in n for n in names)
+                    check(hit or DEVICE == "cpu",
+                          "[agent] the device profile names no KD kernel")
+                    prof[mode] = {"events": len(names), "kd": hit,
+                                  "kernels": [k for k in body.get(
+                                      "device_events", ())
+                                      if "dfa_" in k or "nfa_" in k]}
+                else:
+                    check("process_flows" in text,
+                          "[agent] the host profile's stacks lack "
+                          "process_flows")
+                    prof[mode] = {"samples": body["samples"],
+                                  "stacks": body["distinct_stacks"]}
+            prof["batches_beside"] = len(drove)
+            report["profile"] = prof
+
+            # -- 18g: the service's agent ops, the CNI plugin, the drain
+            svc = VerdictClient(socks["svc"])
+            try:
+                got = svc.call({"op": "policy_get"})
+                check(len(got["rules"]) == len(agent.repo.rules()),
+                      f"[agent] service policy_get: {str(got)[:200]}")
+                got = svc.call({"op": "status"})
+                check(got.get("engine_revision") == agent.loader.revision
+                      and "banks" in got and "ipam" in got,
+                      f"[agent] service status: {str(got)[:200]}")
+                got = svc.call({"op": "profile", "mode": "host",
+                                "seconds": 0.2,
+                                "out": os.path.join(tmp, "prof-svc")})
+                check(got.get("mode") == "host",
+                      f"[agent] service profile: {got}")
+                events = []
+                agent.monitor.subscribe(events.append)
+                bulk = flows[:256]
+                got = svc.call({"op": "verdict",
+                                "flows": [flow_to_dict(f) for f in bulk]})
+                agent.monitor.unsubscribe(events.append)
+                check(got["verdicts"] == card_out[0]["verdict"][:256]
+                      .tolist() and len(events) > 0,
+                      f"[agent] bulk verdict: {len(events)} monitor events")
+                report["service"] = {"bulk_events": len(events)}
+            finally:
+                svc.close()
+            container = "chip-smoke-cs18"
+            cni_out = {}
+            for command in ("ADD", "CHECK", "DEL"):
+                rc, res, wall = cni_exec(command, socks["api"], container,
+                                         here)
+                check(rc == 0, f"[agent cni] {command}: rc {rc} {res}")
+                cni_out[command] = {"wall_ms": wall * 1e3}
+                if command == "ADD":
+                    ip = res["ips"][0]["address"].split("/")[0]
+                    ep = agent.endpoint_manager.get(
+                        cni.endpoint_id_for(container))
+                    check(ep is not None and ep.ipv4 == ip
+                          and ipaddress.ip_address(ip) in pod_cidr,
+                          f"[agent cni] ADD {res}")
+            check(agent.endpoint_manager.get(
+                cni.endpoint_id_for(container)) is None,
+                "[agent cni] DEL left the endpoint")
+            # the plugin's work apart from the interpreter's start
+            import io
+
+            env = {"CNI_COMMAND": "ADD", "CNI_CONTAINERID": container + "-b",
+                   "CILIUM_TPU_API_SOCKET": socks["api"]}
+            t0 = time.perf_counter()
+            rc = cni.main(env=env, stdin=io.StringIO(AGENT_NETCONF),
+                          stdout=io.StringIO())
+            cni_out["ADD_in_process_ms"] = (time.perf_counter() - t0) * 1e3
+            check(rc == 0, "[agent cni] in-process ADD")
+            report["cni"] = cni_out
+            code, body = timed("POST /v1/drain", client.drain)
+            check(code == 200 and body["ok"],
+                  f"[agent] POST /v1/drain: {code} {body}")
+            launches = _count_delta(c0)
+            variants = kd_variants()
+    finally:
+        if agent is not None:
+            agent.stop()
+        TRACER.configure(enabled=tracer0[0], sample_rate=tracer0[1])
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(launches["KD"] > 0 or DEVICE == "cpu",
+          "[agent] KD never launched in phase 18")
+    report["rest"] = {op: quantiles_ms(s) for op, s in sorted(rest.items())}
+    report["launches"] = launches
+    report["kd_variants"] = variants
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[agent] REST p50/p99 ms: " + "; ".join(
+        f"{op} {q['p50_ms']:.2f}/{q['p99_ms']:.2f}"
+        for op, q in report["rest"].items()))
+    log(f"[agent] CNI ADD {cni_out['ADD']['wall_ms']:.1f} ms as a process "
+        f"({cni_out['ADD_in_process_ms']:.1f} ms in process); launches "
+        f"{launches} on {card}")
+    return report, launches, variants, noted
+
+
 def _count_delta(c0):
     return {k: v - c0[k] for k, v in counts().items()}
 
@@ -7997,7 +8536,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
-    """Phases 2 (its SASS checks) to 18 (see the module docstring)."""
+    """Phases 2 (its SASS checks) to 19 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     tensor_ops = sass_tensor_ops()
@@ -8178,6 +8717,19 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     observe_report["wall_s_with_holds"] = time.perf_counter() - t17
     log(f"phase 17 wall {observe_report['wall_s']:.1f} s "
         f"({observe_report['wall_s_with_holds']:.1f} s with the holds)")
+    t18 = time.perf_counter()
+    log("phase 18: the node-local agent — Agent on the card with its "
+        "sockets, endpoints and policy over REST, process_flows, mutual "
+        "auth, trace and explain, the gate's round trip, the profiler, "
+        "the service's agent ops and the CNI plugin")
+    agent_report, agent_launches, agent_variants, agent_noted = \
+        agent_phase(card)
+    log(f"phase 18: KD, K2 and K1 at the {len(agent_noted)} launch shapes "
+        f"the phase staged, against their plain versions")
+    agent_report["held"] = hold_noted(errs, agent_noted, "agent")
+    agent_report["wall_s_with_holds"] = time.perf_counter() - t18
+    log(f"phase 18 wall {agent_report['wall_s']:.1f} s "
+        f"({agent_report['wall_s_with_holds']:.1f} s with the holds)")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -8194,6 +8746,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_launches.update(dst_launches)
     phase_launches.update(bench_launches)
     phase_launches["observe"] = observe_launches
+    phase_launches["agent"] = agent_launches
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -8209,6 +8762,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_variants["parallel"] = par_variants
     phase_variants.update(bench_variants)
     phase_variants["observe"] = observe_variants
+    phase_variants["agent"] = agent_variants
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -8257,6 +8811,8 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
                                   bench_report["held"]["sweep"].items()},
             # phase 17: the launch shapes of the observability plane
             "observe_shapes_held": observe_report["held"].get(kid, 0),
+            # phase 18: the launch shapes of the agent plane
+            "agent_shapes_held": agent_report["held"].get(kid, 0),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -8285,6 +8841,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     log("dst: " + json.dumps(dst_report))
     log("bench: " + json.dumps(bench_report))
     log("observe: " + json.dumps(observe_report))
+    log("agent: " + json.dumps(agent_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,19 @@
-"""Configuration tree: the sections of the reference's
-``core/config.py`` that the port reads, field for field — typed
-dataclasses, environment overrides (``from_env``) and one master
-feature gate ``enable_tpu_offload``.
+"""Configuration tree: the reference's ``core/config.py`` field for
+field — typed dataclasses, environment overrides (``from_env``) and one
+master feature gate ``enable_tpu_offload``.
 
-The port carries ``engine``, ``loader``, ``compile``, ``tenant`` and
-``canary`` (the verdict engine and the loader plane), ``provenance``
-and ``slo`` (which ``runtime.serveloop.ServeLoop`` reads off its
-loader's config), and ``admission``, ``breaker`` and ``serve`` (which
-``runtime.service`` and ``runtime.stream`` read), and ``fleet`` (the
-serving fleet's topology and health knobs, which
-``runtime.fleetserve.main`` reads), and ``parallel`` (the mesh layout
-and the sharded verdict lane, which ``parallel.mesh`` and
-``parallel.sharding.stage_for_lane`` read), and ``dst`` (the seeded
-fault-schedule search, which ``runtime.dst.main`` reads). The
-reference's other section (tracing), its agent fields, its TOML
-reader and the environment settings of fields that no ported module
-reads yet (``identity_regen_debounce_s``, the REST API's
-``admission.api_max_inflight``) come with the modules that read them.
+Every section and every root field of the reference is here: the
+verdict engine and the loader plane (``engine``, ``loader``,
+``compile``, ``tenant``, ``canary``), the serving plane
+(``provenance``, ``slo``, ``admission``, ``breaker``, ``serve``), the
+fleet, the mesh (``parallel``), the fault-schedule search (``dst``),
+the flight recorder (``tracing``, which ``Agent`` hands to
+``TRACER.configure``) and the agent's own fields (``cluster_name``,
+``node_name``, ``ipam_mode``, ``identity_allocation_mode``,
+``pod_cidr``, ``kube_apiserver_ips``, ``k8s_api_socket``,
+``log_level``, ``monitor_aggregation``, ``configure_logging``,
+``enable_metrics``). The reference's TOML reader (``from_toml``) comes
+with the daemon (queue 1, Q13c).
 
 Two deliberate deviations from the reference, each tested
 (``tests/test_torch_loader.py``):
@@ -26,7 +23,7 @@ Two deliberate deviations from the reference, each tested
   CPU oracle stays reachable with the gate set off explicitly
   (``CILIUM_TPU_ENABLE_OFFLOAD=0`` or ``Config(enable_tpu_offload=
   False)``).
-* ``LoaderConfig.cache_dir`` defaults to ``~/.cache/cilium_tpu_torch``:
+* ``LoaderConfig.cache_dir`` defaults to ``~/.cache/cilium_tpu``:
   the two packages compute the same bank keys, so they must never
   share a cache directory.
 """
@@ -206,6 +203,8 @@ class AdmissionConfig:
     #: drain flush budget: pending verdicts still unflushed after this
     #: resolve as ERROR (the abort tail of a stuck drain)
     drain_timeout_s: float = 30.0
+    #: REST API bound: concurrent in-flight handlers before 503 sheds
+    api_max_inflight: int = 64
 
 
 @dataclasses.dataclass
@@ -283,6 +282,19 @@ class ProvenanceConfig:
     explain_capacity: int = 1024
     #: flows per traced chunk reconstructed for the explain store
     sample_per_chunk: int = 8
+
+
+@dataclasses.dataclass
+class TracingConfig:
+    """Flight-recorder knobs (``runtime/tracing.py``): per-request phase
+    attribution into a bounded ring, exported by ``GET /v1/trace``.
+    ``sample_rate`` admits every ceil(1/rate)-th ingress
+    deterministically; ``enabled=False`` reduces every probe to one
+    attribute read."""
+
+    enabled: bool = True
+    sample_rate: float = 1.0
+    ring_capacity: int = 4096
 
 
 @dataclasses.dataclass
@@ -417,6 +429,22 @@ class Config:
     #: denied forward with verdict AUDIT (4) instead of DROPPED, so a
     #: ruleset can be rolled out observe-only before enforcement
     policy_audit_mode: bool = False
+    cluster_name: str = "default"      # clustermesh local cluster name
+    node_name: str = "node-0"          # this node's name (operator key)
+    #: "static" uses pod_cidr as-is; "cluster-pool" registers with the
+    #: operator and receives this node's podCIDR from the cluster pool
+    #: (the operator is queue 1's Q13b part 2; the port's agent raises
+    #: on it until then)
+    ipam_mode: str = "static"
+    #: "local" = single-process allocator; "kvstore" = cluster-wide
+    #: allocation through the shared store, so every node maps the same
+    #: labels to the same identity; "crd" waits for the k8s layer
+    identity_allocation_mode: str = "local"
+    pod_cidr: str = "10.0.0.0/24"      # this node's IPAM podCIDR (static)
+    #: IPs of the kube-apiserver: the agent upserts each into the
+    #: ipcache under the reserved kube-apiserver identity, which is what
+    #: the `kube-apiserver` entity selects
+    kube_apiserver_ips: tuple = ()
     engine: EngineConfig = dataclasses.field(default_factory=EngineConfig)
     loader: LoaderConfig = dataclasses.field(default_factory=LoaderConfig)
     breaker: BreakerConfig = dataclasses.field(default_factory=BreakerConfig)
@@ -434,6 +462,21 @@ class Config:
     canary: CanaryConfig = dataclasses.field(default_factory=CanaryConfig)
     parallel: ParallelConfig = dataclasses.field(
         default_factory=ParallelConfig)
+    tracing: TracingConfig = dataclasses.field(default_factory=TracingConfig)
+    log_level: str = "info"
+    #: ``--k8s-api-socket``: CNP/CCNP informers and CiliumEndpoint /
+    #: CiliumNode status over a k8s API socket (queue 1's Q13b part 2;
+    #: the port's agent raises when it is set)
+    k8s_api_socket: str = ""
+    #: ``--monitor-aggregation``: none/low emit per-flow TraceNotify
+    #: events; medium/maximum suppress them to verdict/drop events. The
+    #: agent's default; monitor-socket subscribers pick their own level
+    monitor_aggregation: str = "medium"
+    #: ``Agent.start()`` installs the JSONL log handler (daemon
+    #: behaviour); hosts embedding the agent that own process logging
+    #: set False
+    configure_logging: bool = True
+    enable_metrics: bool = True
 
     @classmethod
     def from_env(cls, env=os.environ) -> "Config":
@@ -472,6 +515,9 @@ class Config:
         if "CILIUM_TPU_ARTIFACT_CACHE_MAX_BYTES" in env:
             cfg.loader.artifact_cache_max_bytes = int(
                 env["CILIUM_TPU_ARTIFACT_CACHE_MAX_BYTES"])
+        if "CILIUM_TPU_IDENTITY_REGEN_DEBOUNCE_S" in env:
+            cfg.loader.identity_regen_debounce_s = float(
+                env["CILIUM_TPU_IDENTITY_REGEN_DEBOUNCE_S"])
         if "CILIUM_TPU_COMPILE_WORKERS" in env:
             cfg.compile.workers = int(env["CILIUM_TPU_COMPILE_WORKERS"])
         if "CILIUM_TPU_COMPILE_DEADLINE_S" in env:
@@ -504,6 +550,16 @@ class Config:
         if "CILIUM_TPU_SERVE_PACK_INTERVAL_MS" in env:
             cfg.serve.pack_interval_ms = float(
                 env["CILIUM_TPU_SERVE_PACK_INTERVAL_MS"])
+        if "CILIUM_TPU_NODE_NAME" in env:
+            cfg.node_name = env["CILIUM_TPU_NODE_NAME"]
+        if "CILIUM_TPU_IPAM_MODE" in env:
+            cfg.ipam_mode = env["CILIUM_TPU_IPAM_MODE"]
+        if env.get("CILIUM_TPU_TRACING", "").lower() in ("0", "false",
+                                                         "no", "off"):
+            cfg.tracing.enabled = False
+        if "CILIUM_TPU_TRACE_SAMPLE_RATE" in env:
+            cfg.tracing.sample_rate = float(
+                env["CILIUM_TPU_TRACE_SAMPLE_RATE"])
         if "CILIUM_TPU_SLO_SERVE_P99_MS" in env:
             cfg.slo.serve_p99_ms = float(
                 env["CILIUM_TPU_SLO_SERVE_P99_MS"])

@@ -50,7 +50,8 @@ OUTPUT_LANES = ("verdict", "allowed", "l3l4_allowed", "redirect", "l7_ok",
                 "l7_match")
 
 #: ``authed_pairs`` value that opts out of drop-until-authed (the
-#: reference's ``cilium_tpu.auth.AUTH_UNENFORCED``, its own object here)
+#: reference's ``auth.AUTH_UNENFORCED``). The one object:
+#: ``cilium_tpu_torch.auth`` imports it from here
 AUTH_UNENFORCED = object()
 
 #: masked-min sentinel for the attribution winners

@@ -6,9 +6,11 @@ Reference: ``pkg/hubble`` (SURVEY.md §2.5) — monitor/accesslog events
 become ``flowpb.Flow``s in a fixed-size ring served over
 ``Observer.GetFlows`` (with follow + filters), with flow-metrics
 handlers and a JSONL exporter. Verdicted flows come straight from the
-engine's outputs (one readback a batch). The relay (``hubble/relay.py``)
-is not ported yet (queue 1, Q13b); ``HubbleServer`` keeps its ``relay``
-argument, and without one ``peers`` answers ``{"error": "not a relay"}``.
+engine's outputs (one readback a batch). Of ``hubble/relay.py`` the
+port carries ``PeerDirectory``, under which the agent advertises its
+Hubble socket; the relay itself is queue 1's Q13b part 2.
+``HubbleServer`` keeps its ``relay`` argument, and without one ``peers``
+answers ``{"error": "not a relay"}``.
 """
 
 from cilium_tpu_torch.hubble.ring import FlowRing

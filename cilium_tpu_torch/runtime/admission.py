@@ -1,6 +1,7 @@
 """Bounded admission control for the serving path (the part of the
-reference's ``runtime/admission.py`` the serve loop uses: the classes,
-the shed reasons, :func:`count_shed` and :class:`AdmissionGate`).
+reference's ``runtime/admission.py``: the classes, the shed reasons,
+:func:`count_shed`, :class:`AdmissionGate` for the serving path and
+:class:`RequestSlots` for the REST API).
 
 * **Bounded queue occupancy**: ``AdmissionGate.admit`` sheds when the
   queue is at its bound — an explicit, counted shed beats an unbounded
@@ -219,3 +220,54 @@ class AdmissionGate:
         expired deadlines)."""
         if count > 0:
             METRICS.inc(ADMISSION_REAPED, count)
+
+
+class RequestSlots:
+    """Bounded in-flight admission for the REST API: each request
+    holds a slot for its handler's duration; data-class requests shed
+    at ``max_inflight``, control-class requests get ``control_reserve``
+    headroom so policy/config/drain ops land during overload."""
+
+    def __init__(self, max_inflight: int = 64,
+                 control_reserve: int = 8, enabled: bool = True):
+        self.max_inflight = max(0, int(max_inflight))
+        self.control_reserve = max(0, int(control_reserve))
+        self.enabled = bool(enabled)
+        self._lock = threading.Lock()
+        self._inflight = 0
+
+    @classmethod
+    def from_config(cls, cfg) -> "RequestSlots":
+        return cls(max_inflight=getattr(cfg, "api_max_inflight", 64),
+                   control_reserve=getattr(cfg, "control_reserve", 64),
+                   enabled=getattr(cfg, "enabled", True))
+
+    def acquire(self, klass: str = CLASS_DATA) -> Tuple[bool, str]:
+        if not self.enabled:
+            with self._lock:
+                self._inflight += 1
+            return True, ""
+        bound = self.max_inflight + (self.control_reserve
+                                     if klass == CLASS_CONTROL else 0)
+        with self._lock:
+            if self._inflight >= bound:
+                shed = True
+            else:
+                shed = False
+                self._inflight += 1
+        if shed:
+            count_shed("api", klass, SHED_QUEUE_FULL)
+            return False, SHED_QUEUE_FULL
+        METRICS.inc(ADMISSION_ADMITTED,
+                    labels={"surface": "api", "class": klass})
+        return True, ""
+
+    def release(self) -> None:
+        with self._lock:
+            if self._inflight > 0:
+                self._inflight -= 1
+
+    @property
+    def inflight(self) -> int:
+        with self._lock:
+            return self._inflight

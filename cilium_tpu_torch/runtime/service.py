@@ -36,9 +36,11 @@ Where the port differs from the reference:
   kernel that failed on the card;
 * the socket's listen backlog is ``SOMAXCONN``, not socketserver's 5:
   16 clients connecting at once saw ``EAGAIN`` on the H100's host;
-* no agent is attached (queue 1's Q13): ``policy_get`` and ``bugtool``
-  answer ``"no agent attached"``, and ``profile`` (which needs
-  ``runtime/profiling.py``) answers an error naming its queue item.
+* ``bugtool`` answers an error naming queue 1's Q13c until
+  ``bugtool.py`` is ported; with no agent attached it answers
+  ``"no agent attached"``, as the reference does;
+* ``profile``'s device mode traces the card with ``torch.profiler``
+  (``runtime/profiling.py``) and raises without CUDA.
 """
 
 from __future__ import annotations
@@ -101,11 +103,9 @@ LOG = get_logger("service")
 DRAIN_POINT = faults.register_point(
     "service.drain", "drain sequence in VerdictService.drain")
 
-#: the answer of the ``profile`` op until ``runtime/profiling.py`` is
-#: ported
-_PROFILE_UNPORTED = ("profile: runtime/profiling.py is not ported yet; "
-                     "it arrives with the tooling and agent slices "
-                     "(queue 1, Q12/Q13)")
+#: the answer of the ``bugtool`` op until ``bugtool.py`` is ported
+_BUGTOOL_UNPORTED = ("bugtool: bugtool.py is not ported yet; it arrives "
+                     "with the daemon and the CLI (queue 1, Q13c)")
 
 
 def verdict_flows_padded(engine, flows: Sequence[Flow],
@@ -755,14 +755,18 @@ class VerdictService:
     with the gate off) and serves parsers, shims and streams."""
 
     def __init__(self, loader, socket_path: str, batch_max: int = 256,
-                 deadline_ms: float = 2.0, drain_workers: int = 1):
+                 deadline_ms: float = 2.0, agent=None,
+                 drain_workers: int = 1):
         self.loader = loader
         self.socket_path = socket_path
+        self.agent = agent  # optional backref for introspection ops
         self.admission_config = getattr(loader.config, "admission",
                                         None)
+        pairs_fn = agent.auth.pairs_array if agent is not None else None
         #: ONE breaker-guarded pipeline for every verdict path this
         #: service serves (batcher, bulk op, streams)
-        self.verdictor = ResilientVerdictor(loader)
+        self.verdictor = ResilientVerdictor(loader,
+                                            authed_pairs_fn=pairs_fn)
         #: bounded admission in front of every verdict ingress; its
         #: depth_fn reads the real batcher backlog
         self.gate = admission.AdmissionGate.from_config(
@@ -770,6 +774,8 @@ class VerdictService:
             depth_fn=lambda: len(self.bridge.batcher._pending))
         self.bridge = PolicyBridge(
             loader, batch_max=batch_max, deadline_ms=deadline_ms,
+            authed_pairs_fn=pairs_fn,
+            accesslog_fn=(self._accesslog if agent is not None else None),
             drain_workers=drain_workers, verdictor=self.verdictor,
             gate=self.gate)
         self._connections: Dict[int, Connection] = {}
@@ -799,6 +805,17 @@ class VerdictService:
                     authed_pairs_fn=self.bridge.authed_pairs_fn,
                 ).start()
             return self.serveloop
+
+    def _accesslog(self, flow: Flow) -> None:
+        """LOG-action sink: the annotated L7 flow lands in the agent's
+        Hubble observer ring (the reference's access-log path: Envoy →
+        accesslog socket → the Hubble parser)."""
+        if not flow.time:
+            flow.time = simclock.wall()
+        from cilium_tpu_torch.core.flow import PolicyMatchType
+
+        flow.policy_match_type = PolicyMatchType.L7
+        self.agent.observer.observe([flow])
 
     # -- stream mode ------------------------------------------------------
     def handle_stream(self, sock: socket.socket, req: Dict) -> None:
@@ -886,6 +903,15 @@ class VerdictService:
         if op == "drain":
             return self.drain()
         if op == "status":
+            if self.agent is not None:
+                status = self.agent.status()
+                if isinstance(status, dict):
+                    status.setdefault("banks",
+                                      self.loader.bank_status())
+                    if self.serveloop is not None:
+                        status.setdefault("serve",
+                                          self.serveloop.status())
+                return status
             out = {"engine_revision": self.loader.revision,
                    "banks": self.loader.bank_status()}
             if self.serveloop is not None:
@@ -913,8 +939,13 @@ class VerdictService:
             METRICS.inc(NPDS_PULLS)
             return {"revision": self.loader.revision,
                     "npds_b64": base64.b64encode(blob).decode()}
-        if op in ("policy_get", "bugtool"):
-            return {"error": "no agent attached"}
+        if op == "policy_get":
+            if self.agent is None:
+                return {"error": "no agent attached"}
+            return {"rules": [
+                {"labels": list(r.labels), "description": r.description}
+                for r in self.agent.repo.rules()
+            ], "revision": self.agent.repo.revision}
         if op == "check":
             # single-record policy check through the MicroBatcher
             # (requests coalesce across connections into one batch);
@@ -937,6 +968,10 @@ class VerdictService:
             # request to the oracle lane instead of an error response
             out = self.verdictor.outputs(flows, deadline=deadline)
             verdicts = [int(v) for v in out["verdict"]]
+            if self.agent is not None and flows:
+                # service-driven verdicts reach the monitor socket and
+                # the Hubble ring like replayed ones
+                self.agent.fan_out(flows, out)
             METRICS.inc(SERVICE_VERDICTS, len(flows))
             return {"verdicts": verdicts}
         if op == "on_new_connection":
@@ -978,7 +1013,26 @@ class VerdictService:
                     base64.b64encode(inj_req).decode()
             return resp
         if op == "profile":
-            return {"error": _PROFILE_UNPORTED}
+            # on-demand profiling of the serving process (pkg/pprof
+            # analog) — blocks for `seconds`
+            from cilium_tpu_torch.runtime.profiling import (
+                PROFILER,
+                ProfileBusy,
+                default_profile_dir,
+            )
+
+            try:
+                return PROFILER.capture(
+                    req.get("out") or default_profile_dir(),
+                    seconds=float(req.get("seconds", 2.0)),
+                    mode=req.get("mode", "host"),
+                )
+            except (ProfileBusy, ValueError) as e:
+                return {"error": str(e)}
+        if op == "bugtool":
+            if self.agent is None:
+                return {"error": "no agent attached"}
+            return {"error": _BUGTOOL_UNPORTED}
         if op == "close_connection":
             with self._conn_lock:
                 self._connections.pop(int(req.get("conn", -1)), None)

@@ -1,6 +1,6 @@
 """Request-scoped tracing: the sampled flight recorder (the part of the
 reference's ``runtime/tracing.py`` the serving path, the verdict
-service and the stream use).
+service, the stream and the REST API's ``/v1/trace`` use).
 
 Every ingress may draw a trace id; the context rides a contextvar
 through the layers, and each layer records **phase-attributed spans**
@@ -351,6 +351,41 @@ class Tracer:
         if limit is not None and limit > 0:
             recs = recs[-limit:]
         return recs
+
+    def trace_ids(self) -> List[str]:
+        """Distinct trace ids currently in the ring, oldest first."""
+        seen: Dict[str, None] = {}
+        for r in self.dump():
+            seen.setdefault(r["trace_id"], None)
+        return list(seen)
+
+    def chrome_trace(self, trace_id: Optional[str] = None) -> Dict:
+        """Chrome trace-event JSON (``chrome://tracing`` / Perfetto).
+        Each trace renders as its own thread track; phase spans are
+        complete ('X') events, trace events are instants ('i')."""
+        events = []
+        tids: Dict[str, int] = {}
+        for r in self.dump(trace_id=trace_id):
+            tid = tids.setdefault(r["trace_id"], len(tids) + 1)
+            base = {
+                "pid": 1,
+                "tid": tid,
+                "ts": round(r["ts"] * 1e6, 3),
+                "name": r["name"],
+                "args": dict(r.get("attrs") or {},
+                             trace_id=r["trace_id"]),
+            }
+            if r.get("event"):
+                events.append(dict(base, ph="i", s="t"))
+            else:
+                events.append(dict(base, ph="X",
+                                   cat=r.get("phase") or "span",
+                                   dur=round(r["dur"] * 1e6, 3)))
+        meta = [{"ph": "M", "pid": 1, "tid": tid, "name": "thread_name",
+                 "args": {"name": f"trace {tr}"}}
+                for tr, tid in tids.items()]
+        return {"traceEvents": meta + events,
+                "displayTimeUnit": "ms"}
 
     def clear(self) -> None:
         with self._lock:

@@ -1117,3 +1117,65 @@ def test_fan_out_on_card_equals_the_plain_path(cuda, tmp_path, monkeypatch):
     assert got["cuda"] == got["cpu"]
     assert got["cuda"][2] == got["cuda"][0]
     assert len({d["verdict"] for d in got["cuda"][0]}) > 1
+
+
+def test_agent_on_card_equals_plain_and_device_profile_names_kd(
+        cuda, tmp_path):
+    """The agent plane on the card: ``Agent(device="cuda")`` verdicts
+    the http scenario through ``process_flows`` (KD launches) with all
+    ten lanes equal to an ``Agent(device="cpu")``'s, and a device-mode
+    profile taken while another thread runs ``process_flows`` writes a
+    Chrome trace that names KD's kernel."""
+    import json
+    import threading
+
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.runtime.profiling import Profiler
+
+    sc = synth.synth_http_scenario(40, 2048, seed=5)
+    outs = {}
+    agents = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            cfg = Config()
+            cfg.configure_logging = False
+            cfg.loader.cache_dir = str(tmp_path / dev)
+            agent = agents[dev] = Agent(cfg, device=dev).start()
+            ids = {n: agent.endpoint_add(10 + i, lbl).identity
+                   for i, (n, lbl) in enumerate(sorted(
+                       sc.endpoints.items()))}
+            from cilium_tpu_torch.policy.api.cnp import CiliumNetworkPolicy
+
+            agent.policy_add(CiliumNetworkPolicy(
+                name="synth-http", namespace="default",
+                rules=tuple(sc.rules)))
+            for f in sc.flows:
+                f.src_identity, f.dst_identity = ids["client"], ids["server"]
+            _build.reset_launches()
+            outs[dev] = agent.process_flows(sc.flows)
+            if dev == "cuda":
+                assert _build.KERNELS["KD"].launches > 0
+        for k in OUTPUT_LANES:
+            np.testing.assert_array_equal(outs["cuda"][k], outs["cpu"][k])
+        stop = threading.Event()
+
+        def drive():
+            while not stop.is_set():
+                agents["cuda"].process_flows(sc.flows[:512])
+
+        t = threading.Thread(target=drive)
+        t.start()
+        try:
+            res = Profiler().capture(str(tmp_path / "prof"), seconds=1.0,
+                                     mode="device")
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        with open(res["path"]) as f:
+            names = {e.get("name", "") for e in json.load(f)
+                     .get("traceEvents", [])}
+        assert any("dfa_dense_kernel" in n for n in names), sorted(names)[:40]
+    finally:
+        for a in agents.values():
+            a.stop()

@@ -112,7 +112,22 @@ _EXPECTED = ("cilium_tpu_torch.clustermesh",
              "cilium_tpu_torch.hubble.exporter",
              "cilium_tpu_torch.hubble.server",
              "cilium_tpu_torch.hubble.accesslog_server",
-             "cilium_tpu_torch.runtime.unixsock")
+             "cilium_tpu_torch.runtime.unixsock",
+             "cilium_tpu_torch.agent",
+             "cilium_tpu_torch.auth",
+             "cilium_tpu_torch.cni",
+             "cilium_tpu_torch.endpoint",
+             "cilium_tpu_torch.health",
+             "cilium_tpu_torch.hubble.relay",
+             "cilium_tpu_torch.ipam",
+             "cilium_tpu_torch.policy.trace",
+             "cilium_tpu_torch.proxy_manager",
+             "cilium_tpu_torch.runtime.admission",
+             "cilium_tpu_torch.runtime.advertise",
+             "cilium_tpu_torch.runtime.api",
+             "cilium_tpu_torch.runtime.controller",
+             "cilium_tpu_torch.runtime.profiling",
+             "cilium_tpu_torch.runtime.watcher")
 
 #: the observability and ingest plane's modules
 _OBSERVE = tuple(m for m in _EXPECTED
@@ -350,3 +365,55 @@ def test_dst_entry_points_raise_when_cuda_is_absent(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dst.main(["--replay", "--seed", "0"])
     assert made == []
+
+
+#: the agent plane's modules (the node-local agent and its services)
+_AGENT = tuple(m for m in _EXPECTED if m in (
+    "cilium_tpu_torch.agent", "cilium_tpu_torch.auth",
+    "cilium_tpu_torch.cni", "cilium_tpu_torch.endpoint",
+    "cilium_tpu_torch.health", "cilium_tpu_torch.hubble.relay",
+    "cilium_tpu_torch.ipam", "cilium_tpu_torch.policy.trace",
+    "cilium_tpu_torch.proxy_manager", "cilium_tpu_torch.runtime.advertise",
+    "cilium_tpu_torch.runtime.api", "cilium_tpu_torch.runtime.controller",
+    "cilium_tpu_torch.runtime.profiling",
+    "cilium_tpu_torch.runtime.watcher"))
+
+
+@pytest.mark.parametrize("module", _AGENT)
+def test_agent_modules_import_no_jax_or_cilium_tpu(module):
+    """The agent plane's modules import nothing of JAX, the JAX package
+    or ``yaml`` at any depth of the file (their lazy imports
+    included)."""
+    import importlib
+
+    roots = _imported_roots(importlib.import_module(module).__file__)
+    assert not roots & {"jax", "jaxlib", "cilium_tpu", "yaml"}, roots
+
+
+def test_agent_entry_points_raise_when_cuda_is_absent(monkeypatch,
+                                                      tmp_path):
+    """``Agent()``, its ``Loader`` and ``DNSProxy`` default to ``cuda``
+    and raise without it unless the caller names the CPU; the
+    profiler's device mode raises rather than trace the CPU."""
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.fqdn import DNSProxy
+    from cilium_tpu_torch.runtime.loader import Loader
+    from cilium_tpu_torch.runtime.profiling import Profiler
+
+    _no_cuda(monkeypatch)
+    cfg = Config()
+    cfg.configure_logging = False
+    cfg.loader.cache_dir = str(tmp_path)
+    for make in (lambda: Agent(cfg), lambda: Loader(cfg),
+                 lambda: DNSProxy()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        Profiler().capture(str(tmp_path), seconds=0.1, mode="device")
+    agent = Agent(cfg, device="cpu")
+    try:
+        assert {agent.loader.device.type, agent.dns_proxy.device.type} == \
+            {"cpu"}
+    finally:
+        agent.stop()

@@ -341,17 +341,22 @@ def test_config_deviations_and_from_env():
     assert ported == {"enable_tpu_offload", "policy_audit_mode", "engine",
                       "loader", "compile", "slo", "provenance", "tenant",
                       "canary", "admission", "breaker", "serve", "fleet",
-                      "parallel", "dst"}
+                      "parallel", "dst", "tracing", "cluster_name",
+                      "node_name", "ipam_mode", "identity_allocation_mode",
+                      "pod_cidr", "kube_apiserver_ips", "log_level",
+                      "k8s_api_socket", "monitor_aggregation",
+                      "configure_logging", "enable_metrics"}
+    assert ported == {f.name for f in dataclasses.fields(jc)}
 
     def sections(cfg):
         d = dataclasses.asdict(cfg)
         d["loader"].pop("cache_dir")
         return {k: d[k] for k in ported - {"enable_tpu_offload"}}
 
-    # the REST API's bound comes with the API (queue 1's Q13)
+    # the REST API's bound came with the API
     jsec = sections(jc)
-    assert jsec["admission"].pop("api_max_inflight") == 64
-    assert not hasattr(pc.admission, "api_max_inflight")
+    assert jsec["admission"]["api_max_inflight"] == 64
+    assert pc.admission.api_max_inflight == 64
     assert jsec == sections(pc)
     env = {"CILIUM_TPU_COMPILE_WORKERS": "3",
            "CILIUM_TPU_COMPILE_DEADLINE_S": "9.5",
@@ -374,9 +379,13 @@ def test_config_deviations_and_from_env():
            "CILIUM_TPU_DST_SEED": "9",
            "CILIUM_TPU_DST_MUTATION": "positional-banks",
            "CILIUM_TPU_TENANT_QUANTUM_S": "2.5",
-           "CILIUM_TPU_TENANT_QUOTA_TTL_S": "7"}
+           "CILIUM_TPU_TENANT_QUOTA_TTL_S": "7",
+           "CILIUM_TPU_IDENTITY_REGEN_DEBOUNCE_S": "0.25",
+           "CILIUM_TPU_NODE_NAME": "n7",
+           "CILIUM_TPU_IPAM_MODE": "cluster-pool",
+           "CILIUM_TPU_TRACING": "off",
+           "CILIUM_TPU_TRACE_SAMPLE_RATE": "0.5"}
     jd = dataclasses.asdict(JAX.config.Config.from_env(env))
-    jd["admission"].pop("api_max_inflight")
     pd = dataclasses.asdict(PORT.config.Config.from_env(env))
     assert pd["loader"]["cache_dir"] == "/x"
     assert {k: jd[k] for k in ported} == {**pd, "enable_tpu_offload": False}
