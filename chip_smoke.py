@@ -409,7 +409,39 @@ but for 15 and 14, which run, in that order, inside phase 10:
    staged. An ``agent: {...}`` line carries one regeneration's split,
    ``process_flows`` ms, each REST op's p50/p99, the CNI ADD's ms and
    the launches;
-19. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+19. the cluster control services at the http scenario (1000 rules x
+   10000 flows, batches of 8192, ``Config.from_env()``, uncut in shape):
+   (a) ``python -m cilium_tpu_torch.kvstore_service``, ``.k8s.apiserver``,
+   two ``.operator --leader-election --election-ttl 2`` (one leads, one
+   stands by) and ``.hubble.relay --mode live`` as processes, sockets in
+   a temporary directory; (b) two ``Agent(device="cuda")`` in this
+   process, each in ``cluster-pool`` IPAM with ``crd`` identities, the
+   apiserver's socket, a Hubble socket and a ``RemoteKVStore``: ``node-a``
+   under ``kernel_impl="auto"`` (KD), ``node-b`` under ``nfa-bitset``
+   (K1); each adopts its own /24 of the pool; (c) ``server`` on node-a,
+   ``client`` on node-b and a second ``server`` on node-b, which gets
+   node-a's identity through the CiliumIdentity objects; the scenario's
+   rule rendered as a CiliumNetworkPolicy object (``parse_cnp`` gives the
+   rule back) and applied with ``K8sClient``: apply -> enforcement
+   seconds a node, each node's regeneration split into compile, stage
+   and the rest; (d) ``process_flows`` over the 10000 flows on each
+   node, all ten lanes equal to a plain engine (``device="cpu"``) of its
+   policy and node-a's equal to node-b's, then 5 timed passes (host ms a
+   batch) and a traced batch (device ms, kernels); (e) the CiliumEndpoints
+   and CiliumNodes read back, a ``CESBatcher``'s slices, and 4096 fresh
+   flows a node through ``process_flows``: the relay socket's stream
+   equals the union of both nodes' rings, time-ordered; no control-plane
+   pid in ``nvidia-smi --query-compute-apps`` and none with a
+   ``/dev/nvidia*`` file open (the script's own process has them); (f) SIGTERM of the leading
+   operator (rc 0): the standby takes the lock (seconds), a third agent
+   ``node-c`` on the card gets its /24 from it; the CNP deleted through
+   the apiserver, both nodes drop its enforcement (one batch held as in
+   (d)); the agents stop leaving no thread, every process exits 0 on
+   SIGTERM. Launch counts are zeroed before the agents start and read
+   before they stop (KD and K1 must have launched); every launch shape is
+   then held exactly against its plain version. A ``cluster: {...}`` line
+   carries the numbers;
+20. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -8485,6 +8517,565 @@ def agent_phase(card):
     return report, launches, variants, noted
 
 
+# ------------------------------------------------------------- phase 19
+#: phase 19: the cluster control services at the http scenario (N_RULES x
+#: N_FLOWS in batches of BATCH, ``Config.from_env()``, uncut in shape):
+#: the kvstore, the apiserver, two operators and the live relay as OS
+#: processes, two agents on the card in this process. Cut in iterations
+#: only: the timed ``process_flows`` passes a node (5), and the
+#: operators' election TTL (2 s, from the operator's 15 s default: the
+#: standby's takeover waits out at most one TTL)
+CLUSTER_PASSES, CLUSTER_ELECTION_TTL = 5, 2.0
+CLUSTER_POOL = "10.240.0.0/16"
+#: the flows each node verdicts for the relay's hold: one agent ring's
+#: worth (an agent's Observer holds 4096 flows; the live relay's ring,
+#: 8192, holds both nodes')
+CLUSTER_RELAY_FLOWS = 4096
+#: the control plane's processes, each by its module's ``main``
+CLUSTER_PROCS = ("kv", "k8s", "op1", "op2", "relay")
+
+
+def cuda_pids():
+    """The pids ``nvidia-smi`` lists as holding a CUDA context."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    check(r.returncode == 0, f"nvidia-smi --query-compute-apps: "
+          f"{r.stderr[-300:]}")
+    return sorted(int(x) for x in r.stdout.split() if x.strip().isdigit())
+
+
+def nvidia_fds(pid):
+    """How many of a process's open files are NVIDIA device nodes
+    (``/dev/nvidia*``); None when its fds cannot be read. Importing
+    torch opens none of them; initialising CUDA
+    (``torch.cuda.is_available()``, a context) opens them. In a
+    container ``nvidia-smi`` may list process ids of another namespace,
+    so this is the check that holds either way."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return None
+    n = 0
+    for fd in fds:
+        try:
+            n += os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+                "/dev/nvidia")
+        except OSError:
+            pass
+    return n
+
+
+@contextlib.contextmanager
+def regen_split(agents):
+    """While open, each agent's regeneration spans by node: its
+    ``endpoint_regeneration`` and, inside it on the same thread, the
+    loader's ``policy_compile`` and ``policy_stage`` → {node: {span:
+    [seconds, ...]}}. (The spans are process-wide; two agents in one
+    process regenerate on their own endpoint managers' threads.)"""
+    import threading
+
+    from cilium_tpu_torch.runtime.metrics import METRICS
+
+    local = threading.local()
+    acc = {n: {} for n in agents}
+    observe = METRICS.observe
+
+    def noted(name, value, labels=None):
+        node = getattr(local, "node", None)
+        if node is not None and name == "cilium_tpu_span_seconds":
+            acc[node].setdefault((labels or {}).get("span"), []).append(
+                value)
+        return observe(name, value, labels)
+
+    def wrap(node, regen):
+        def run(my_gen=0):
+            local.node = node
+            try:
+                return regen(my_gen)
+            finally:
+                local.node = None
+        return run
+
+    for n, x in agents.items():
+        x.endpoint_manager._regenerate = wrap(n, x.endpoint_manager._regenerate)
+    METRICS.observe = noted
+    try:
+        yield acc
+    finally:
+        del METRICS.observe
+        for x in agents.values():
+            del x.endpoint_manager._regenerate
+
+
+def cluster_phase(card):
+    """Phase 19 (see the module docstring) → (report, the phase's
+    launches, KD's launches by variant, the launch shapes noted)."""
+    import dataclasses
+    import ipaddress
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.core.flow import Verdict
+    from cilium_tpu_torch.core.labels import LabelSet
+    from cilium_tpu_torch.endpoint import with_cluster_label
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.hubble.server import HubbleClient
+    from cilium_tpu_torch.ingest import synth
+    from cilium_tpu_torch.ingest.hubble import flow_to_dict
+    from cilium_tpu_torch.k8s.apiserver import K8sClient
+    from cilium_tpu_torch.k8s.ces import CESBatcher
+    from cilium_tpu_torch.kvstore_service import RemoteKVStore
+    from cilium_tpu_torch.policy.api.cnp import parse_cnp
+    from cilium_tpu_torch.runtime.leader import LEADER_PREFIX
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    noted, report = {}, {"card": card, "rules": N_RULES, "flows": N_FLOWS,
+                         "batch": BATCH, "passes": CLUSTER_PASSES,
+                         "election_ttl_s": CLUSTER_ELECTION_TTL}
+    threads0 = set(threading.enumerate())
+    # a short directory: unix socket paths stay under 108 bytes
+    tmp = tempfile.mkdtemp(prefix="cs19")
+    socks = {k: os.path.join(tmp, f"{k}.sock")
+             for k in ("kv", "k8s", "relay", "hub-a", "hub-b")}
+    procs, errs_of = {}, {}
+    agents, batcher, kv = {}, None, None
+    leader_key = LEADER_PREFIX + "cilium-operator"
+
+    def spawn(name, *args):
+        errs_of[name] = open(os.path.join(tmp, f"{name}.err"), "w+")
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=here,
+            stdout=subprocess.DEVNULL, stderr=errs_of[name])
+
+    def proc_err(name):
+        errs_of[name].seek(0)
+        return errs_of[name].read()[-600:]
+
+    def wait_for(cond, what, timeout=60.0, poll=0.002):
+        deadline = time.perf_counter() + timeout
+        while not cond():
+            for name, p in procs.items():
+                check(p.poll() is None, f"[cluster] {name} exited "
+                      f"{p.returncode} while waiting for {what}: "
+                      f"{proc_err(name)}")
+            check(time.perf_counter() < deadline,
+                  f"[cluster] {what} not within {timeout} s")
+            time.sleep(poll)
+        return time.perf_counter()
+
+    def leader():
+        return kv.get(leader_key)
+
+    sc = synth.synth_http_scenario(N_RULES, N_FLOWS)
+    try:
+        # -- 19a: the control plane as OS processes
+        t0 = time.perf_counter()
+        spawn("kv", "cilium_tpu_torch.kvstore_service", socks["kv"])
+        spawn("k8s", "cilium_tpu_torch.k8s.apiserver", socks["k8s"])
+        wait_for(lambda: os.path.exists(socks["kv"])
+                 and os.path.exists(socks["k8s"]), "the kvstore and the "
+                 "apiserver sockets")
+        for name in ("op1", "op2"):
+            spawn(name, "cilium_tpu_torch.operator", "--kvstore",
+                  socks["kv"], "--pool-cidr", CLUSTER_POOL,
+                  "--leader-election", "--election-ttl",
+                  str(CLUSTER_ELECTION_TTL), "--k8s-api-socket",
+                  socks["k8s"])
+        spawn("relay", "cilium_tpu_torch.hubble.relay", "--kvstore",
+              socks["kv"], "--socket", socks["relay"], "--mode", "live")
+        kv = RemoteKVStore(socks["kv"])
+        wait_for(lambda: os.path.exists(socks["relay"])
+                 and leader() is not None, "the relay socket and a leader")
+        report["control_start_s"] = time.perf_counter() - t0
+        op_pids = {procs[n].pid: n for n in ("op1", "op2")}
+        lead0 = leader()
+        check(lead0 in {f"operator-{pid}" for pid in op_pids},
+              f"[cluster] the lock's holder {lead0} is no operator")
+        log(f"[cluster] kvstore, apiserver, 2 operators and the live relay "
+            f"up as processes in {report['control_start_s']:.1f} s; "
+            f"leader {lead0}")
+
+        with kernel_launches_noted(noted):
+            reset_counts()
+            c0 = counts()
+            # -- 19b: two agents on the card
+            t0 = time.perf_counter()
+            for name, impl, hub in (("node-a", "auto", "hub-a"),
+                                    ("node-b", "nfa-bitset", "hub-b")):
+                cfg = Config.from_env()
+                cfg.configure_logging = False
+                cfg.node_name = name
+                cfg.ipam_mode = "cluster-pool"
+                cfg.identity_allocation_mode = "crd"
+                cfg.k8s_api_socket = socks["k8s"]
+                cfg.engine.kernel_impl = impl
+                cfg.loader.cache_dir = os.path.join(tmp, f"cache-{name}")
+                agents[name] = Agent(cfg, kvstore=RemoteKVStore(socks["kv"]),
+                                     device=DEVICE,
+                                     hubble_socket_path=socks[hub]).start()
+            report["agents_start_s"] = time.perf_counter() - t0
+            a, b = agents["node-a"], agents["node-b"]
+            pool = ipaddress.ip_network(CLUSTER_POOL)
+            cidrs = {n: str(x.ipam.cidr) for n, x in agents.items()}
+            for n, x in agents.items():
+                net = ipaddress.ip_network(cidrs[n])
+                check(x.device.type == DEVICE
+                      and x.loader.device.type == DEVICE
+                      and net.prefixlen == 24 and net.subnet_of(pool),
+                      f"[cluster] {n}: device {x.device}, CIDR {net}")
+            check(len(set(cidrs.values())) == 2,
+                  f"[cluster] the nodes share a CIDR: {cidrs}")
+            report["cidrs"] = cidrs
+
+            # -- 19c: endpoints, one identity through CiliumIdentity, the
+            # rule in through the apiserver
+            srv = a.endpoint_add(1, sc.endpoints["server"])
+            cli = b.endpoint_add(2, sc.endpoints["client"])
+            want = with_cluster_label(
+                LabelSet.from_dict(sc.endpoints["server"]), "default")
+            wait_for(lambda: b.allocator.lookup_by_labels(want)
+                     == srv.identity, "node-b learning the server's "
+                     "identity", timeout=30)
+            srv_b = b.endpoint_add(3, sc.endpoints["server"])
+            client = K8sClient(socks["k8s"])
+            idents = client.list("ciliumidentities")["items"]
+            check(srv_b.identity == srv.identity
+                  and sum(o["metadata"]["name"] == str(int(srv.identity))
+                          for o in idents) == 1,
+                  f"[cluster] the server's labels on both nodes: "
+                  f"{srv.identity} / {srv_b.identity}")
+            report["identities"] = {"server": int(srv.identity),
+                                    "client": int(cli.identity),
+                                    "objects": len(idents)}
+            doc = synth.http_rule_cnp(sc.rules[0], "synth-http")
+            parsed = parse_cnp(doc)
+            check(dataclasses.replace(parsed.rules[0],
+                                      labels=sc.rules[0].labels)
+                  == sc.rules[0], "[cluster] parse_cnp of the rendered "
+                  "CNP is not the scenario's rule")
+            flows_of = {n: [dataclasses.replace(
+                f, src_identity=cli.identity, dst_identity=srv.identity)
+                for f in sc.flows] for n in agents}
+            probe = flows_of["node-a"][:64]
+            for x in (a, b):  # settle the endpoints' regenerations
+                x.endpoint_manager.regenerate_all(wait=True)
+
+            def enforced(x, on):
+                v = x.loader.engine.verdict_flows(probe)["verdict"]
+                vs = set(np.asarray(v).tolist())
+                return (int(Verdict.DROPPED) in vs) if on else vs == {
+                    int(Verdict.FORWARDED)}
+
+            check(all(enforced(x, False) for x in (a, b)),
+                  "[cluster] a node drops before any policy")
+            revs = {n: x.loader.revision for n, x in agents.items()}
+            with regen_split(agents) as split:
+                t0 = time.perf_counter()
+                client.apply("ciliumnetworkpolicies", doc)
+                applied = {}
+                for n, x in agents.items():
+                    applied[n] = wait_for(
+                        lambda: x.loader.revision != revs[n]
+                        and enforced(x, True),
+                        f"{n} enforcing the CNP", timeout=300) - t0
+                for x in (a, b):
+                    x.endpoint_manager.regenerate_all(wait=True)
+            report["apply_to_enforcement_s"] = applied
+            report["regeneration"] = {}
+            for n, spans in split.items():
+                tot = {s: sum(v) for s, v in spans.items()}
+                regen = tot.get("endpoint_regeneration", 0.0)
+                comp = tot.get("policy_compile", 0.0)
+                stage = tot.get("policy_stage", 0.0)
+                report["regeneration"][n] = {
+                    "regenerations": len(spans.get("endpoint_regeneration",
+                                                   ())),
+                    "regeneration_ms": regen * 1e3,
+                    "compile_ms": comp * 1e3, "stage_ms": stage * 1e3,
+                    "rest_ms": (regen - comp - stage) * 1e3}
+            engines = {n: x.loader.engine for n, x in agents.items()}
+            for n, e in engines.items():
+                check(isinstance(e, TorchVerdictEngine)
+                      and e.device.type == DEVICE,
+                      f"[cluster] {n} serves {type(e).__name__}")
+            report["path_stack"] = list(
+                engines["node-a"].policy.arrays["path_trans"].shape)
+            report["impl_plan"] = {n: dict(getattr(e, "impl_plan", {}))
+                                   for n, e in engines.items()}
+            log(f"[cluster] CNP applied through the apiserver: enforced on "
+                f"node-a after {applied['node-a']:.2f} s, node-b after "
+                f"{applied['node-b']:.2f} s; regeneration " + "; ".join(
+                    f"{n} {r['regeneration_ms']:.0f} ms (compile "
+                    f"{r['compile_ms']:.0f}, stage {r['stage_ms']:.0f}, "
+                    f"rest {r['rest_ms']:.0f})"
+                    for n, r in report["regeneration"].items()))
+
+            # -- 19d: process_flows on both nodes, every lane held
+            batches = {n: [fl[lo:lo + BATCH]
+                           for lo in range(0, len(fl), BATCH)]
+                       for n, fl in flows_of.items()}
+            outs = {}
+            for n, x in agents.items():
+                plain = TorchVerdictEngine(engines[n].policy, device="cpu",
+                                           cfg=engines[n].cfg)
+                outs[n] = []
+                for k, bt in enumerate(batches[n]):
+                    got = x.process_flows(bt)
+                    assert_lanes(f"[cluster] {n} batch {k}", got,
+                                 plain.verdict_flows(bt))
+                    outs[n].append(got)
+            for k in range(len(batches["node-a"])):
+                assert_lanes(f"[cluster] node-a vs node-b batch {k}",
+                             outs["node-a"][k], outs["node-b"][k])
+            mix = np.bincount(np.concatenate(
+                [o["verdict"] for o in outs["node-a"]]),
+                minlength=6).tolist()
+            check(mix[int(Verdict.DROPPED)] > 0
+                  and mix[int(Verdict.REDIRECTED)] > 0,
+                  f"[cluster] implausible verdict mix {mix}")
+            pf = {}
+            for n, x in agents.items():
+                host = []
+                for _ in range(CLUSTER_PASSES):
+                    for bt in batches[n]:
+                        t0 = time.perf_counter()
+                        x.process_flows(bt)
+                        host.append(time.perf_counter() - t0)
+                kern = profile_kernels(
+                    lambda: x.process_flows(batches[n][0]), reps=1)
+                pf[n] = {"host_ms": quantiles_ms(host),
+                         "device_ms": sum(ms for _, ms in kern.values())
+                         or None,
+                         "device_kernels": sum(c for c, _ in kern.values()),
+                         "kd_in_trace": any("dfa_dense" in k for k in kern),
+                         "k1_in_trace": any("nfa_" in k for k in kern)}
+            report["process_flows"] = dict(pf, mix=mix,
+                                           batches=len(batches["node-a"]))
+            log(f"[cluster] process_flows: ten lanes of both nodes equal to "
+                f"the plain engine and to each other; mix {mix}; " +
+                "; ".join(f"{n} host p50/p99 {r['host_ms']['p50_ms']:.2f}/"
+                          f"{r['host_ms']['p99_ms']:.2f} ms, device "
+                          f"{r['device_ms']} ms in {r['device_kernels']} "
+                          f"kernels" for n, r in pf.items()))
+
+            # -- 19e: status objects, slices and the relay
+            batcher = CESBatcher(K8sClient(socks["k8s"])).start()
+            ceps = client.list("ciliumendpoints")["items"]
+            got_ceps = sorted((o["metadata"]["name"],
+                               o["status"]["identity"]["id"],
+                               o["status"]["networking"]["node"])
+                              for o in ceps)
+            check(got_ceps == [("node-a-ep-1", int(srv.identity), "node-a"),
+                               ("node-b-ep-2", int(cli.identity), "node-b"),
+                               ("node-b-ep-3", int(srv.identity), "node-b")],
+                  f"[cluster] CiliumEndpoints {got_ceps}")
+            nodes = {o["metadata"]["name"]: o["spec"]["ipam"]["podCIDRs"]
+                     for o in client.list("ciliumnodes")["items"]}
+            check(nodes == {n: [c] for n, c in cidrs.items()},
+                  f"[cluster] CiliumNodes {nodes}")
+
+            def sliced():
+                names = sorted(e["name"] for s in client.list(
+                    "ciliumendpointslices")["items"]
+                    for e in s.get("endpoints", ()))
+                return names == [c[0] for c in got_ceps]
+
+            wait_for(sliced, "the CES batcher's slices", timeout=30)
+            report["status"] = {"ceps": len(got_ceps),
+                                "slices": len(client.list(
+                                    "ciliumendpointslices")["items"])}
+            relay = HubbleClient(socks["relay"])
+            # the relay has followed all it will of 19d's passes: its
+            # count holds still for a second
+            last = [-1]
+
+            def settled():
+                seen = relay.server_status()["seen"]
+                still, last[0] = seen == last[0], seen
+                return still
+
+            wait_for(settled, "the relay settling", timeout=120, poll=1.0)
+            seen0 = last[0]
+            t_r0 = time.perf_counter()
+            t_base = time.time()
+            fresh = {}
+            for i, (n, x) in enumerate(agents.items()):
+                fresh[n] = [dataclasses.replace(
+                    f, time=t_base + i + k * 1e-6)
+                    for k, f in enumerate(
+                        flows_of[n][:CLUSTER_RELAY_FLOWS])]
+                seen_n = seen0 + (i + 1) * CLUSTER_RELAY_FLOWS
+                x.process_flows(fresh[n])
+                t_relay = wait_for(
+                    lambda: relay.server_status()["seen"] >= seen_n,
+                    f"the relay following {n}'s flows", timeout=60,
+                    poll=0.01)
+            merged = list(relay.get_flows())
+
+            def stampless(d):
+                d = dict(d)
+                d.pop("node_name", None)
+                return json.dumps(d, sort_keys=True)
+
+            union = sorted(stampless(flow_to_dict(f)) for x in (a, b)
+                           for f in x.observer.get_flows())
+            times = [d["time"] for d in merged]
+            names = [d.get("node_name") for d in merged]
+            check(len(merged) == len(union) == 2 * CLUSTER_RELAY_FLOWS
+                  and sorted(stampless(d) for d in merged) == union
+                  and times == sorted(times)
+                  and names == ["node-a"] * CLUSTER_RELAY_FLOWS
+                  + ["node-b"] * CLUSTER_RELAY_FLOWS,
+                  f"[cluster] the relay's merged stream ({len(merged)} "
+                  f"flows) differs from the nodes' rings ({len(union)})")
+            report["relay"] = {
+                "records": len(merged),
+                "seen": relay.server_status()["seen"],
+                "follow_s": t_relay - t_r0,
+                "peers": relay.peers()["peers"]}
+            check(report["relay"]["peers"] == ["node-a", "node-b"],
+                  f"[cluster] relay peers {report['relay']['peers']}")
+            apps = cuda_pids() if DEVICE == "cuda" else []
+            ctl = {n: p.pid for n, p in procs.items()}
+            report["cuda_pids"] = {
+                "listed": apps, "script_listed": os.getpid() in apps,
+                "control_plane_listed": sorted(
+                    n for n, pid in ctl.items() if pid in apps),
+                "nvidia_fds": {n: nvidia_fds(pid)
+                               for n, pid in ctl.items()},
+                "script_nvidia_fds": nvidia_fds(os.getpid())}
+            check(not report["cuda_pids"]["control_plane_listed"]
+                  and all(v == 0 for v in
+                          report["cuda_pids"]["nvidia_fds"].values())
+                  and (report["cuda_pids"]["script_nvidia_fds"] > 0
+                       or DEVICE == "cpu"),
+                  f"[cluster] a control-plane process touches the card, "
+                  f"or the probe cannot see the script's own: "
+                  f"{report['cuda_pids']}")
+            log(f"[cluster] CEPs, CiliumNodes and {report['status']['slices']}"
+                f" slice(s) read back; the relay's {len(merged)} flows equal "
+                f"the union of both nodes' rings, time-ordered; CUDA pids "
+                f"{report['cuda_pids']}")
+
+            # -- 19f: failover, node-c, the CNP deleted
+            name = op_pids[int(lead0.rsplit("-", 1)[1])]
+            t0 = time.perf_counter()
+            procs[name].send_signal(signal.SIGTERM)
+            rc = procs.pop(name).wait(timeout=60)
+            check(rc == 0, f"[cluster] {name} exited {rc} on SIGTERM: "
+                  f"{proc_err(name)}")
+            t_down = time.perf_counter()
+            wait_for(lambda: leader() not in (None, lead0),
+                     "the standby taking the lock",
+                     timeout=3 * CLUSTER_ELECTION_TTL + 30)
+            report["takeover_s"] = time.perf_counter() - t0
+            report["takeover_after_exit_s"] = time.perf_counter() - t_down
+            report["rcs"] = {name: rc}
+            check(report["takeover_s"] < CLUSTER_ELECTION_TTL + 5.0,
+                  f"[cluster] takeover {report['takeover_s']:.2f} s")
+            cfg = Config.from_env()
+            cfg.configure_logging = False
+            cfg.node_name = "node-c"
+            cfg.ipam_mode = "cluster-pool"
+            cfg.identity_allocation_mode = "crd"
+            cfg.k8s_api_socket = socks["k8s"]
+            cfg.loader.cache_dir = os.path.join(tmp, "cache-node-c")
+            t0 = time.perf_counter()
+            agents["node-c"] = Agent(cfg, kvstore=RemoteKVStore(socks["kv"]),
+                                     device=DEVICE).start()
+            report["node_c"] = {
+                "cidr": str(agents["node-c"].ipam.cidr),
+                "start_s": time.perf_counter() - t0,
+                "device": agents["node-c"].device.type}
+            net_c = ipaddress.ip_network(report["node_c"]["cidr"])
+            check(net_c.subnet_of(pool) and net_c.prefixlen == 24
+                  and str(net_c) not in cidrs.values()
+                  and report["node_c"]["device"] == DEVICE,
+                  f"[cluster] node-c {report['node_c']}")
+            log(f"[cluster] {name} ({lead0}) stopped: the standby took the "
+                f"lock after {report['takeover_s']:.2f} s; node-c got "
+                f"{net_c} from it")
+            revs = {n: agents[n].loader.revision for n in ("node-a",
+                                                             "node-b")}
+            t0 = time.perf_counter()
+            client.delete("ciliumnetworkpolicies", "synth-http")
+            dropped = {}
+            for n in ("node-a", "node-b"):
+                x = agents[n]
+                dropped[n] = wait_for(
+                    lambda: x.loader.revision != revs[n]
+                    and enforced(x, False), f"{n} dropping the CNP",
+                    timeout=300) - t0
+            report["delete_to_drop_s"] = dropped
+            after = {}
+            for n in ("node-a", "node-b"):
+                x = agents[n]
+                bt = flows_of[n][:BATCH]
+                after[n] = x.process_flows(bt)
+                e = x.loader.engine
+                assert_lanes(f"[cluster] {n} after the delete", after[n],
+                             TorchVerdictEngine(e.policy, device="cpu",
+                                                cfg=e.cfg).verdict_flows(bt))
+                check(set(np.asarray(after[n]["verdict"]).tolist())
+                      == {int(Verdict.FORWARDED)},
+                      f"[cluster] {n} still enforces after the delete")
+            assert_lanes("[cluster] node-a vs node-b after the delete",
+                         after["node-a"], after["node-b"])
+            launches = _count_delta(c0)
+            variants = kd_variants()
+    finally:
+        for x in reversed(list(agents.values())):
+            x.stop()
+        if batcher is not None:
+            batcher.stop()
+        if kv is not None:
+            kv.close()
+        rcs = {}
+        for name in ("relay", "op1", "op2", "k8s", "kv"):
+            p = procs.pop(name, None)
+            if p is None:
+                continue
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+            try:
+                rcs[name] = p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rcs[name] = p.wait()
+        for f in errs_of.values():
+            f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["rcs"].update(rcs)
+    check(sorted(report["rcs"]) == sorted(CLUSTER_PROCS)
+          and all(rc == 0 for rc in report["rcs"].values()),
+          f"[cluster] control-plane exit codes {report['rcs']}")
+    deadline = time.perf_counter() + 15
+    while True:
+        left = sorted(t.name for t in threading.enumerate()
+                      if t not in threads0 and t.is_alive())
+        if not left or time.perf_counter() > deadline:
+            break
+        time.sleep(0.05)
+    check(not left, f"[cluster] threads left after the agents stopped: "
+          f"{left}")
+    check((launches["KD"] > 0 and launches["K1"] > 0) or DEVICE == "cpu",
+          f"[cluster] KD and K1 must launch in phase 19: {launches}")
+    report["launches"] = launches
+    report["kd_variants"] = variants
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] every control-plane process exited 0 on SIGTERM; "
+        f"launches {launches} on {card}")
+    return report, launches, variants, noted
+
+
 def _count_delta(c0):
     return {k: v - c0[k] for k, v in counts().items()}
 
@@ -8536,7 +9127,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
-    """Phases 2 (its SASS checks) to 19 (see the module docstring)."""
+    """Phases 2 (its SASS checks) to 20 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     tensor_ops = sass_tensor_ops()
@@ -8730,6 +9321,22 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     agent_report["wall_s_with_holds"] = time.perf_counter() - t18
     log(f"phase 18 wall {agent_report['wall_s']:.1f} s "
         f"({agent_report['wall_s_with_holds']:.1f} s with the holds)")
+    t19 = time.perf_counter()
+    log("phase 19: the cluster control services — kvstore, apiserver, two "
+        "operators under leader election and the live relay as processes, "
+        "two agents on the card, a CNP through the apiserver, failover")
+    cluster_report, cluster_launches, cluster_variants, cluster_noted = \
+        cluster_phase(card)
+    log(f"phase 19: KD, K2 and K1 at the {len(cluster_noted)} launch shapes "
+        f"the phase staged, against their plain versions")
+    cluster_report["held"] = hold_noted(errs, cluster_noted, "cluster")
+    check(cluster_report["held"]["KD"] > 0
+          and cluster_report["held"]["K1"] > 0,
+          f"[cluster] no KD or K1 launch shape held: "
+          f"{cluster_report['held']}")
+    cluster_report["wall_s_with_holds"] = time.perf_counter() - t19
+    log(f"phase 19 wall {cluster_report['wall_s']:.1f} s "
+        f"({cluster_report['wall_s_with_holds']:.1f} s with the holds)")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -8747,6 +9354,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_launches.update(bench_launches)
     phase_launches["observe"] = observe_launches
     phase_launches["agent"] = agent_launches
+    phase_launches["cluster"] = cluster_launches
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -8763,6 +9371,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_variants.update(bench_variants)
     phase_variants["observe"] = observe_variants
     phase_variants["agent"] = agent_variants
+    phase_variants["cluster"] = cluster_variants
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -8813,6 +9422,9 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
             "observe_shapes_held": observe_report["held"].get(kid, 0),
             # phase 18: the launch shapes of the agent plane
             "agent_shapes_held": agent_report["held"].get(kid, 0),
+            # phase 19: the launch shapes of the two agents on the
+            # cluster control services
+            "cluster_shapes_held": cluster_report["held"].get(kid, 0),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -8842,6 +9454,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     log("bench: " + json.dumps(bench_report))
     log("observe: " + json.dumps(observe_report))
     log("agent: " + json.dumps(agent_report))
+    log("cluster: " + json.dumps(cluster_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

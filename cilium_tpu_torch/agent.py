@@ -16,10 +16,10 @@ Where the port differs from the reference:
   never falls back to the CPU on its own. ``enable_tpu_offload`` off
   serves the CPU oracle, as in the reference, and on again serves the
   card;
-* the cluster control plane is queue 1's Q13b part 2: the ``crd``
-  identity allocation mode, ``k8s_api_socket`` and the
-  ``cluster-pool`` IPAM mode raise ``NotImplementedError`` at
-  construction; the ``kvstore`` allocation mode works;
+* the cluster control plane (the ``crd`` identity allocation mode,
+  ``k8s_api_socket``, the ``cluster-pool`` IPAM mode) runs on the
+  port's control services: ``kvstore_service``, ``operator`` and
+  ``k8s/``, which are host code and never touch the card;
 * ``stop()`` also closes the loader's compile plane, so no thread the
   agent started outlives it.
 """
@@ -56,28 +56,6 @@ from cilium_tpu_torch.runtime.service import VerdictService
 
 LOG = get_logger("daemon")
 
-#: where the branches that wait for the cluster control plane point
-_PART2 = ("queue 1's Q13b part 2 (the cluster control services: "
-          "k8s/, operator.py, runtime/leader.py, the rest of "
-          "hubble/relay.py)")
-
-
-def _refuse_unported(config: Config) -> None:
-    """Raise for the configurations whose code is not ported yet —
-    before anything is built, so no half-started agent is left."""
-    if config.identity_allocation_mode == "crd":
-        raise NotImplementedError(
-            "identity_allocation_mode='crd' (the CiliumIdentity store) "
-            f"is not ported yet: {_PART2}")
-    if config.k8s_api_socket:
-        raise NotImplementedError(
-            "k8s_api_socket (the k8s watcher bridge) is not ported yet: "
-            f"{_PART2}")
-    if config.ipam_mode == "cluster-pool":
-        raise NotImplementedError(
-            "ipam_mode='cluster-pool' (the operator's node "
-            f"registration) is not ported yet: {_PART2}")
-
 
 class Agent:
     def __init__(self, config: Optional[Config] = None,
@@ -94,7 +72,6 @@ class Agent:
                  kvstore: Optional[KVStore] = None,
                  device=None):
         self.config = config or Config.from_env()
-        _refuse_unported(self.config)
         #: where the loader stages its engine and the DNS proxy scans:
         #: ``cuda`` unless the caller names another (raises without
         #: CUDA — the agent never picks the CPU on its own)
@@ -120,6 +97,18 @@ class Agent:
             )
 
             self.allocator = ClusterIdentityAllocator(self.kvstore)
+        elif self.config.identity_allocation_mode == "crd":
+            if not self.config.k8s_api_socket:
+                raise ValueError(
+                    "identity_allocation_mode=crd requires "
+                    "k8s_api_socket (the CiliumIdentity store)")
+            from cilium_tpu_torch.k8s.apiserver import K8sClient
+            from cilium_tpu_torch.k8s.identity_crd import (
+                CRDIdentityAllocator,
+            )
+
+            self.allocator = CRDIdentityAllocator(
+                K8sClient(self.config.k8s_api_socket))
         else:
             self.allocator = IdentityAllocator()
         self.selector_cache = SelectorCache(self.allocator)
@@ -211,9 +200,11 @@ class Agent:
         self._health_ad = None
         self._health_watcher = None
         # IPAM (§2.4): endpoint IPs come from this node's podCIDR when
-        # the caller doesn't pin one (the static pod_cidr; cluster-pool
-        # assignment waits for the operator, Q13b part 2)
+        # the caller doesn't pin one. In "cluster-pool" mode the CIDR
+        # arrives from the operator at start(); until then the static
+        # pod_cidr stands in so construction stays non-blocking.
         self.ipam = NodeAllocator(self.config.pod_cidr)
+        self.node_registration = None
         # mutual-auth state: pairs that completed a handshake; entries
         # demanding auth DROP until their pair lands here (§2.1 AuthType)
         self.auth = AuthManager()
@@ -226,6 +217,9 @@ class Agent:
         self.api_socket_path = api_socket_path
         self.policy_watcher = None
         self.policy_dir = policy_dir
+        # pkg/k8s watcher-layer analog: CNP/CCNP informers feeding the
+        # repo + CEP/CiliumNode status publication (config.k8s_api_socket)
+        self.k8s_bridge = None
         # transparent DNS proxy UDP wire path (§3.5); endpoint resolved
         # from the client source address, as the reference's TPROXY does
         self.dns_server = None
@@ -255,13 +249,42 @@ class Agent:
         # process's logging opt out via configure_logging=False
         if self.config.configure_logging:
             setup_logging(self.config.log_level)
-        if self.config.identity_allocation_mode == "kvstore":
+        if self.config.identity_allocation_mode in ("kvstore", "crd"):
             # remote allocations reach policy through the selector
             # cache (the reference's identity-cache events); start()
             # replays existing cluster identities before anything
             # resolves policy against them
             self.allocator.on_change = self._on_cluster_identity
             self.allocator.start()
+        if self.config.ipam_mode == "cluster-pool":
+            # register with the operator and adopt its assignment BEFORE
+            # endpoint restore, so restored IPs re-adopt into the right
+            # allocator (reference: agents block on IPAM readiness)
+            from cilium_tpu_torch.operator import NodeRegistration
+
+            self.node_registration = NodeRegistration(
+                self.kvstore, self.config.node_name,
+                on_cidr_change=self._on_pod_cidr_change)
+            try:
+                self.node_registration.wait_for_cidr(timeout=30.0)
+            except TimeoutError:
+                # don't leave a registered node (holding a reconcile
+                # slot — it would be assigned a CIDR nobody consumes)
+                # or live watches behind a failed start; a retry builds
+                # fresh subscriptions instead of stacking them
+                self.node_registration.deregister()
+                self.node_registration = None
+                if hasattr(self.allocator, "close"):
+                    self.allocator.close()
+                raise
+            with self.write_lock:
+                # fresh read, not the wait result: a re-carve landing
+                # between the wait and this swap must not be reverted
+                # (the watch event for it may have already fired)
+                self.ipam = NodeAllocator(self.node_registration.pod_cidr())
+            self.controllers.update(
+                "node-registration", self.node_registration.heartbeat,
+                interval=15.0)
         # tag kube-apiserver IPs with the reserved identity so the
         # `kube-apiserver` entity selects real traffic (flows from
         # these IPs resolve to ReservedIdentity.KUBE_APISERVER)
@@ -329,6 +352,14 @@ class Agent:
 
             self.policy_watcher = PolicyDirWatcher(self, self.policy_dir)
             self.policy_watcher.register(self.controllers)
+        if self.config.k8s_api_socket and self.k8s_bridge is None:
+            # None-guard: a retried Agent.start() must not stack a
+            # second set of informer threads (same rule as the
+            # allocator watch above)
+            from cilium_tpu_torch.k8s.agent_bridge import K8sWatcherBridge
+
+            self.k8s_bridge = K8sWatcherBridge(
+                self, self.config.k8s_api_socket).start()
         if self.hubble_socket_path:
             from cilium_tpu_torch.hubble.server import HubbleServer
 
@@ -400,6 +431,14 @@ class Agent:
         # policy for a shutdown teardown would be discarded work
         self.clustermesh.close()
         self.controllers.stop_all()
+        if self.k8s_bridge is not None:
+            self.k8s_bridge.stop()
+        if self.node_registration is not None:
+            # stop watching, but stay registered: the node keeps its
+            # CIDR across an agent restart (the lease lapses only if we
+            # stay down past the TTL — the reference's pinned-map
+            # discipline, SURVEY.md §5.3/§5.4)
+            self.node_registration.close()
         if hasattr(self.allocator, "close"):
             self.allocator.close()
         # after the watch is closed no new churn events arrive; a
@@ -500,6 +539,36 @@ class Agent:
             if sel not in active:
                 self.name_manager.unregister_selector(sel)
 
+    def _on_pod_cidr_change(self, old: Optional[str],
+                            new: Optional[str]) -> None:
+        """The operator rewrote this node's assignment (re-carve after a
+        pool reconfiguration, or reassignment after our lease lapsed).
+        Rebuild the allocator on the new CIDR so fresh endpoint IPs come
+        from a range we actually own; existing endpoints keep their
+        addresses (pods can't be renumbered in place — the reference
+        restarts them), counted so operators can see the skew. A delete
+        (new=None) is left alone: the fresh assignment follows."""
+        # write_lock: endpoint_add may be mid-allocation from the old
+        # allocator on an API thread — swapping under it un-serialized
+        # would hand out an address the new allocator never adopted
+        with self.write_lock:
+            if new is None or new == str(self.ipam.cidr):
+                return
+            alloc = NodeAllocator(new)
+            stale = 0
+            for ep in self.endpoint_manager.endpoints():
+                if not ep.ipv4:
+                    continue
+                try:
+                    alloc.allocate_ip(ep.ipv4)
+                except Exception:
+                    stale += 1
+            self.ipam = alloc
+            # unconditional: the gauge must drop back to 0 once the
+            # skew clears, not report the last nonzero value forever
+            METRICS.set_gauge("cilium_tpu_ipam_endpoints_outside_cidr",
+                              float(stale))
+
     def _endpoint_of_ip(self, ip: str) -> Optional[int]:
         """Client source IP → endpoint id (DNS proxy's TPROXY role).
         Unknown sources get None → REFUSED; pass ``dns_endpoint_of`` to
@@ -515,11 +584,17 @@ class Agent:
                      host: bool = False):
         # write_lock (reentrant — API handlers already hold it): the
         # allocate-then-register sequence is one step for concurrent
-        # writers (REST threads, the watcher, CNI)
+        # writers (REST threads, the watcher, CNI), and must not
+        # interleave with a cluster-pool allocator swap
+        # (_on_pod_cidr_change), which adopts only already-registered
+        # endpoints' addresses
         with self.write_lock:
-            return self._endpoint_add_locked(endpoint_id, labels, ipv4,
-                                             named_ports=named_ports,
-                                             host=host)
+            ep = self._endpoint_add_locked(endpoint_id, labels, ipv4,
+                                           named_ports=named_ports,
+                                           host=host)
+        if self.k8s_bridge is not None:  # outside the lock: socket IO
+            self.k8s_bridge.publish_endpoint(ep)
+        return ep
 
     def host_endpoint_add(self, labels: Dict[str, str],
                           ipv4: str = "", endpoint_id: int = 0):
@@ -624,6 +699,8 @@ class Agent:
                 self.ipcache.delete(f"{ep.ipv4}/32")
                 self.ipam.release(ep.ipv4)
             self.endpoint_manager.remove_endpoint(endpoint_id)
+        if self.k8s_bridge is not None:  # outside the lock: socket IO
+            self.k8s_bridge.withdraw_endpoint(endpoint_id)
 
     # -- flow pipeline (engine → monitor → hubble, §3.6) -----------------
     def process_flows(self, flows: List) -> Dict:

@@ -433,12 +433,11 @@ class Config:
     node_name: str = "node-0"          # this node's name (operator key)
     #: "static" uses pod_cidr as-is; "cluster-pool" registers with the
     #: operator and receives this node's podCIDR from the cluster pool
-    #: (the operator is queue 1's Q13b part 2; the port's agent raises
-    #: on it until then)
     ipam_mode: str = "static"
     #: "local" = single-process allocator; "kvstore" = cluster-wide
     #: allocation through the shared store, so every node maps the same
-    #: labels to the same identity; "crd" waits for the k8s layer
+    #: labels to the same identity; "crd" = CiliumIdentity objects in
+    #: the k8s apiserver (needs ``k8s_api_socket``)
     identity_allocation_mode: str = "local"
     pod_cidr: str = "10.0.0.0/24"      # this node's IPAM podCIDR (static)
     #: IPs of the kube-apiserver: the agent upserts each into the
@@ -465,8 +464,7 @@ class Config:
     tracing: TracingConfig = dataclasses.field(default_factory=TracingConfig)
     log_level: str = "info"
     #: ``--k8s-api-socket``: CNP/CCNP informers and CiliumEndpoint /
-    #: CiliumNode status over a k8s API socket (queue 1's Q13b part 2;
-    #: the port's agent raises when it is set)
+    #: CiliumNode status over a k8s API socket
     k8s_api_socket: str = ""
     #: ``--monitor-aggregation``: none/low emit per-flow TraceNotify
     #: events; medium/maximum suppress them to verdict/drop events. The

@@ -16,6 +16,12 @@ it across nodes (SURVEY.md §2.5). We speak newline-delimited JSON on an
 The flow JSON is the exporter's flowpb-shaped ``flow_to_dict`` — the
 same schema the replay harness ingests, so `observe | replay`
 round-trips.
+
+Where the port differs from the reference: a follow request waits for
+new flows in slices of ``_FOLLOW_SLICE`` seconds (the window still ends
+after ``timeout`` with no new flow), so ``stop()`` ends every request
+thread within a slice; the reference's thread waits out the window
+(up to 300 s) after its server stopped.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import os
 import socket
 import socketserver
 import threading
+import time
 from typing import Dict, Iterator, Optional
 
 from cilium_tpu_torch.core.flow import L7Type, Verdict
@@ -32,6 +39,8 @@ from cilium_tpu_torch.hubble.observer import FlowFilter, Observer
 from cilium_tpu_torch.ingest.hubble import flow_to_dict
 
 _MAX_FOLLOW_TIMEOUT = 300.0
+#: a follow request re-checks its server's stop this often
+_FOLLOW_SLICE = 0.5
 
 
 def filter_to_dict(flt: Optional[FlowFilter]) -> Optional[Dict]:
@@ -89,6 +98,7 @@ class HubbleServer:
         outer = self
         self._active_requests: set = set()
         self._active_lock = threading.Lock()
+        self._stopping = threading.Event()
 
         class Handler(socketserver.StreamRequestHandler):
             def handle(self):  # noqa: A003
@@ -138,12 +148,16 @@ class HubbleServer:
             timeout = min(float(req.get("timeout", 1.0)),
                           _MAX_FOLLOW_TIMEOUT)
             n = 0
-            for seq, flow in self.observer.get_flows(
-                    flt=flt, since_seq=req.get("since_seq"),
-                    limit=limit, follow=follow, timeout=timeout,
-                    with_seq=True):
-                send({"flow": flow_to_dict(flow), "seq": seq})
-                n += 1
+            if follow and isinstance(self.observer, Observer):
+                n = self._follow(send, flt, req.get("since_seq"), limit,
+                                 timeout)
+            else:
+                for seq, flow in self.observer.get_flows(
+                        flt=flt, since_seq=req.get("since_seq"),
+                        limit=limit, follow=follow, timeout=timeout,
+                        with_seq=True):
+                    send({"flow": flow_to_dict(flow), "seq": seq})
+                    n += 1
             send({"end": True, "count": n,
                   "lost": self.observer.lost_reported})
         elif op == "server_status":
@@ -161,6 +175,30 @@ class HubbleServer:
         else:
             send({"error": f"unknown op {op!r}"})
 
+    def _follow(self, send, flt, since_seq, limit, timeout) -> int:
+        """A follow request: the ring's flows from ``since_seq`` on, then
+        new ones as they land, until ``timeout`` passes with none, the
+        limit is reached or the server stops → flows sent."""
+        n, pos = 0, since_seq
+        idle_until = time.monotonic() + timeout
+        while not self._stopping.is_set():
+            left = idle_until - time.monotonic()
+            if left <= 0:
+                break
+            moved = False
+            for seq, flow in self.observer.get_flows(
+                    since_seq=pos, follow=True,
+                    timeout=min(_FOLLOW_SLICE, left), with_seq=True):
+                pos, moved = seq + 1, True
+                if flt is None or flt.matches(flow):
+                    send({"flow": flow_to_dict(flow), "seq": seq})
+                    n += 1
+                    if limit is not None and n >= limit:
+                        return n
+            if moved:
+                idle_until = time.monotonic() + timeout
+        return n
+
     # -- lifecycle --------------------------------------------------------
     def start(self) -> "HubbleServer":
         self._thread = threading.Thread(
@@ -170,6 +208,7 @@ class HubbleServer:
         return self
 
     def stop(self) -> None:
+        self._stopping.set()
         self._server.shutdown()
         self._server.server_close()
         # terminate in-flight streams too: a long follow window must

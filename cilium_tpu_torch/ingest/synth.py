@@ -9,7 +9,10 @@ synthetic identity/flow tuples, BASELINE configs[3]) and
 ``scenario_by_name``, ``realize_scenario`` and the capture writers
 ``scenario_capture_columns`` / ``write_scenario_capture``; and one of
 the port's own, ``lineparser`` (``test.lineparser`` ACLs on the
-generic pair path), which the reference has no scenario for.
+generic pair path), which the reference has no scenario for. The port
+also renders a scenario's HTTP rule as the ``cilium.io/v2`` object a
+Kubernetes user applies (``http_rule_cnp``), so the rule can travel
+through the apiserver and the watcher bridge.
 """
 
 from __future__ import annotations
@@ -186,6 +189,50 @@ def synth_http_scenario(n_rules: int = 1000, n_flows: int = 10000,
 
 
 # ------------------------------------------------------ config 2: Kafka --
+def http_rule_cnp(rule, name: str, namespace: str = "default") -> Dict:
+    """An HTTP scenario's ``Rule`` as a ``cilium.io/v2``
+    CiliumNetworkPolicy object: ``parse_cnp`` of it gives back the rule
+    with the policy's provenance labels in place of the scenario's.
+    Covers what the scenario's rules use (match labels, ``fromEndpoints``,
+    ports and HTTP rules) and raises on anything else rather than drop
+    it."""
+    def sel(s) -> Dict:
+        if s.match_expressions:
+            raise ValueError("matchExpressions are not rendered")
+        return {"matchLabels": dict(s.match_labels)}
+
+    if rule.egress:
+        raise ValueError("egress rules are not rendered")
+    ingress = []
+    for i in rule.ingress:
+        if (i.from_entities or i.from_cidrs or i.from_cidr_set
+                or i.from_requires or i.icmps or i.auth_mode or i.deny):
+            raise ValueError(f"ingress fields beyond fromEndpoints: {i}")
+        ports = []
+        for tp in i.to_ports:
+            pr = {"ports": [{"port": str(pp.port),
+                             "protocol": pp.protocol.name}
+                            for pp in tp.ports]}
+            l7 = tp.rules
+            if l7 is not None and not l7.is_empty():
+                if l7.kafka or l7.dns or l7.l7 or l7.l7proto:
+                    raise ValueError("only HTTP rules are rendered")
+                if any(h.header_matches for h in l7.http):
+                    raise ValueError("headerMatches are not rendered")
+                pr["rules"] = {"http": [
+                    {k: v for k, v in (("method", h.method),
+                                       ("path", h.path), ("host", h.host),
+                                       ("headers", list(h.headers))) if v}
+                    for h in l7.http]}
+            ports.append(pr)
+        ingress.append({"fromEndpoints": [sel(s) for s in i.from_endpoints],
+                        "toPorts": ports})
+    return {"apiVersion": "cilium.io/v2", "kind": "CiliumNetworkPolicy",
+            "metadata": {"name": name, "namespace": namespace},
+            "spec": {"endpointSelector": sel(rule.endpoint_selector),
+                     "ingress": ingress}}
+
+
 def synth_kafka_scenario(n_rules: int = 20, n_records: int = 100000,
                          seed: int = 0) -> SynthScenario:
     rng = random.Random(seed)

@@ -17,6 +17,11 @@ widened to int64, not re-read as bit patterns.
 kvstore's contents (``list_prefix("")`` of either package's store) as
 a port ``KVStore``, so a port identity allocator or clustermesh watcher
 started over it sees the reference's identities and announcements.
+
+``resources_from_reference`` is the same for the apiserver: a
+reference ``ResourceStore``'s objects (by plural) and its current
+resourceVersion as a port ``ResourceStore``, so port informers started
+over it list the reference's objects at the reference's versions.
 """
 
 from __future__ import annotations
@@ -76,4 +81,47 @@ def store_from_reference(items: Mapping[str, str]):
     store = KVStore()
     for key in sorted(items):
         store.set(key, items[key])
+    return store
+
+
+def resources_from_reference(objects: Mapping[str, list],
+                             resource_version):
+    """{plural: [object, ...]} (each object with its
+    ``metadata.resourceVersion``, as a store's ``list(plural)`` gives
+    them) and the store's current resourceVersion → a port
+    ``ResourceStore`` holding the same objects at the same versions.
+
+    The event history does not carry: the new store's ring starts
+    empty and compacted at ``resource_version``, so a watch from that
+    version goes live and one from an older version is told 410 Gone
+    (and relists), as against a compacted apiserver."""
+    import json
+
+    from cilium_tpu_torch.k8s.apiserver import (
+        RESOURCES,
+        ResourceStore,
+        _key,
+    )
+
+    store = ResourceStore()
+    rv = int(resource_version)
+    uid = 0
+    for plural, items in objects.items():
+        _, namespaced = RESOURCES[plural]
+        for obj in items:
+            obj = json.loads(json.dumps(obj))
+            meta = obj["metadata"]
+            obj_rv = int(meta["resourceVersion"])
+            if obj_rv > rv:
+                raise ValueError(
+                    f"{plural} {meta.get('name')!r}: resourceVersion "
+                    f"{obj_rv} is past the store's {rv}")
+            ns = meta.get("namespace", "") if namespaced else ""
+            store._objs[plural][_key(ns, meta["name"])] = obj
+            tail = str(meta.get("uid", "")).rpartition("-")[2]
+            if tail.isdigit():
+                uid = max(uid, int(tail))
+    store._rv = rv
+    store._compacted_rv = rv
+    store._uid = uid
     return store

@@ -14,10 +14,12 @@ and what each returns is compared field for field:
   in the Hubble ring (``tests/test_observability.py::
   test_agent_process_flows_feeds_monitor_and_hubble`` without its
   bugtool bundle); the regeneration count and ``engine_revision``;
-* the ``kvstore`` identity mode; the configurations that wait for
-  Q13b part 2 raise ``NotImplementedError``; without CUDA ``Agent()``
-  raises unless ``device="cpu"``; the auth module's ``AUTH_UNENFORCED``
-  is the engine's own object;
+* the ``kvstore`` identity mode; the cluster configurations (``crd``,
+  ``k8s_api_socket``, ``cluster-pool``) build, start and still default
+  to ``cuda``; what waits for queue 1's Q13c (``Config.from_toml``, the
+  ``bugtool`` op) says so;
+  without CUDA ``Agent()`` raises unless ``device="cpu"``; the auth
+  module's ``AUTH_UNENFORCED`` is the engine's own object;
 * the service's agent ops (``VerdictService(agent=...)``): ``status``,
   ``policy_get``, ``verdict`` with the monitor fan-out, ``profile`` in
   host mode, ``bugtool`` (an error naming Q13c in the port) and the LOG
@@ -81,6 +83,8 @@ def _pkg(root):
 
 JAX, PORT = _pkg("cilium_tpu"), _pkg("cilium_tpu_torch")
 PKGS = (JAX, PORT)
+k8s = importlib.import_module("cilium_tpu_torch.k8s.apiserver")
+operator = importlib.import_module("cilium_tpu_torch.operator")
 IDS = ("jax", "port")
 
 
@@ -518,17 +522,76 @@ def test_kvstore_identity_mode_two_agents():
     assert both(run)["same"] is True
 
 
-@pytest.mark.parametrize("field,value", [
-    ("identity_allocation_mode", "crd"),
-    ("k8s_api_socket", "/nonexistent/k8s.sock"),
-    ("ipam_mode", "cluster-pool"),
-])
-def test_unported_configurations_raise(field, value):
+#: the cluster configurations (queue 1's Q13b part 2, ported): each
+#: with the field it sets beside ``k8s_api_socket``
+_CLUSTER_FIELDS = {
+    "crd": {"identity_allocation_mode": "crd"},
+    "k8s_api_socket": {},
+    "cluster-pool": {"ipam_mode": "cluster-pool"},
+}
+
+
+@pytest.mark.parametrize("what", ["crd", "k8s_api_socket", "cluster-pool",
+                                  "from_toml", "bugtool"])
+def test_unported_configurations_raise(what, monkeypatch):
+    """The configurations that waited for the cluster control services
+    (``crd`` identities, ``k8s_api_socket``, ``cluster-pool`` IPAM) now
+    build and start, default to ``cuda`` and raise without it unless
+    the caller names the CPU. What is still unported (queue 1's Q13c,
+    with the daemon and the CLI) says so: ``Config.from_toml`` does not
+    exist yet, and the service's ``bugtool`` op answers an error naming
+    Q13c."""
+    import torch
+
     before = set(threading.enumerate())
+    if what == "from_toml":
+        assert hasattr(JAX.config.Config, "from_toml")
+        assert not hasattr(PORT.config.Config, "from_toml")
+        return
     with short_dir() as tmp:
-        with pytest.raises(NotImplementedError, match="Q13b part 2"):
-            make_agent(PORT, tmp, start=False,
-                       cfg_fields={field: value})
+        if what == "bugtool":
+            agent = make_agent(PORT, tmp, start=False)
+            try:
+                svc = PORT.service.VerdictService(
+                    agent.loader, os.path.join(tmp, "v.sock"), agent=agent)
+                got = svc.handle({"op": "bugtool",
+                                  "out": os.path.join(tmp, "bt")})
+                svc.bridge.batcher.close()
+            finally:
+                agent.stop()
+            assert "Q13c" in got["error"]
+            assert threads_settle(before) == []
+            return
+        kv = PORT.kvstore.KVStore()
+        api = k8s.APIServer(os.path.join(tmp, "k8s.sock")).start()
+        op = operator.Operator(kv, pool_cidr="10.123.0.0/16").start()
+        fields = dict(_CLUSTER_FIELDS[what], k8s_api_socket=api.socket_path)
+        try:
+            with monkeypatch.context() as m:
+                m.setattr(torch.cuda, "is_available", lambda: False)
+                cfg = config(PORT, os.path.join(tmp, "cache"), **fields)
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    PORT.agent.Agent(cfg, kvstore=kv)
+            agent = make_agent(PORT, tmp, cfg_fields=fields, kvstore=kv)
+            try:
+                assert agent.device.type == "cpu"
+                assert agent.k8s_bridge is not None
+                ep = agent.endpoint_add(1, {"app": "x"})
+                client = k8s.K8sClient(api.socket_path)
+                got = client.get("ciliumendpoints", "node-0-ep-1")
+                assert got["status"]["identity"]["id"] == ep.identity
+                if what == "cluster-pool":
+                    assert str(agent.ipam.cidr) == "10.123.0.0/24"
+                    assert agent.node_registration is not None
+                if what == "crd":
+                    assert client.get("ciliumidentities",
+                                      str(int(ep.identity)))
+            finally:
+                api.stop()  # the informers stop at once
+                agent.stop()
+        finally:
+            api.stop()
+            op.stop()
     assert threads_settle(before) == []
 
 

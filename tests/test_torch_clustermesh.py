@@ -11,12 +11,13 @@ keys and values, ``IPCache.dump()`` on both sides, the remote identities'
 labels, ``ClusterMesh.status()``, the merged service backends and the
 counters. Each case also makes the reference test's own assertions.
 
-Left out, with the module they need (queue 1): the controller-manager
-cases (``test_controller_manager_restartable_after_stop_all``,
-``test_update_racing_stop_all_does_not_leak_controller``,
-``runtime/controller.py``, Q13b), ``test_global_services_across_processes``
-(``kvstore_service.py``, Q13b) and ``test_to_services_sees_remote_backends``
-(the agent's ``toServices`` regeneration, Q13c).
+The controller-manager cases
+(``test_controller_manager_restartable_after_stop_all``,
+``test_update_racing_stop_all_does_not_leak_controller``) and
+``test_global_services_across_processes`` (over the served kvstore) are
+held in ``tests/test_torch_k8s_agent.py``. Left out, with the module it
+needs: ``test_to_services_sees_remote_backends`` (the agent's
+``toServices`` regeneration, queue 1's Q13c).
 """
 
 import importlib

@@ -27,7 +27,10 @@ sweep banks, and ``tools/bench.py --config http --check`` at a small
 size on the card with 0 mismatches. The observability plane: one 8192-flow
 chunk of a flowpb capture through the replay cursor and the fan-out
 sequence on the card, its annotated flows, events and exported lines
-equal to the plain path's.
+equal to the plain path's. The agent plane on the card, alone and as
+two agents on the cluster control services (a served kvstore and
+apiserver, the operator, ``crd`` identities, a CNP through the
+apiserver), each node's lanes equal to the plain engine's.
 """
 
 import numpy as np
@@ -1179,3 +1182,90 @@ def test_agent_on_card_equals_plain_and_device_profile_names_kd(
     finally:
         for a in agents.values():
             a.stop()
+
+
+def test_two_agents_on_the_cluster_services_equal_plain(cuda, tmp_path):
+    """The cluster control services with two agents on the card: a
+    served kvstore and apiserver, an operator carving each node a /24,
+    ``crd`` identities, and the http scenario's rule applied as a CNP
+    through the apiserver. ``node-a`` serves under ``auto`` (KD) and
+    ``node-b`` under ``nfa-bitset`` (K1); both nodes' ten lanes equal a
+    plain ``TorchVerdictEngine(..., device="cpu")`` of the served
+    policy, and each other's."""
+    import shutil
+    import tempfile
+    import time
+
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.k8s.apiserver import APIServer, K8sClient
+    from cilium_tpu_torch.kvstore_service import KVStoreServer, RemoteKVStore
+    from cilium_tpu_torch.operator import Operator
+
+    sc = synth.synth_http_scenario(40, 2048, seed=5)
+    short = tempfile.mkdtemp(prefix="t19")  # socket paths < 108 bytes
+    kv = KVStoreServer(f"{short}/kv.sock").start()
+    api = APIServer(f"{short}/k8s.sock").start()
+    op_kv = RemoteKVStore(kv.socket_path)
+    op = Operator(op_kv, pool_cidr="10.250.0.0/16",
+                  k8s_api_socket=api.socket_path).start()
+    agents = {}
+    try:
+        for name, impl in (("node-a", "auto"), ("node-b", "nfa-bitset")):
+            cfg = Config()
+            cfg.node_name = name
+            cfg.configure_logging = False
+            cfg.ipam_mode = "cluster-pool"
+            cfg.identity_allocation_mode = "crd"
+            cfg.k8s_api_socket = api.socket_path
+            cfg.engine.kernel_impl = impl
+            cfg.loader.cache_dir = str(tmp_path / name)
+            agents[name] = Agent(cfg, kvstore=RemoteKVStore(kv.socket_path),
+                                 device="cuda").start()
+        a, b = agents["node-a"], agents["node-b"]
+        assert str(a.ipam.cidr) != str(b.ipam.cidr)
+        srv = a.endpoint_add(1, sc.endpoints["server"])
+        cli = b.endpoint_add(2, sc.endpoints["client"])
+        deadline = time.monotonic() + 30
+        while (b.allocator.lookup(srv.identity) is None
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        assert b.endpoint_add(3, sc.endpoints["server"]).identity == \
+            srv.identity
+        for f in sc.flows:
+            f.src_identity, f.dst_identity = cli.identity, srv.identity
+        for x in (a, b):
+            x.endpoint_manager.regenerate_all(wait=True)
+        K8sClient(api.socket_path).apply(
+            "ciliumnetworkpolicies",
+            synth.http_rule_cnp(sc.rules[0], "synth-http"))
+        outs = {}
+        for name, x in agents.items():
+            while (len(x.repo.rules()) != 1
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            x.endpoint_manager.regenerate_all(wait=True)
+            _build.reset_launches()
+            outs[name] = x.process_flows(sc.flows)
+            kid = "KD" if name == "node-a" else "K1"
+            assert _build.KERNELS[kid].launches > 0, name
+            engine = x.loader.engine
+            assert engine.device.type == "cuda"
+            plain = TorchVerdictEngine(engine.policy, device="cpu",
+                                       cfg=engine.cfg)
+            want = plain.verdict_flows(sc.flows)
+            for k in OUTPUT_LANES:
+                np.testing.assert_array_equal(outs[name][k],
+                                              np.asarray(want[k]))
+        for k in OUTPUT_LANES:
+            np.testing.assert_array_equal(outs["node-a"][k],
+                                          outs["node-b"][k])
+        assert 2 in outs["node-a"]["verdict"]
+    finally:
+        api.stop()
+        for x in agents.values():
+            x.stop()
+        op.stop()
+        op_kv.close()
+        kv.stop()
+        shutil.rmtree(short, ignore_errors=True)

@@ -10,8 +10,8 @@ comes out equal: the numeric identities, the store's contents, the
 watch events, the ``on_change`` notifications and the debouncer's fire
 counts. The scenario also makes the reference test's own assertions.
 
-Left out, with the module they need: ``test_cross_node_policy_enforcement``
-(two live agents, queue 1 Q13c).
+``test_cross_node_policy_enforcement`` (two live agents over a served
+kvstore, with the operator) is held in ``tests/test_torch_k8s_agent.py``.
 """
 
 import importlib

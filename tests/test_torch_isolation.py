@@ -7,7 +7,11 @@
 * its entry points default to ``cuda`` and raise when CUDA is absent —
   they never drop quietly to the CPU;
 * the kernel launchers refuse CPU tensors (only the dispatching
-  functions route CPU tensors to the plain versions).
+  functions route CPU tensors to the plain versions);
+* the cluster control services run as processes of their own (the
+  kvstore, the apiserver, the operator, the relay): their modules and
+  ``main`` functions import nothing of JAX, the JAX package or ``yaml``, and
+  importing them starts no CUDA context.
 """
 
 import os
@@ -127,7 +131,16 @@ _EXPECTED = ("cilium_tpu_torch.clustermesh",
              "cilium_tpu_torch.runtime.api",
              "cilium_tpu_torch.runtime.controller",
              "cilium_tpu_torch.runtime.profiling",
-             "cilium_tpu_torch.runtime.watcher")
+             "cilium_tpu_torch.runtime.watcher",
+             "cilium_tpu_torch.kvstore_service",
+             "cilium_tpu_torch.operator",
+             "cilium_tpu_torch.runtime.leader",
+             "cilium_tpu_torch.k8s",
+             "cilium_tpu_torch.k8s.apiserver",
+             "cilium_tpu_torch.k8s.informer",
+             "cilium_tpu_torch.k8s.identity_crd",
+             "cilium_tpu_torch.k8s.ces",
+             "cilium_tpu_torch.k8s.agent_bridge")
 
 #: the observability and ingest plane's modules
 _OBSERVE = tuple(m for m in _EXPECTED
@@ -417,3 +430,55 @@ def test_agent_entry_points_raise_when_cuda_is_absent(monkeypatch,
             {"cpu"}
     finally:
         agent.stop()
+
+
+#: the cluster control services' modules (the served kvstore, the k8s
+#: layer, the operator with leader election, the relay)
+_CLUSTER = tuple(m for m in _EXPECTED if m.startswith((
+    "cilium_tpu_torch.kvstore_service", "cilium_tpu_torch.operator",
+    "cilium_tpu_torch.runtime.leader", "cilium_tpu_torch.k8s",
+    "cilium_tpu_torch.hubble.relay")))
+
+#: the control plane's processes, each started by its module's ``main``
+_MAINS = ("cilium_tpu_torch.kvstore_service",
+          "cilium_tpu_torch.k8s.apiserver",
+          "cilium_tpu_torch.operator",
+          "cilium_tpu_torch.hubble.relay")
+
+
+@pytest.mark.parametrize("module", _CLUSTER)
+def test_cluster_modules_import_no_jax_or_cilium_tpu(module):
+    """The cluster control services import nothing of JAX, the JAX
+    package or ``yaml`` at any depth of the file (their lazy imports,
+    the ``main`` functions' included)."""
+    import importlib
+
+    roots = _imported_roots(importlib.import_module(module).__file__)
+    assert not roots & {"jax", "jaxlib", "cilium_tpu", "yaml"}, roots
+
+
+@pytest.mark.parametrize("module", _MAINS)
+def test_control_plane_mains_start_no_jax_and_no_cuda(module):
+    """``python -m <module> --help`` exits 0; the module's import, with
+    everything its ``main`` imports, loads no JAX, nothing of the JAX
+    package and no ``yaml``, and initialises no CUDA context (the
+    control plane shares the card's host and must never hold it)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-m", module, "--help"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and "usage" in r.stdout, r.stderr[-2000:]
+    code = (
+        "import importlib, sys, torch\n"
+        f"importlib.import_module({module!r})\n"
+        "import cilium_tpu_torch.kvstore_service, "
+        "cilium_tpu_torch.runtime.logging\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'yaml', 'cilium_tpu.')) or "
+        "m == 'cilium_tpu')\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
