@@ -441,7 +441,42 @@ but for 15 and 14, which run, in that order, inside phase 10:
    before they stop (KD and K1 must have launched); every launch shape is
    then held exactly against its plain version. A ``cluster: {...}`` line
    carries the numbers;
-20. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+20. the daemon and the CLI at the http scenario (1000 rules x 10000
+   flows, bank size 128, uncut in shape): (a) ``capture synth`` (a v2
+   capture), ``capture info`` and ``capture convert`` of the same flows'
+   JSONL export through ``cilium_tpu_torch.cli.main`` in this process; a
+   TOML (``nfa-bitset``, bank size 128, warm restore); (b) ``python -m
+   cilium_tpu_torch.daemon --config`` with its verdict, REST, Hubble and
+   monitor sockets and a state directory, on the card (its pid holds
+   ``/dev/nvidia*`` files): the scenario's two endpoints and its rule (a
+   CNP file) through the CLI, import -> enforcement seconds from
+   ``status`` and ``healthz``, the regeneration split from its metrics;
+   (c) ``status``, ``policy get``, ``metrics``, ``healthz``, ``endpoint
+   list``, ``identity list``, ``config get`` and ``policy trace`` timed
+   (median ms); ``capture stream`` of the 10000 records: its counts and
+   every record's verdict (the port's ``StreamClient``) equal to a plain
+   engine of the same policy (an agent on the CPU with the same TOML,
+   endpoints and CNP); ``profile --mode device`` while a stream runs
+   (the daemon's Chrome trace names K1's ``nfa_scan`` kernel); ``monitor
+   --count`` and ``observe`` see a bulk verdict's 64 flows (the stream
+   path does not fan out, in either package); ``bugtool`` (the
+   reference's sections, numpy dtype names, the card named); ``status``
+   as a ``python -m cilium_tpu_torch.cli`` process, which holds no
+   ``/dev/nvidia*`` file; (d) ``replay`` of the capture on the object
+   path and ``--fast`` (``CaptureReplay``) and of the converted capture,
+   in this process on the card under ``auto`` (KD): equal counts, equal
+   to the plain engine's, ``--trace-out`` with one trace a chunk; (e)
+   ``k8s apply|get|delete`` of the CNP against an ``APIServer`` here,
+   its store read after each; (f) SIGTERM (drained, rc 0), a restart on
+   the same state directory: the endpoints back, the snapshot restored
+   warm with no compile submitted, the CNP re-imported with none either,
+   one chunk held against the plain engine, SIGTERM rc 0; (g) the
+   cross-cluster churn leg at 50 updates, beta on the card, its p99 gate
+   at 2 x phase 10's 27-bank lane p99 (a miss recorded, not fatal; stale
+   or ``ERROR`` verdicts end the run). Launches in this process are
+   noted and held (``daemon_shapes_held``); a ``daemon: {...}`` line
+   carries the numbers;
+21. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -459,6 +494,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import logging
 import multiprocessing
 import os
 import statistics
@@ -7075,7 +7111,7 @@ BENCH16_SERVICE_ARGS = ["--deadlines", "2", "--open-rates", "2000",
                         "--stream-rates", "200000", "--stream-duration",
                         "1"]
 BENCH16_SP_ITERS, BENCH16_MC_WINDOWS = 3, 3
-BENCH16_PROTOCOLS_ARGS = ["--reps", "1"]
+BENCH16_PROTOCOLS_ARGS = ["--reps", "1", "--skip-crosscluster"]
 #: the canary lane at ``make canary-smoke``'s sizes
 BENCH16_CANARY_ARGS = ["--chunks", "48", "--pool-chunks", "12"]
 #: the reference's fused/three-op speedup target (bench_kernel.py)
@@ -9076,6 +9112,762 @@ def cluster_phase(card):
     return report, launches, variants, noted
 
 
+#: phase 20: timed calls a CLI command against the live daemon, the
+#: capture stream's chunk, the cross-cluster leg's updates (the
+#: reference's 50), the flows of the bulk verdict the observer and the
+#: monitor must see, and the restart's held chunk
+DAEMON_CLI_REPS, DAEMON_STREAM_CHUNK, DAEMON_XC_UPDATES = 5, 8192, 50
+DAEMON_FANOUT_FLOWS = 64
+#: the sections of the reference's bugtool bundle
+BUGTOOL_FILES = ["config.json", "endpoints.json", "engine.json",
+                 "environment.json", "identities.json", "metrics.txt",
+                 "status.json"]
+
+
+def cli_call(argv):
+    """``cilium_tpu_torch.cli.main(argv)`` in this process, its standard
+    output captured → (rc, stdout, seconds)."""
+    import io
+
+    from cilium_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_json(argv, what, want_rc=0):
+    rc, out, _ = cli_call(argv)
+    check(rc == want_rc, f"[daemon] {what}: rc {rc}: {out[-600:]}")
+    return json.loads(out)
+
+
+def metric_value(text, name, labels=""):
+    """One sample of a Prometheus exposition (0 when absent)."""
+    import re
+
+    m = re.search(rf"^{re.escape(name)}{re.escape(labels)} (\S+)$", text,
+                  re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def span_totals(text):
+    """{span: (count, seconds)} of ``cilium_tpu_span_seconds``."""
+    import re
+
+    out = {}
+    for kind, span, v in re.findall(
+            r'^cilium_tpu_span_seconds_(count|sum)\{span="([^"]+)"\} (\S+)$',
+            text, re.M):
+        c, s = out.get(span, (0.0, 0.0))
+        out[span] = (float(v), s) if kind == "count" else (c, float(v))
+    return out
+
+
+def stream_capture(sock, rec, l7, offsets, blob, chunk, limit=None):
+    """The capture's records through the daemon's verdict socket with
+    the port's ``StreamClient`` → one verdict a record."""
+    import numpy as np
+
+    from cilium_tpu_torch.ingest.binary import (
+        capture_field_widths,
+        sections_to_bytes,
+    )
+    from cilium_tpu_torch.runtime.stream import StreamClient
+
+    n = len(rec) if limit is None else min(limit, len(rec))
+    client = StreamClient(sock, widths=capture_field_widths(l7, offsets))
+    try:
+        for i in range(0, n, chunk):
+            j = min(n, i + chunk)
+            client.send_image(sections_to_bytes(
+                np.asarray(rec[i:j]), l7[i:j], offsets, blob))
+        client.finish()
+        parts = []
+        for _, v in client.results():
+            check(not isinstance(v, Exception), f"[daemon] stream: {v}")
+            parts.append(np.asarray(v))
+    finally:
+        client.close()
+    return np.concatenate(parts)
+
+
+def daemon_phase(card, base_p99_ms):
+    """Phase 20 (see the module docstring) → (report, the phase's
+    launches in this process, KD's launches by variant, the launch
+    shapes noted)."""
+    import shutil
+    import signal
+    import tarfile
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.core.flow import Verdict
+    from cilium_tpu_torch.engine.verdict import TorchVerdictEngine
+    from cilium_tpu_torch.ingest import binary, synth
+    from cilium_tpu_torch.ingest.hubble import (flow_from_dict, flow_to_dict,
+                                                write_jsonl)
+    from cilium_tpu_torch.k8s.apiserver import APIServer, K8sClient, NotFound
+    from cilium_tpu_torch.runtime import fleet
+    from cilium_tpu_torch.runtime.service import VerdictClient
+    from cilium_tpu_torch.runtime.tracing import TRACER
+    from cilium_tpu_torch.tools import bench_protocols
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    noted, report = {}, {"card": card, "rules": N_RULES, "flows": N_FLOWS,
+                         "bank_size": BANK_SIZE,
+                         "cli_reps": DAEMON_CLI_REPS,
+                         "stream_chunk": DAEMON_STREAM_CHUNK,
+                         "xc_updates": DAEMON_XC_UPDATES}
+    threads0 = set(threading.enumerate())
+    tmp = tempfile.mkdtemp(prefix="cs20")  # socket paths < 108 bytes
+    socks = {k: os.path.join(tmp, f"{k}.sock")
+             for k in ("svc", "api", "hub", "mon", "k8s")}
+    state = os.path.join(tmp, "state")
+    paths = {k: os.path.join(tmp, k) for k in (
+        "cap.bin", "export.jsonl", "conv.bin", "cnp.yaml", "daemon.toml",
+        "trace.json", "bt", "prof")}
+    daemon, errf, apiserver, plain_agent = None, None, None, None
+    t_spawn, cli_proc = 0.0, None
+    steps = report["steps_s"] = {}
+
+    def step(name):
+        steps[name] = time.perf_counter() - t_phase
+    tracer0 = (TRACER.enabled, TRACER.sample_rate)
+    env0 = {k: os.environ.get(k) for k in ("CILIUM_TPU_CACHE_DIR",)}
+    sc = synth.synth_http_scenario(N_RULES, N_FLOWS)
+    eps = list(sc.endpoints.items())  # the order the capture's ids follow
+    label_arg = {n: ",".join(f"{k}={v}" for k, v in lbls.items())
+                 for n, lbls in eps}
+
+    def daemon_argv():
+        return [sys.executable, "-m", "cilium_tpu_torch.daemon",
+                "--config", paths["daemon.toml"], "--socket", socks["svc"],
+                "--api-socket", socks["api"], "--hubble-socket",
+                socks["hub"], "--monitor-socket", socks["mon"],
+                "--state-dir", state] + (
+                    [] if DEVICE == "cuda" else ["--device", DEVICE])
+
+    def spawn_daemon(life):
+        """Start the daemon; the caller works on while it imports torch
+        and comes up, then waits with :func:`wait_daemon`."""
+        nonlocal daemon, errf, t_spawn
+        for s in ("svc", "api", "hub", "mon"):
+            check(not os.path.exists(socks[s]),
+                  f"[daemon] {s} socket left from the last process")
+        errf = open(os.path.join(tmp, f"daemon-{life}.err"), "w+")
+        t_spawn = time.perf_counter()
+        daemon = subprocess.Popen(daemon_argv(), cwd=here,
+                                  stdout=subprocess.DEVNULL, stderr=errf)
+
+    def wait_daemon():
+        """Seconds from the spawn to all four sockets up."""
+        deadline = t_spawn + 120
+        while not all(os.path.exists(socks[s])
+                      for s in ("svc", "api", "hub", "mon")):
+            check(daemon.poll() is None,
+                  f"[daemon] exited {daemon.returncode} while starting: "
+                  f"{daemon_err()}")
+            check(time.perf_counter() < deadline,
+                  "[daemon] sockets not up within 120 s")
+            time.sleep(0.005)
+        return time.perf_counter() - t_spawn
+
+    def daemon_err():
+        errf.seek(0)
+        return errf.read()[-800:]
+
+    def stop_daemon():
+        nonlocal daemon
+        t0 = time.perf_counter()
+        daemon.send_signal(signal.SIGTERM)
+        try:
+            rc = daemon.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait()
+            check(False, f"[daemon] did not exit within 20 s of SIGTERM: "
+                  f"{daemon_err()}")
+        daemon = None
+        check(rc == 0, f"[daemon] exited {rc} on SIGTERM: {daemon_err()}")
+        errf.seek(0)
+        check("service drained" in errf.read(),
+              f"[daemon] no drain before the stop: {daemon_err()}")
+        return rc, time.perf_counter() - t0
+
+    def status():
+        return cli_json(["status", "--socket", socks["svc"]], "status")
+
+    def metrics_text():
+        rc, out, _ = cli_call(["metrics", "--socket", socks["svc"]])
+        check(rc == 0 and "cilium_tpu" in out, f"[daemon] metrics rc {rc}")
+        return out
+
+    def wait_revision(rev, what, timeout=300):
+        t0 = time.perf_counter()
+        while True:
+            st = status()
+            if st["engine_revision"] >= rev:
+                return st, time.perf_counter() - t0
+            check(time.perf_counter() - t0 < timeout,
+                  f"[daemon] {what}: engine revision {st['engine_revision']}"
+                  f" < {rev} after {timeout} s")
+            time.sleep(0.002)
+
+    try:
+        # the daemon starts first: it imports torch and comes up while
+        # 20a's files and the plain engine's policy are made here
+        doc = synth.http_rule_cnp(sc.rules[0], "synth-http")
+        with open(paths["cnp.yaml"], "w") as f:
+            json.dump(doc, f)  # JSON is YAML: the port's reader takes it
+        with open(paths["daemon.toml"], "w") as f:
+            f.write('node_name = "cs20-node"\n[engine]\n'
+                    'kernel_impl = "nfa-bitset"\n'
+                    f'bank_size = {BANK_SIZE}\n[loader]\n'
+                    'warm_restore = true\n'
+                    f'cache_dir = "{tmp}/daemon-cache"\n')
+        spawn_daemon("first")
+        # -- 20a: files through the CLI, in this process
+        t0 = time.perf_counter()
+        info = cli_json(["capture", "synth", paths["cap.bin"], "--scenario",
+                         "http", "--rules", N_RULES, "--flows", N_FLOWS],
+                        "capture synth")
+        check(info["records"] == N_FLOWS and info["version"] == 2,
+              f"[daemon] capture synth {info}")
+        cap_info = cli_json(["capture", "info", paths["cap.bin"]],
+                            "capture info")
+        check(cap_info["records"] == N_FLOWS and cap_info["strings"] > 1,
+              f"[daemon] capture info {cap_info}")
+        _, flows_sc = synth.realize_scenario(
+            synth.scenario_by_name("http", N_RULES, N_FLOWS), resolve=False)
+        write_jsonl(paths["export.jsonl"], flows_sc.flows)
+        conv = cli_json(["capture", "convert", paths["export.jsonl"],
+                         paths["conv.bin"]], "capture convert")
+        check(conv["records"] == N_FLOWS and conv["version"] == 2,
+              f"[daemon] capture convert {conv}")
+        cfg_plain = Config.from_toml(paths["daemon.toml"])
+        check(cfg_plain.enable_tpu_offload
+              and cfg_plain.engine.kernel_impl == "nfa-bitset"
+              and cfg_plain.engine.bank_size == BANK_SIZE
+              and cfg_plain.loader.warm_restore,
+              f"[daemon] the TOML read back wrong: {cfg_plain.engine}")
+        report["files"] = {"synth": info, "info": cap_info, "convert": conv,
+                           "s": time.perf_counter() - t0}
+        # the plain engine of the same policy: an agent on the CPU with
+        # the same configuration, endpoints and CNP
+        cfg_plain.configure_logging = False
+        cfg_plain.loader.cache_dir = os.path.join(tmp, "plain-cache")
+        plain_agent = Agent(cfg_plain, device="cpu")
+        for i, (name, lbls) in enumerate(eps, start=1):
+            plain_agent.endpoint_add(i, lbls)
+        plain_agent.policy_add_file(paths["cnp.yaml"])
+        plain = plain_agent.loader.engine
+        check(isinstance(plain, TorchVerdictEngine)
+              and plain.device.type == "cpu",
+              f"[daemon] the plain agent serves {type(plain).__name__}")
+        rec = binary.map_capture(paths["cap.bin"])
+        l7, offsets, blob = binary.read_l7_sidecar(paths["cap.bin"])
+
+        def plain_bulk(dicts):
+            # what the service's bulk op computes, on the plain engine
+            return plain.verdict_flows([flow_from_dict(d) for d in dicts],
+                                       outputs=("verdict",))["verdict"]
+
+        def hold_bulk(r, want_v, what):
+            check("verdicts" in r, f"[daemon] {what}: {r}")
+            got_v = np.asarray(r["verdicts"])
+            bad = (int((got_v != want_v).sum())
+                   if got_v.shape == want_v.shape else len(want_v))
+            check(bad == 0, f"[daemon] {what} differs from the plain "
+                  f"engine in {bad} of {len(want_v)} flows")
+
+        step("files_and_plain_policy")
+        log(f"[daemon] capture synth/info/convert through the CLI: "
+            f"{info['records']} records, {cap_info['strings']} strings, "
+            f"{cap_info['blob_bytes']} blob bytes")
+
+        with kernel_launches_noted(noted):
+            reset_counts()
+            c0 = counts()
+            # -- 20b: the daemon as an OS process on the card
+            report["start_s"] = wait_daemon()
+            step("daemon_up")
+            pid = daemon.pid
+            report["daemon_nvidia_fds"] = nvidia_fds(pid)
+            check(report["daemon_nvidia_fds"] > 0 or DEVICE == "cpu",
+                  f"[daemon] the daemon (pid {pid}) holds no /dev/nvidia* "
+                  f"file: it is not on the card")
+            m0 = metrics_text()
+            for i, (name, _) in enumerate(eps, start=1):
+                ep = cli_json(["endpoint", "add", i, "--labels",
+                               label_arg[name], "--api", socks["api"]],
+                              f"endpoint add {name}")
+                check(ep["identity"] == 255 + i,
+                      f"[daemon] {name} got identity {ep['identity']}")
+            t0 = time.perf_counter()
+            imp = cli_json(["policy", "import", paths["cnp.yaml"], "--api",
+                            socks["api"]], "policy import")
+            st, _ = wait_revision(max(1, imp["revision"]), "the import")
+            report["import_to_enforcement_s"] = time.perf_counter() - t0
+            hz = cli_json(["healthz", "--api", socks["api"]], "healthz")
+            check(hz["status"] == "ok" and hz["engine_revision"]
+                  == st["engine_revision"] and st["rules"] == 1,
+                  f"[daemon] healthz {hz} / status {st}")
+            m1 = metrics_text()
+            a, b = span_totals(m0), span_totals(m1)
+            split = {s: {"count": b[s][0] - a.get(s, (0, 0))[0],
+                         "ms": (b[s][1] - a.get(s, (0, 0))[1]) * 1e3}
+                     for s in ("endpoint_regeneration", "policy_compile",
+                               "policy_stage") if s in b}
+            regen = split.get("endpoint_regeneration", {"ms": 0.0})["ms"]
+            split["rest_ms"] = regen - sum(
+                split.get(s, {"ms": 0.0})["ms"]
+                for s in ("policy_compile", "policy_stage"))
+            report["regeneration"] = split
+            step("enforced")
+            # one command as a CLI process (it imports torch): it holds
+            # no /dev/nvidia* file; the plain verdicts are computed here
+            # while it runs, and nothing timed overlaps it
+            t_cli = time.perf_counter()
+            cli_proc = subprocess.Popen(
+                [sys.executable, "-m", "cilium_tpu_torch.cli", "status",
+                 "--socket", socks["svc"]], cwd=here,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            fds, cli_done = [], threading.Event()
+
+            def sample_fds():
+                while cli_proc.poll() is None:
+                    n = nvidia_fds(cli_proc.pid)
+                    if n is not None:
+                        fds.append(n)
+                    time.sleep(0.005)
+                cli_done.set()
+
+            sampler = threading.Thread(target=sample_fds, daemon=True)
+            sampler.start()
+            want = plain.verdict_l7_records(np.asarray(rec), l7, offsets,
+                                            blob)["verdict"]
+            mix = np.bincount(want, minlength=6).tolist()
+            check(mix[int(Verdict.DROPPED)] > 0
+                  and mix[int(Verdict.REDIRECTED)] > 0,
+                  f"[daemon] implausible verdict mix {mix}")
+            out, err = cli_proc.communicate(timeout=120)
+            sampler.join(timeout=10)
+            report["cli_process"] = {"rc": cli_proc.returncode,
+                                     "s": time.perf_counter() - t_cli,
+                                     "fd_samples": len(fds),
+                                     "max_nvidia_fds": max(fds, default=0)}
+            check(cli_proc.returncode == 0 and json.loads(out)["rules"] == 1
+                  and fds and max(fds) == 0,
+                  f"[daemon] the CLI process: {report['cli_process']} "
+                  f"{err[-400:]}")
+            step("cli_process_and_plain_verdicts")
+            log(f"[daemon] python -m cilium_tpu_torch.daemon up in "
+                f"{report['start_s']:.2f} s (pid {pid}, "
+                f"{report['daemon_nvidia_fds']} /dev/nvidia* fds); 2 "
+                f"endpoints and the CNP through the CLI: import -> "
+                f"enforcement {report['import_to_enforcement_s']:.2f} s; "
+                f"regeneration {split}")
+
+            # -- 20c: the CLI against the live daemon
+            src, dst = label_arg["client"], label_arg["server"]
+            cmds = {
+                "status": ["status", "--socket", socks["svc"]],
+                "policy_get": ["policy", "get", "--socket", socks["svc"]],
+                "metrics": ["metrics", "--socket", socks["svc"]],
+                "healthz": ["healthz", "--api", socks["api"]],
+                "endpoint_list": ["endpoint", "list", "--api", socks["api"]],
+                "identity_list": ["identity", "list", "--api", socks["api"]],
+                "config_get": ["config", "get", "--api", socks["api"]],
+                "policy_trace": ["policy", "trace", "--api", socks["api"],
+                                 "--src", src, "--dst", dst, "--dport",
+                                 "80"]}
+            cli_ms = {}
+            for name, argv in cmds.items():
+                secs = []
+                for _ in range(DAEMON_CLI_REPS):
+                    rc, out, s = cli_call(argv)
+                    check(rc == 0, f"[daemon] {name}: rc {rc}")
+                    secs.append(s)
+                cli_ms[name] = sorted(secs)[len(secs) // 2] * 1e3
+            trace = json.loads(cli_call(cmds["policy_trace"])[1])
+            check(trace["verdict"] == "ALLOWED",
+                  f"[daemon] policy trace client -> server: {trace}")
+            cfg_d = json.loads(cli_call(cmds["config_get"])[1])
+            check(cfg_d["config"]["engine"]["kernel_impl"] == "nfa-bitset",
+                  f"[daemon] config get: {cfg_d['config']['engine']}")
+            report["cli_ms"] = cli_ms
+            sinfo = cli_json(["capture", "stream", paths["cap.bin"],
+                              "--socket", socks["svc"], "--chunk",
+                              DAEMON_STREAM_CHUNK], "capture stream")
+            check(sinfo["records"] == N_FLOWS and not sinfo["errors"]
+                  and not sinfo["truncated"] and sinfo["verdicts"] == mix,
+                  f"[daemon] capture stream {sinfo} vs plain {mix}")
+            got = stream_capture(socks["svc"], rec, l7, offsets, blob,
+                                 DAEMON_STREAM_CHUNK)
+            check(np.array_equal(got, want),
+                  f"[daemon] stream verdicts differ from the plain engine's "
+                  f"in {int((got != want).sum())} records")
+            report["stream"] = {"records_per_s": sinfo["records_per_sec"],
+                                "seconds": sinfo["seconds"], "mix": mix,
+                                "chunks": -(-N_FLOWS // DAEMON_STREAM_CHUNK)}
+            # the observer and the monitor see a bulk verdict's flows (the
+            # stream path does not fan out, in either package)
+            fan = [dict(flow_to_dict(f)) for f in
+                   flows_sc.flows[:DAEMON_FANOUT_FLOWS]]
+            # the bulk op's verdicts are held against the plain engine on
+            # the same flows, through the same dict round trip; a thread's
+            # failure is kept and raised after its join
+            want_fan = plain_bulk(fan)
+            thread_errors = []
+
+            def bulk_verdict():
+                try:
+                    time.sleep(1.0)  # the monitor below subscribes first
+                    c = VerdictClient(socks["svc"])
+                    try:
+                        r = c.call({"op": "verdict", "flows": fan})
+                    finally:
+                        c.close()
+                    hold_bulk(r, want_fan, "bulk verdict")
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    thread_errors.append(e)
+
+            th = threading.Thread(target=bulk_verdict, daemon=True)
+            th.start()
+            rc, mon_out, _ = cli_call(["monitor", "--socket", socks["mon"],
+                                       "--count", DAEMON_FANOUT_FLOWS])
+            th.join(timeout=60)
+            check(not th.is_alive(), "[daemon] the bulk verdict hung")
+            if thread_errors:
+                raise thread_errors[0]
+            mon = [json.loads(ln) for ln in mon_out.splitlines() if ln]
+            check(rc == 0 and len(mon) == DAEMON_FANOUT_FLOWS
+                  and {e["type"] for e in mon} <= {"POLICY_VERDICT", "DROP"},
+                  f"[daemon] monitor --count: rc {rc}, {len(mon)} events")
+            rc, obs_out, _ = cli_call(["observe", "--hubble", socks["hub"]])
+            seen = [json.loads(ln) for ln in obs_out.splitlines() if ln]
+            check(rc == 0 and len(seen) == DAEMON_FANOUT_FLOWS,
+                  f"[daemon] observe: rc {rc}, {len(seen)} flows")
+            report["fan_out"] = {"monitor_events": len(mon),
+                                 "observed": len(seen)}
+            # the device profile while a stream runs, beside bulk
+            # verdicts: the stream's session scans its string tables with
+            # KD, the bulk op's fused step runs K1 under nfa-bitset
+            stop_stream = threading.Event()
+            streamed = [0, 0]
+            bulk = [dict(flow_to_dict(f)) for f in flows_sc.flows[:BATCH]]
+            want_bulk = plain_bulk(bulk)
+            want_chunk = want[:DAEMON_STREAM_CHUNK]
+
+            warm = threading.Event()
+
+            def keep_streaming():
+                # a bulk batch and a chunk at a time, paced: the trace's
+                # size (its export is the profile's cost) stays bounded;
+                # each is held against the plain engine. The profile
+                # starts after the first round, whose first calls at
+                # these shapes are cold and could fill its window
+                try:
+                    c = VerdictClient(socks["svc"])
+                    try:
+                        while not stop_stream.is_set():
+                            r = c.call({"op": "verdict", "flows": bulk})
+                            hold_bulk(r, want_bulk, "profiled bulk verdict")
+                            streamed[1] += len(r["verdicts"])
+                            got = stream_capture(
+                                socks["svc"], rec, l7, offsets, blob,
+                                DAEMON_STREAM_CHUNK,
+                                limit=DAEMON_STREAM_CHUNK)
+                            check(np.array_equal(got, want_chunk),
+                                  f"[daemon] profiled stream differs from "
+                                  f"the plain engine in "
+                                  f"{int((got != want_chunk).sum())} records")
+                            streamed[0] += len(got)
+                            warm.set()
+                            stop_stream.wait(0.1)
+                    finally:
+                        c.close()
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    thread_errors.append(e)
+                finally:
+                    warm.set()
+
+            step("cli_stream_fanout")
+            th = threading.Thread(target=keep_streaming, daemon=True)
+            th.start()
+            try:
+                check(warm.wait(timeout=120),
+                      "[daemon] the stream's first round hung")
+                if thread_errors:
+                    raise thread_errors[0]
+                t_warm = time.perf_counter() - t_phase
+                before = list(streamed)
+                prof = cli_json(["profile", "--socket", socks["svc"],
+                                 "--mode", "device" if DEVICE == "cuda"
+                                 else "host", "--seconds", "1", "--out",
+                                 paths["prof"]], "profile")
+                during = [a - b for a, b in zip(streamed, before)]
+            finally:
+                stop_stream.set()
+                th.join(timeout=120)
+            check(not th.is_alive(), "[daemon] the profiled stream hung")
+            if thread_errors:
+                raise thread_errors[0]
+            check(during[1] >= len(bulk),
+                  f"[daemon] no bulk batch ran beside the profile: "
+                  f"{streamed}, {during} during it")
+            step("profile")
+            if DEVICE == "cuda":
+                with open(prof["path"]) as f:
+                    ptrace = f.read()
+                k1_named = ("nfa_scan" in ptrace and any(
+                    "nfa_scan" in k for k in prof["device_events"]))
+                check(k1_named, f"[daemon] the daemon's device profile names "
+                      f"no K1 kernel: {prof['device_events'][:12]}")
+                report["profile"] = {"device_events": prof["device_events"],
+                                     "k1_named": k1_named,
+                                     "kd_named": any(
+                                         "dfa_dense" in k for k in
+                                         prof["device_events"]),
+                                     "streamed_records": streamed[0],
+                                     "bulk_flows": streamed[1],
+                                     "during_profile": during,
+                                     "warm_at_s": t_warm}
+            # bugtool
+            rc, out, _ = cli_call(["bugtool", "--socket", socks["svc"],
+                                   "--out", paths["bt"]])
+            check(rc == 0, f"[daemon] bugtool rc {rc}")
+            with tarfile.open(out.strip()) as tar:
+                members = {os.path.basename(m.name): m
+                           for m in tar.getmembers() if m.isfile()}
+                manifest = json.load(tar.extractfile(members["MANIFEST.json"]))
+                engine_s = json.load(tar.extractfile(members["engine.json"]))
+                env_s = json.load(tar.extractfile(
+                    members["environment.json"]))
+            check(manifest["files"] == BUGTOOL_FILES,
+                  f"[daemon] bugtool MANIFEST {manifest['files']}")
+            dtypes = {t["dtype"] for t in engine_s["tensors"].values()}
+            check(engine_s["staged"] and engine_s["hbm_bytes"] > 0
+                  and not any(d.startswith("torch.") for d in dtypes),
+                  f"[daemon] bugtool engine section {dtypes}")
+            names = [d["name"] for d in env_s["torch"].get("devices", ())]
+            check(DEVICE == "cpu" or names == [
+                __import__("torch").cuda.get_device_name(0)],
+                f"[daemon] bugtool environment names {names}")
+            report["bugtool"] = {"files": manifest["files"],
+                                 "tensors": len(engine_s["tensors"]),
+                                 "hbm_bytes": engine_s["hbm_bytes"],
+                                 "devices": names}
+            step("bugtool")
+            log(f"[daemon] CLI against the daemon (median of "
+                f"{DAEMON_CLI_REPS}, ms): " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in cli_ms.items())
+                + f"; capture stream {sinfo['records_per_sec']} records/s, "
+                f"every verdict equal to the plain engine; device profile "
+                f"names K1: {report.get('profile', {}).get('k1_named')}; "
+                f"monitor {len(mon)} events, observe {len(seen)} flows; "
+                f"bugtool {len(engine_s['tensors'])} tensors; the CLI "
+                f"process {report['cli_process']}")
+
+            # -- 20d: offline replay in this process, under auto (the
+            # replay installs its JSONL log handler; this process's is
+            # put back after it)
+            TRACER.configure(enabled=True, sample_rate=1.0)
+            log_root = logging.getLogger("cilium_tpu_torch")
+            log0 = (list(log_root.handlers), log_root.level,
+                    log_root.propagate)
+            os.environ["CILIUM_TPU_CACHE_DIR"] = os.path.join(
+                tmp, "replay-cache")
+            base = ["--policy", paths["cnp.yaml"]] + (
+                [] if DEVICE == "cuda" else ["--device", DEVICE])
+            for name, _ in eps:
+                base += ["--endpoint", label_arg[name]]
+            routes = {"object": [paths["cap.bin"]],
+                      "fast": [paths["cap.bin"], "--fast"],
+                      "converted": [paths["conv.bin"]]}
+            replays = {}
+            for route, argv in routes.items():
+                if route == "fast":
+                    TRACER.clear()
+                    argv = argv + ["--trace-out", paths["trace.json"]]
+                rc, out, s = cli_call(["replay", *argv, *base])
+                summary = json.loads(out)
+                check(rc == 0 and summary["flows"] == N_FLOWS,
+                      f"[daemon] replay {route}: rc {rc} {summary}")
+                replays[route] = {"summary": summary, "s": s,
+                                  "records_per_s": N_FLOWS / s}
+            want_counts = {Verdict(v).name: c for v, c in enumerate(mix) if c}
+            for route, r in replays.items():
+                check(r["summary"]["verdicts"] == want_counts,
+                      f"[daemon] replay {route} {r['summary']['verdicts']} "
+                      f"vs the plain engine's {want_counts}")
+            with open(paths["trace.json"]) as f:
+                chunk_events = [e for e in json.load(f)["traceEvents"]
+                                if e.get("name") == "replay.chunk"]
+            chunks = -(-N_FLOWS // Config.from_env().engine.batch_size)
+            check(len(chunk_events) == chunks
+                  and len({e["args"]["chunk"] for e in chunk_events})
+                  == chunks,
+                  f"[daemon] --trace-out: {len(chunk_events)} chunk traces "
+                  f"for {chunks} chunks")
+            for h in list(log_root.handlers):
+                log_root.removeHandler(h)
+            for h in log0[0]:
+                log_root.addHandler(h)
+            log_root.setLevel(log0[1])
+            log_root.propagate = log0[2]
+            report["replay"] = {k: {"records_per_s": r["records_per_s"],
+                                    "s": r["s"]} for k, r in replays.items()}
+            report["replay"]["trace_chunks"] = len(chunk_events)
+            log(f"[daemon] replay (object / --fast / converted JSONL): "
+                + ", ".join(f"{k} {r['records_per_s']:.0f} records/s"
+                            for k, r in replays.items())
+                + f", verdicts {want_counts} in all three and the plain "
+                f"engine; --trace-out {len(chunk_events)} chunk traces")
+
+            step("replays")
+            # -- 20f: drain and warm restart
+            rc, report["drain_s"] = stop_daemon()
+            spawn_daemon("restart")
+            # -- 20e: k8s apply|get|delete against an apiserver here,
+            # while the restarted daemon comes up
+            apiserver = APIServer(socks["k8s"]).start()
+            kc = K8sClient(socks["k8s"])
+            applied = cli_json(["k8s", "apply", "--socket", socks["k8s"],
+                                "-f", paths["cnp.yaml"]], "k8s apply")
+            obj = kc.get("ciliumnetworkpolicies", "synth-http", "default")
+            check(applied[0]["name"] == "synth-http"
+                  and obj["spec"] == doc["spec"],
+                  f"[daemon] k8s apply: {applied}")
+            got_obj = cli_json(["k8s", "get", "--socket", socks["k8s"],
+                                "ciliumnetworkpolicies", "synth-http", "-n",
+                                "default"], "k8s get")
+            check(got_obj == obj, "[daemon] k8s get differs from the store")
+            cli_json(["k8s", "delete", "--socket", socks["k8s"],
+                      "ciliumnetworkpolicies", "synth-http", "-n",
+                      "default"], "k8s delete")
+            try:
+                kc.get("ciliumnetworkpolicies", "synth-http", "default")
+                gone = False
+            except NotFound:
+                gone = True
+            check(gone, "[daemon] k8s delete left the object")
+            apiserver.stop()
+            apiserver = None
+            report["k8s"] = {"applied": len(applied), "deleted": gone}
+
+            report["warm_restart_s"] = wait_daemon()
+            mr = metrics_text()
+            report["restart"] = {
+                "warm_restores": metric_value(
+                    mr, "cilium_tpu_warm_restores_total"),
+                "compiles_submitted": metric_value(
+                    mr, "cilium_tpu_compile_queue_submitted_total")}
+            eps_back = cli_json(["endpoint", "list", "--api", socks["api"]],
+                                "endpoint list")
+            # the rules come back when their source re-delivers them: the
+            # import's regeneration compiles nothing either
+            regens = metric_value(mr, "cilium_tpu_endpoint_regenerations_total")
+            cli_json(["policy", "import", paths["cnp.yaml"], "--api",
+                      socks["api"]], "policy import again")
+            t0, last = time.perf_counter(), None
+            while True:  # the regenerations ran and then held still
+                mr = metrics_text()
+                n = metric_value(mr, "cilium_tpu_endpoint_regenerations_total")
+                if n > regens and n == last:
+                    break
+                check(time.perf_counter() - t0 < 120,
+                      "[daemon] no regeneration after the re-import")
+                last = n
+                time.sleep(0.3)
+            st, _ = wait_revision(1, "the restart")
+            check(st["rules"] == 1, f"[daemon] restart status {st}")
+            report["restart"].update({
+                "endpoints": len(eps_back),
+                "engine_revision": st["engine_revision"],
+                "compiles_after_import": metric_value(
+                    mr, "cilium_tpu_compile_queue_submitted_total")})
+            check(len(eps_back) == len(eps)
+                  and report["restart"]["warm_restores"] == 1
+                  and report["restart"]["compiles_submitted"] == 0
+                  and report["restart"]["compiles_after_import"] == 0,
+                  f"[daemon] the warm restart: {report['restart']}")
+            got = stream_capture(socks["svc"], rec, l7, offsets, blob,
+                                 DAEMON_STREAM_CHUNK,
+                                 limit=DAEMON_STREAM_CHUNK)
+            check(np.array_equal(got, want[:DAEMON_STREAM_CHUNK]),
+                  "[daemon] the restarted daemon's chunk differs from the "
+                  "plain engine's")
+            rc, report["drain_again_s"] = stop_daemon()
+            step("restart")
+            log(f"[daemon] SIGTERM: drained and exited 0 in "
+                f"{report['drain_s']:.2f} s; restarted in "
+                f"{report['warm_restart_s']:.2f} s, warm "
+                f"({report['restart']}); one chunk held; exited 0 again")
+
+            # -- 20g: the cross-cluster churn leg, beta on the card
+            try:
+                xc = bench_protocols.run_crosscluster(
+                    DAEMON_XC_UPDATES, log, gate_p99=True,
+                    base_p99_ms=base_p99_ms, device=DEVICE)
+                held = True
+            except fleet.P99GateError as e:
+                xc, held = e.result, False
+            report["crosscluster"] = dict(xc, held=held)
+            log(f"[daemon] cross-cluster leg: {xc['updates']} updates, p50 "
+                f"{xc['p50_ms']:.1f} ms, p99 {xc['value']:.1f} ms beside the "
+                f"bound {xc['p99_bound_ms']:.1f} ms (2 x the 27-bank lane's "
+                f"{base_p99_ms:.1f} ms): " + ("held" if held else
+                                              "did NOT hold (a finding, "
+                                              "recorded in the daemon line)"))
+            step("crosscluster")
+            launches = _count_delta(c0)
+            variants = kd_variants()
+    finally:
+        TRACER.configure(enabled=tracer0[0], sample_rate=tracer0[1])
+        if cli_proc is not None and cli_proc.poll() is None:
+            cli_proc.kill()
+            cli_proc.wait()
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if daemon is not None and daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+        if errf is not None:
+            errf.close()
+        if apiserver is not None:
+            apiserver.stop()
+        if plain_agent is not None:
+            plain_agent.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    deadline = time.perf_counter() + 15
+    while True:
+        left = sorted(t.name for t in threading.enumerate()
+                      if t not in threads0 and t.is_alive())
+        if not left or time.perf_counter() > deadline:
+            break
+        time.sleep(0.05)
+    check(not left, f"[daemon] threads left after the phase: {left}")
+    check(launches["KD"] > 0 or DEVICE == "cpu",
+          f"[daemon] KD must launch in phase 20 (replay, beta): {launches}")
+    report["launches"] = launches
+    report["kd_variants"] = variants
+    report["wall_s"] = time.perf_counter() - t_phase
+    log(f"[daemon] launches in this process {launches} on {card}")
+    return report, launches, variants, noted
+
+
 def _count_delta(c0):
     return {k: v - c0[k] for k, v in counts().items()}
 
@@ -9127,7 +9919,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
-    """Phases 2 (its SASS checks) to 20 (see the module docstring)."""
+    """Phases 2 (its SASS checks) to 21 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     tensor_ops = sass_tensor_ops()
@@ -9337,6 +10129,21 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     cluster_report["wall_s_with_holds"] = time.perf_counter() - t19
     log(f"phase 19 wall {cluster_report['wall_s']:.1f} s "
         f"({cluster_report['wall_s_with_holds']:.1f} s with the holds)")
+    t20 = time.perf_counter()
+    log("phase 20: the daemon and the CLI — python -m "
+        "cilium_tpu_torch.daemon on the card from its TOML, the CLI over "
+        "its sockets, offline replay, capture tooling, bugtool, k8s, the "
+        "warm restart and the cross-cluster churn leg")
+    daemon_report, daemon_launches, daemon_variants, daemon_noted = \
+        daemon_phase(card, b27["p99_ms"])
+    log(f"phase 20: KD, K2 and K1 at the {len(daemon_noted)} launch shapes "
+        f"the phase staged in this process, against their plain versions")
+    daemon_report["held"] = hold_noted(errs, daemon_noted, "daemon")
+    check(daemon_report["held"]["KD"] > 0,
+          f"[daemon] no KD launch shape held: {daemon_report['held']}")
+    daemon_report["wall_s_with_holds"] = time.perf_counter() - t20
+    log(f"phase 20 wall {daemon_report['wall_s']:.1f} s "
+        f"({daemon_report['wall_s_with_holds']:.1f} s with the holds)")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -9355,6 +10162,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_launches["observe"] = observe_launches
     phase_launches["agent"] = agent_launches
     phase_launches["cluster"] = cluster_launches
+    phase_launches["daemon"] = daemon_launches
     phase_variants = {n: r["kd_variants"] for n, r in reports.items()}
     phase_variants.update({f"capture-{arm}": r["kd_variants"]
                            for arm, r in captures.items()})
@@ -9372,6 +10180,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_variants["observe"] = observe_variants
     phase_variants["agent"] = agent_variants
     phase_variants["cluster"] = cluster_variants
+    phase_variants["daemon"] = daemon_variants
     # the JSON line reports each kernel at its largest main-path shape
     pick = {"KD": "path", "K1": "host", "K2": "host"}
     kernels = []
@@ -9425,6 +10234,10 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
             # phase 19: the launch shapes of the two agents on the
             # cluster control services
             "cluster_shapes_held": cluster_report["held"].get(kid, 0),
+            # phase 20: the launch shapes of the replays and the
+            # cross-cluster leg in this process (the daemon's own
+            # launches are in its process: its device profile names them)
+            "daemon_shapes_held": daemon_report["held"].get(kid, 0),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",
@@ -9455,6 +10268,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     log("observe: " + json.dumps(observe_report))
     log("agent: " + json.dumps(agent_report))
     log("cluster: " + json.dumps(cluster_report))
+    log("daemon: " + json.dumps(daemon_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,13 @@ the flight recorder (``tracing``, which ``Agent`` hands to
 ``node_name``, ``ipam_mode``, ``identity_allocation_mode``,
 ``pod_cidr``, ``kube_apiserver_ips``, ``k8s_api_socket``,
 ``log_level``, ``monitor_aggregation``, ``configure_logging``,
-``enable_metrics``). The reference's TOML reader (``from_toml``) comes
-with the daemon (queue 1, Q13c).
+``enable_metrics``), and the reference's TOML reader (``from_toml``:
+its sections and keys, a list read as a tuple), which the daemon's
+``--config`` reads.
 
 Two deliberate deviations from the reference, each tested
-(``tests/test_torch_loader.py``):
+(``tests/test_torch_loader.py``; the first also for a TOML file that
+does not set the gate, ``tests/test_torch_daemon.py``):
 
 * ``Config.enable_tpu_offload`` defaults to **True**: the port's
   loader stages a ``TorchVerdictEngine`` on the card by default. The
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import tomllib
 from typing import Optional, Tuple
 
 
@@ -621,4 +624,41 @@ class Config:
         if "CILIUM_TPU_CANARY_MIN_SAMPLES" in env:
             cfg.canary.min_samples = int(
                 env["CILIUM_TPU_CANARY_MIN_SAMPLES"])
+        return cfg
+
+    @classmethod
+    def from_toml(cls, path: str) -> "Config":
+        """The reference's reader: root keys, then each section's keys
+        that the section's dataclass has (a list becomes a tuple). A
+        file that does not set ``enable_tpu_offload`` keeps the port's
+        default (True)."""
+        with open(path, "rb") as f:
+            data = tomllib.load(f)
+        cfg = cls()
+        cfg.enable_tpu_offload = bool(data.get("enable_tpu_offload",
+                                               cfg.enable_tpu_offload))
+        for key in ("cluster_name", "node_name", "ipam_mode", "pod_cidr",
+                    "identity_allocation_mode", "log_level",
+                    "monitor_aggregation"):
+            if key in data:
+                setattr(cfg, key, data[key])
+        if "kube_apiserver_ips" in data:
+            cfg.kube_apiserver_ips = tuple(data["kube_apiserver_ips"])
+        for section, target in (("engine", cfg.engine),
+                                ("loader", cfg.loader),
+                                ("parallel", cfg.parallel),
+                                ("breaker", cfg.breaker),
+                                ("tracing", cfg.tracing),
+                                ("admission", cfg.admission),
+                                ("compile", cfg.compile),
+                                ("serve", cfg.serve),
+                                ("slo", cfg.slo),
+                                ("provenance", cfg.provenance),
+                                ("dst", cfg.dst),
+                                ("fleet", cfg.fleet),
+                                ("tenant", cfg.tenant),
+                                ("canary", cfg.canary)):
+            for k, v in data.get(section, {}).items():
+                if hasattr(target, k):
+                    setattr(target, k, tuple(v) if isinstance(v, list) else v)
         return cfg

@@ -154,6 +154,22 @@ def capture_version(path: str) -> int:
     return int(np.frombuffer(raw, dtype=HEADER)[0]["version"])
 
 
+def write_capture_records(path: str, rec: np.ndarray) -> int:
+    """Write a v1 capture straight from a RECORD array (the columnar
+    tooling path — no Flow objects)."""
+    header = np.zeros(1, dtype=HEADER)
+    header[0] = (MAGIC, VERSION, len(rec))
+    with open(path, "wb") as fp:
+        fp.write(header.tobytes())
+        fp.write(np.ascontiguousarray(rec).tobytes())
+    return len(rec)
+
+
+def write_capture(path: str, flows: Iterable[Flow]) -> int:
+    """Write a v1 capture (base records only) of ``flows``."""
+    return write_capture_records(path, flows_to_records(flows))
+
+
 class CaptureWriter:
     """Record-batch writer: ``write_batch`` per batch of base records +
     aligned L7 rows (+ aligned GENERIC rows when ``fmax > 0``), then
@@ -242,6 +258,18 @@ def capture_field_widths(l7, offsets, cfg=None,
             cap, max(pad_multiple,
                      -(-max(longest, 1) // pad_multiple) * pad_multiple))
     return widths
+
+
+def l7_info(path: str):
+    """O(1) sidecar geometry: (n_strings, blob_bytes) from the 16-byte
+    L7 header ((0, 0) for a v1 capture)."""
+    total = capture_count(path)  # full-layout validation
+    if capture_version(path) not in (VERSION_L7, VERSION_L7G):
+        return 0, 0
+    with open(path, "rb") as fp:
+        fp.seek(HEADER.itemsize + total * RECORD.itemsize)
+        lh = np.frombuffer(fp.read(L7HEADER.itemsize), dtype=L7HEADER)[0]
+    return int(lh["n_strings"]), int(lh["blob_bytes"])
 
 
 def read_l7_sidecar(path: str):

@@ -5,13 +5,16 @@ string column. Strings are normalized here, at write time (host
 lowered, qname sanitized, headers canonically serialized, generic
 pairs key-sorted), so replay featurizes with numpy gathers only.
 
-The JSONL and protobuf readers of the reference are not part of the
-port.
+``jsonl_to_columns`` parses a JSONL capture straight into columns
+(over ``ingest/accesslog.capture_line_to_columns``), and
+``columns_from_capture`` re-opens a stored binary capture as columns:
+``capture convert`` and the columnar tooling read both.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -200,3 +203,43 @@ def tuples_to_columns(rows: List[tuple]) -> CaptureColumns:
 def flows_to_columns(flows: Iterable) -> CaptureColumns:
     """Flows → :class:`CaptureColumns` (column-major intern order)."""
     return tuples_to_columns([flow_to_column_tuple(f) for f in flows])
+
+
+def jsonl_to_columns(path: str, start: int = 0,
+                     limit: Optional[int] = None) -> CaptureColumns:
+    """Parse a JSONL capture (flowpb JSON, exporter envelopes and Envoy
+    access-log entries, freely mixed) straight into capture columns —
+    no ``Flow`` objects between the file and the arrays."""
+    from cilium_tpu_torch.ingest.accesslog import capture_line_to_columns
+
+    rows: List[tuple] = []
+    with open(path) as fp:
+        for i, line in enumerate(fp):
+            if i < start:
+                continue
+            if limit is not None and len(rows) >= limit:
+                break
+            line = line.strip()
+            if line:
+                rows.append(capture_line_to_columns(json.loads(line)))
+    return tuples_to_columns(rows)
+
+
+def columns_from_capture(path: str) -> CaptureColumns:
+    """A stored binary capture, re-opened as columns (memmapped records
+    and one sequential read a sidecar section)."""
+    from cilium_tpu_torch.ingest import binary
+
+    rec = binary.map_capture(path)
+    version = binary.capture_version(path)
+    if version not in (binary.VERSION_L7, binary.VERSION_L7G):
+        l7 = np.zeros(len(rec), dtype=L7REC)
+        offsets = np.zeros(2, dtype=np.uint32)
+        return CaptureColumns(rec=rec, l7=l7, offsets=offsets,
+                              blob=np.zeros(0, dtype=np.uint8))
+    l7, offsets, blob = binary.read_l7_sidecar(path)
+    gen = binary.read_gen_sidecar(path)
+    return CaptureColumns(rec=rec, l7=l7, offsets=offsets, blob=blob,
+                          gen=gen,
+                          fmax=(gen["pairs"].shape[1]
+                                if gen is not None else 0))

@@ -65,9 +65,10 @@ BASELINE_COMPILES_PER_UPDATE = 0.929
 
 
 class P99GateError(AssertionError):
-    """The storm's update→enforcement p99 blew ``P99_FACTOR`` × the
-    27-bank lane's p99. Raised after every other gate held; ``result``
-    is the storm's full result dict."""
+    """An update→enforcement p99 blew ``P99_FACTOR`` × the 27-bank
+    lane's p99: the storm's here, the cross-cluster leg's in
+    ``tools/bench_protocols``. Raised after every other gate held;
+    ``result`` is the run's full result dict."""
 
     def __init__(self, msg: str, result: Dict):
         super().__init__(msg)

@@ -36,9 +36,8 @@ Where the port differs from the reference:
   kernel that failed on the card;
 * the socket's listen backlog is ``SOMAXCONN``, not socketserver's 5:
   16 clients connecting at once saw ``EAGAIN`` on the H100's host;
-* ``bugtool`` answers an error naming queue 1's Q13c until
-  ``bugtool.py`` is ported; with no agent attached it answers
-  ``"no agent attached"``, as the reference does;
+* ``bugtool``'s bundle goes under ``TMPDIR`` when the request names
+  no ``out`` (the reference's default is ``/tmp``);
 * ``profile``'s device mode traces the card with ``torch.profiler``
   (``runtime/profiling.py``) and raises without CUDA.
 """
@@ -52,6 +51,7 @@ import os
 import socket
 import socketserver
 import struct
+import tempfile
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -102,11 +102,6 @@ LOG = get_logger("service")
 #: (not half-open); the operator retries the drain
 DRAIN_POINT = faults.register_point(
     "service.drain", "drain sequence in VerdictService.drain")
-
-#: the answer of the ``bugtool`` op until ``bugtool.py`` is ported
-_BUGTOOL_UNPORTED = ("bugtool: bugtool.py is not ported yet; it arrives "
-                     "with the daemon and the CLI (queue 1, Q13c)")
-
 
 def verdict_flows_padded(engine, flows: Sequence[Flow],
                          authed_pairs=None) -> List[int]:
@@ -1032,7 +1027,11 @@ class VerdictService:
         if op == "bugtool":
             if self.agent is None:
                 return {"error": "no agent attached"}
-            return {"error": _BUGTOOL_UNPORTED}
+            from cilium_tpu_torch.bugtool import collect
+
+            path = collect(self.agent, req.get("out") or tempfile.gettempdir(),
+                           archive=bool(req.get("archive", True)))
+            return {"path": path}
         if op == "close_connection":
             with self._conn_lock:
                 self._connections.pop(int(req.get("conn", -1)), None)

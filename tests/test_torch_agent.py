@@ -6,24 +6,29 @@ and what each returns is compared field for field:
 
 * ``tests/test_agent.py``: the policy lifecycle, restore, the FQDN
   answer → regeneration path, the controller manager's backoff and the
-  observer ring (``test_cli_over_socket_and_replay`` waits for the CLI,
-  queue 1's Q13c);
+  observer ring (``test_cli_over_socket_and_replay`` is held in
+  ``tests/test_torch_cli.py``);
 * ``Agent.process_flows`` at the http scenario (40 rules, 256 flows)
   with the gate on in both packages: the ten lanes bit for bit, before
   and after an auth put, the monitor's events and the annotated flows
   in the Hubble ring (``tests/test_observability.py::
-  test_agent_process_flows_feeds_monitor_and_hubble`` without its
-  bugtool bundle); the regeneration count and ``engine_revision``;
-* the ``kvstore`` identity mode; the cluster configurations (``crd``,
-  ``k8s_api_socket``, ``cluster-pool``) build, start and still default
-  to ``cuda``; what waits for queue 1's Q13c (``Config.from_toml``, the
-  ``bugtool`` op) says so;
-  without CUDA ``Agent()`` raises unless ``device="cpu"``; the auth
-  module's ``AUTH_UNENFORCED`` is the engine's own object;
+  test_agent_process_flows_feeds_monitor_and_hubble`` with its bugtool
+  bundle); the regeneration count and ``engine_revision``;
+* the ``kvstore`` identity mode; the configurations that default to
+  ``cuda`` and raise without it unless ``device="cpu"``: the cluster
+  ones (``crd``, ``k8s_api_socket``, ``cluster-pool``), which build and
+  start, an agent from ``Config.from_toml`` (equal to the reference's
+  reading of the same file) and one whose service answers the
+  ``bugtool`` op with a bundle; the auth module's ``AUTH_UNENFORCED``
+  is the engine's own object;
 * the service's agent ops (``VerdictService(agent=...)``): ``status``,
   ``policy_get``, ``verdict`` with the monitor fan-out, ``profile`` in
-  host mode, ``bugtool`` (an error naming Q13c in the port) and the LOG
-  sink on ``PolicyBridge.accesslog_fn``.
+  host mode, ``bugtool`` (the bundle's path) and the LOG sink on
+  ``PolicyBridge.accesslog_fn``;
+* the three reference tests that need nothing of the daemon or the CLI:
+  ``tests/test_accesslog_server.py``, ``tests/test_clustermesh.py::
+  test_to_services_sees_remote_backends`` (both gates) and
+  ``tests/dst/test_debounce.py::test_agent_identity_hook_is_debounced``.
 
 Stamps that are not data (socket paths, times, trace spans' times) are
 taken out before comparing. Every agent is stopped in a ``finally``;
@@ -31,6 +36,7 @@ sockets live in short ``tempfile.mkdtemp()`` directories.
 """
 
 import contextlib
+import dataclasses
 import importlib
 import os
 import shutil
@@ -471,9 +477,11 @@ def test_process_flows_monitor_events_equal():
 
 
 def test_agent_process_flows_feeds_monitor_and_hubble():
-    """``tests/test_observability.py``'s case (its bugtool bundle waits
-    for Q13c): one flow through ``process_flows`` reaches the monitor as
-    a policy-verdict event and the Hubble ring, annotated."""
+    """``tests/test_observability.py``'s case: one flow through
+    ``process_flows`` reaches the monitor as a policy-verdict event and
+    the Hubble ring, annotated, and bugtool collects a coherent bundle
+    over the agent (the same files in both packages)."""
+    import tarfile
 
     def run(P, tmp):
         agent = make_agent(P, tmp, start=False)
@@ -483,10 +491,16 @@ def test_agent_process_flows_feeds_monitor_and_hubble():
             agent.monitor.subscribe(events.append)
             flows = [flow(P, 2, agent.endpoint_manager.get(1).identity, 80)]
             out = agent.process_flows(flows)
+            path = importlib.import_module(f"{P.root}.bugtool").collect(
+                agent, tmp)
+            with tarfile.open(path) as tar:
+                names = sorted(os.path.basename(m.name)
+                               for m in tar.getmembers() if m.isfile())
             return {"lanes": sorted(out), "verdict": flows[0].verdict.name,
                     "events": [P.monitor.event_to_dict(e)["type"]
                                for e in events],
-                    "ring": len(list(agent.observer.get_flows()))}
+                    "ring": len(list(agent.observer.get_flows())),
+                    "bundle": (path.endswith(".tar.gz"), names)}
         finally:
             agent.stop()
 
@@ -494,6 +508,9 @@ def test_agent_process_flows_feeds_monitor_and_hubble():
     assert "verdict" in got["lanes"] and got["ring"] == 1
     assert "POLICY_VERDICT" in got["events"]
     assert got["verdict"] in ("FORWARDED", "DROPPED")
+    assert got["bundle"][0] and {
+        "MANIFEST.json", "status.json", "engine.json", "metrics.txt",
+        "endpoints.json"} <= set(got["bundle"][1])
 
 
 def test_kvstore_identity_mode_two_agents():
@@ -534,32 +551,55 @@ _CLUSTER_FIELDS = {
 @pytest.mark.parametrize("what", ["crd", "k8s_api_socket", "cluster-pool",
                                   "from_toml", "bugtool"])
 def test_unported_configurations_raise(what, monkeypatch):
-    """The configurations that waited for the cluster control services
-    (``crd`` identities, ``k8s_api_socket``, ``cluster-pool`` IPAM) now
-    build and start, default to ``cuda`` and raise without it unless
-    the caller names the CPU. What is still unported (queue 1's Q13c,
-    with the daemon and the CLI) says so: ``Config.from_toml`` does not
-    exist yet, and the service's ``bugtool`` op answers an error naming
-    Q13c."""
+    """The configurations that once waited for a later slice, each now
+    ported: ``crd`` identities, ``k8s_api_socket`` and ``cluster-pool``
+    IPAM build and start; ``Config.from_toml`` reads a file as the
+    reference does (equal configurations) and an agent from it starts;
+    the service's ``bugtool`` op answers with the bundle's path. Each
+    agent defaults to ``cuda`` and raises without it unless the caller
+    names the CPU."""
+    import tarfile
+
     import torch
 
     before = set(threading.enumerate())
-    if what == "from_toml":
-        assert hasattr(JAX.config.Config, "from_toml")
-        assert not hasattr(PORT.config.Config, "from_toml")
-        return
     with short_dir() as tmp:
-        if what == "bugtool":
-            agent = make_agent(PORT, tmp, start=False)
+        if what in ("from_toml", "bugtool"):
+            toml = os.path.join(tmp, "agent.toml")
+            with open(toml, "w") as f:
+                f.write('enable_tpu_offload = false\nnode_name = "n-toml"'
+                        '\n[engine]\n'
+                        'bank_size = 128\nhttp_path_buckets = [64, 128]\n'
+                        f'[loader]\ncache_dir = "{tmp}/cache"\n'
+                        '[compile]\ndeadline_s = 600.0\n')
+            cfg = PORT.config.Config.from_toml(toml)
+            ref = JAX.config.Config.from_toml(toml)
+            assert not differing(dataclasses.asdict(ref),
+                                 dataclasses.asdict(cfg))
+            cfg.configure_logging = False
+            with monkeypatch.context() as m:
+                m.setattr(torch.cuda, "is_available", lambda: False)
+                with pytest.raises(RuntimeError, match="no CUDA device"):
+                    PORT.agent.Agent(cfg)
+            agent = PORT.agent.Agent(cfg, device="cpu").start()
             try:
-                svc = PORT.service.VerdictService(
-                    agent.loader, os.path.join(tmp, "v.sock"), agent=agent)
-                got = svc.handle({"op": "bugtool",
-                                  "out": os.path.join(tmp, "bt")})
-                svc.bridge.batcher.close()
+                assert agent.device.type == "cpu"
+                assert agent.config.node_name == "n-toml"
+                assert agent.config.engine.http_path_buckets == (64, 128)
+                if what == "bugtool":
+                    svc = PORT.service.VerdictService(
+                        agent.loader, os.path.join(tmp, "v.sock"),
+                        agent=agent)
+                    got = svc.handle({"op": "bugtool",
+                                      "out": os.path.join(tmp, "bt")})
+                    svc.bridge.batcher.close()
+                    with tarfile.open(got["path"]) as tar:
+                        names = {os.path.basename(n.name)
+                                 for n in tar.getmembers()}
+                    assert "MANIFEST.json" in names
+                    assert "engine.json" in names
             finally:
                 agent.stop()
-            assert "Q13c" in got["error"]
             assert threads_settle(before) == []
             return
         kv = PORT.kvstore.KVStore()
@@ -692,8 +732,10 @@ def test_service_agent_ops_equal_reference():
     (jax_out, jax_bug), (port_out, port_bug) = res
     assert jax_out == port_out
     assert port_out["verdicts"] == [5, 2] and port_out["events"] >= 2
-    assert "path" in jax_bug
-    assert "Q13c" in port_bug["error"]
+    assert jax_bug["path"].endswith(".tar.gz")
+    assert port_bug["path"].endswith(".tar.gz")
+    assert os.path.basename(port_bug["path"]).startswith(
+        "cilium-tpu-bugtool-")
 
 
 def test_service_accesslog_sink_lands_in_observer():
@@ -716,3 +758,163 @@ def test_service_accesslog_sink_lands_in_observer():
             agent.stop()
 
     assert both(run) == [("L7", True)]
+
+
+# ================================= the reference tests that need no CLI
+def test_accesslog_records_reach_the_observer():
+    """``tests/test_accesslog_server.py``: newline-delimited access-log
+    and flowpb lines over the agent's access-log socket land in its
+    Observer ring; a malformed line is skipped, not fatal."""
+    import json
+    import socket
+
+    lines = [
+        json.dumps({"entry_type": "Request", "is_ingress": True,
+                    "source_security_id": 101,
+                    "destination_security_id": 202,
+                    "destination_address": "10.0.0.2:80",
+                    "http": {"method": "GET", "path": "/a",
+                             "host": "svc.local"}}),
+        "{not json",
+        json.dumps({"traffic_direction": "INGRESS",
+                    "verdict": "FORWARDED",
+                    "source": {"identity": 101},
+                    "destination": {"identity": 202},
+                    "l4": {"TCP": {"destination_port": 9092}},
+                    "l7": {"kafka": {"api_key": 1, "api_version": 2,
+                                     "topic": "t"}}}),
+    ]
+
+    def run(P, tmp):
+        path = os.path.join(tmp, "accesslog.sock")
+        agent = make_agent(P, tmp, accesslog_socket_path=path)
+        try:
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+                s.connect(path)
+                s.sendall(("\n".join(lines) + "\n").encode())
+            deadline = time.time() + 5
+            while time.time() < deadline and agent.observer.seen < 2:
+                time.sleep(0.02)
+            flows = list(agent.observer.get_flows())
+            http = [f for f in flows if f.l7 == P.flow.L7Type.HTTP]
+            return {"seen": agent.observer.seen,
+                    "kinds": sorted(f.l7.name for f in flows),
+                    "http": [(f.src_identity, f.dst_identity, f.dport,
+                              f.http.path) for f in http]}
+        finally:
+            agent.stop()
+
+    got = both(run)
+    assert got == {"seen": 2, "kinds": ["HTTP", "KAFKA"],
+                   "http": [(101, 202, 80, "/a")]}
+
+
+def _global_services_setup(P, tmp, beta_offload):
+    """``tests/test_clustermesh.py``'s set-up: alpha exports a shared
+    ``orders`` service; beta (its gate as given) consumes it beside its
+    own local backend."""
+    lb = importlib.import_module(f"{P.root}.loadbalancer")
+    a = make_agent(P, os.path.join(tmp, "a"),
+                   cfg_fields={"cluster_name": "alpha"})
+    b = make_agent(P, os.path.join(tmp, "b"), offload=beta_offload,
+                   cfg_fields={"cluster_name": "beta"})
+    a.endpoint_add(1, {"app": "orders"}, ipv4="10.1.0.7")
+    a.services.upsert(lb.Service(
+        frontend=lb.Frontend("10.96.1.1", 8080),
+        backends=[lb.Backend(ip="10.1.0.7", port=8080)],
+        name="orders", namespace="default", shared=True))
+    a.publisher.publish_services()
+    b.endpoint_add(9, {"app": "client"}, ipv4="10.2.0.9")
+    b.endpoint_add(10, {"app": "orders"}, ipv4="10.2.0.7")
+    b.services.upsert(lb.Service(
+        frontend=lb.Frontend("10.97.1.1", 8080),
+        backends=[lb.Backend(ip="10.2.0.7", port=8080)],
+        name="orders", namespace="default", shared=True))
+    b.clustermesh.connect("alpha", a.kvstore)
+    return a, b
+
+
+TO_SERVICES_CNP = """\
+apiVersion: cilium.io/v2
+kind: CiliumNetworkPolicy
+metadata: {name: to-global-svc}
+spec:
+  endpointSelector: {matchLabels: {app: client}}
+  egress:
+  - toServices:
+    - k8sService: {serviceName: orders, namespace: default}
+    toPorts: [{ports: [{port: "8080", protocol: TCP}]}]
+"""
+
+
+@pytest.mark.parametrize("offload", [False, True])
+def test_to_services_sees_remote_backends(offload):
+    """``tests/test_clustermesh.py::test_to_services_sees_remote_backends``:
+    a ``toServices`` rule naming a shared remote-cluster service allows
+    the remote backends (resolved through the identities the clustermesh
+    IP sync created) on both engine backends, and not an unrelated remote
+    workload or another port."""
+
+    def run(P, tmp):
+        a, b = _global_services_setup(P, tmp, offload)
+        try:
+            path = os.path.join(tmp, "to-svc.yaml")
+            with open(path, "w") as f:
+                f.write(TO_SERVICES_CNP)
+            b.policy_add_file(path)
+            client = b.endpoint_manager.get(9).identity
+            local_backend = b.endpoint_manager.get(10).identity
+            remote_backend = b.ipcache.lookup("10.1.0.7")
+            assert remote_backend is not None
+            a.endpoint_add(2, {"app": "other"}, ipv4="10.1.0.8")
+            other_remote = b.ipcache.lookup("10.1.0.8")
+            b.endpoint_manager.regenerate_all(wait=True)
+            F = P.flow
+            flows = [F.Flow(src_identity=client, dst_identity=dst,
+                            dport=port,
+                            direction=F.TrafficDirection.EGRESS)
+                     for dst, port in ((local_backend, 8080),
+                                       (remote_backend, 8080),
+                                       (other_remote, 8080),
+                                       (remote_backend, 9999))]
+            return lanes(b.loader.engine.verdict_flows(flows))
+        finally:
+            a.stop()
+            b.stop()
+
+    got = both(run)
+    assert got["verdict"] == [1, 1, 2, 2]
+
+
+def test_agent_identity_hook_is_debounced():
+    """``tests/dst/test_debounce.py::test_agent_identity_hook_is_debounced``:
+    ``_on_cluster_identity`` updates the selector cache at once and
+    routes regeneration through the debouncer — 100 identity events in
+    one window fire one regeneration, in both packages (each under its
+    own ``VirtualClock``)."""
+
+    def run(P, tmp):
+        simclock = importlib.import_module(f"{P.root}.runtime.simclock")
+        agent = make_agent(P, tmp, start=False)
+        try:
+            regen_calls = []
+            agent._identity_debounce.fire = \
+                lambda: regen_calls.append(simclock.now())
+            clk = simclock.VirtualClock(autojump=0.003)
+            with simclock.use(clk):
+                for k in range(100):
+                    agent._on_cluster_identity(
+                        10_000 + k,
+                        P.labels.LabelSet.from_dict({"storm": f"s{k}"}))
+                ev = threading.Event()
+                for _ in range(2000):
+                    if agent._identity_debounce.fires:
+                        break
+                    ev.wait(0.005)
+                return {"fires": agent._identity_debounce.fires,
+                        "regens": len(regen_calls),
+                        "cache": agent.selector_cache is not None}
+        finally:
+            agent.stop()
+
+    assert both(run) == {"fires": 1, "regens": 1, "cache": True}

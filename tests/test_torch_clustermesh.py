@@ -1,8 +1,8 @@
 """The port's clustermesh (``clustermesh.py``) against the JAX
 package's, on the CPU, mirroring ``tests/test_clustermesh.py``.
 
-The reference drives clustermesh through two live ``Agent``\\ s; the
-port has no agent yet, so each case wires the parts an agent wires —
+The reference drives clustermesh through two live ``Agent``\\ s; each
+case here wires the parts an agent wires —
 an ``IdentityAllocator``, an ``IPCache``, a ``KVStore``, a
 ``LocalStatePublisher`` and a ``ClusterMesh`` per cluster, and a
 ``ServiceManager`` where services take part — in both packages, drives
@@ -15,9 +15,9 @@ The controller-manager cases
 (``test_controller_manager_restartable_after_stop_all``,
 ``test_update_racing_stop_all_does_not_leak_controller``) and
 ``test_global_services_across_processes`` (over the served kvstore) are
-held in ``tests/test_torch_k8s_agent.py``. Left out, with the module it
-needs: ``test_to_services_sees_remote_backends`` (the agent's
-``toServices`` regeneration, queue 1's Q13c).
+held in ``tests/test_torch_k8s_agent.py``, and
+``test_to_services_sees_remote_backends`` (the agent's ``toServices``
+regeneration, both gates) in ``tests/test_torch_agent.py``.
 """
 
 import importlib

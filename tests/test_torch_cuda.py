@@ -30,7 +30,11 @@ sequence on the card, its annotated flows, events and exported lines
 equal to the plain path's. The agent plane on the card, alone and as
 two agents on the cluster control services (a served kvstore and
 apiserver, the operator, ``crd`` identities, a CNP through the
-apiserver), each node's lanes equal to the plain engine's.
+apiserver), each node's lanes equal to the plain engine's. The daemon
+as a process on the card (``python -m cilium_tpu_torch.daemon`` from a
+TOML, no ``--device``): endpoints and a CNP through the CLI, and
+``capture stream`` through its socket equal, record for record, to a
+plain engine of the same policy.
 """
 
 import numpy as np
@@ -1269,3 +1273,106 @@ def test_two_agents_on_the_cluster_services_equal_plain(cuda, tmp_path):
         op_kv.close()
         kv.stop()
         shutil.rmtree(short, ignore_errors=True)
+
+
+def test_daemon_process_on_card_stream_equals_plain(cuda):
+    """``python -m cilium_tpu_torch.daemon --config`` on the card (its
+    device the default, ``cuda``; ``nfa-bitset`` from the TOML): the
+    http scenario's two endpoints and its rule as a CNP file through the
+    CLI, ``capture synth`` and ``capture stream`` of 2048 records
+    through its verdict socket; the summary's counts and every record's
+    verdict (the port's ``StreamClient``) equal a plain engine
+    (``device="cpu"``) of the same policy; SIGTERM → rc 0."""
+    import contextlib
+    import io
+    import json
+    import os
+    import shutil
+    import signal
+    import subprocess
+    import sys
+    import tempfile
+    import time
+
+    from cilium_tpu_torch import cli
+    from cilium_tpu_torch.agent import Agent
+    from cilium_tpu_torch.core.config import Config
+    from cilium_tpu_torch.ingest import binary
+    from cilium_tpu_torch.runtime.stream import StreamClient
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def run(*argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([str(a) for a in argv])
+        assert rc == 0, buf.getvalue()[-500:]
+        return json.loads(buf.getvalue())
+
+    sc = synth.synth_http_scenario(40, 2048)
+    tmp = tempfile.mkdtemp(prefix="t20")  # socket paths < 108 bytes
+    socks = {k: f"{tmp}/{k}.sock" for k in ("svc", "api")}
+    with open(f"{tmp}/d.toml", "w") as f:
+        f.write('[engine]\nkernel_impl = "nfa-bitset"\nbank_size = 128\n'
+                f'[loader]\ncache_dir = "{tmp}/cache"\n')
+    with open(f"{tmp}/cnp.yaml", "w") as f:
+        json.dump(synth.http_rule_cnp(sc.rules[0], "synth-http"), f)
+    err = open(f"{tmp}/d.err", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cilium_tpu_torch.daemon", "--config",
+         f"{tmp}/d.toml", "--socket", socks["svc"], "--api-socket",
+         socks["api"]], cwd=repo, stdout=subprocess.DEVNULL, stderr=err)
+    plain_agent = None
+    try:
+        deadline = time.monotonic() + 120
+        while not all(os.path.exists(p) for p in socks.values()):
+            assert proc.poll() is None and time.monotonic() < deadline, (
+                err.seek(0), err.read()[-2000:])
+            time.sleep(0.02)
+        for i, (name, lbls) in enumerate(sc.endpoints.items(), start=1):
+            run("endpoint", "add", i, "--labels",
+                ",".join(f"{k}={v}" for k, v in lbls.items()), "--api",
+                socks["api"])
+        rev = run("policy", "import", f"{tmp}/cnp.yaml", "--api",
+                  socks["api"])["revision"]
+        while run("status", "--socket", socks["svc"])[
+                "engine_revision"] < rev:
+            assert time.monotonic() < deadline
+            time.sleep(0.02)
+        cap = f"{tmp}/cap.bin"
+        run("capture", "synth", cap, "--scenario", "http", "--rules", 40,
+            "--flows", 2048)
+        info = run("capture", "stream", cap, "--socket", socks["svc"],
+                   "--chunk", 1024)
+        rec = binary.map_capture(cap)
+        l7, offsets, blob = binary.read_l7_sidecar(cap)
+        client = StreamClient(socks["svc"],
+                              widths=binary.capture_field_widths(l7, offsets))
+        for i in range(0, len(rec), 1024):
+            client.send_image(binary.sections_to_bytes(
+                np.asarray(rec[i:i + 1024]), l7[i:i + 1024], offsets, blob))
+        client.finish()
+        got = np.concatenate([v for _, v in client.results()])
+        client.close()
+        cfg = Config.from_toml(f"{tmp}/d.toml")
+        cfg.configure_logging = False
+        cfg.loader.cache_dir = f"{tmp}/plain-cache"
+        plain_agent = Agent(cfg, device="cpu")
+        for i, lbls in enumerate(sc.endpoints.values(), start=1):
+            plain_agent.endpoint_add(i, lbls)
+        plain_agent.policy_add_file(f"{tmp}/cnp.yaml")
+        want = plain_agent.loader.engine.verdict_l7_records(
+            np.asarray(rec), l7, offsets, blob)["verdict"]
+        np.testing.assert_array_equal(got, want)
+        assert info["verdicts"] == np.bincount(want, minlength=6).tolist()
+        assert info["errors"] == 0 and not info["truncated"]
+        assert len(set(want.tolist())) > 1
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        err.close()
+        if plain_agent is not None:
+            plain_agent.stop()
+        shutil.rmtree(tmp, ignore_errors=True)

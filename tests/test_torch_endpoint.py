@@ -4,7 +4,7 @@ the health mesh.
 
 Mirrors ``tests/test_ipam.py``, ``tests/test_proxy_manager.py``,
 ``tests/test_auth_mode.py`` (the CLI case over REST, as the CLI calls
-it; the CLI itself waits for queue 1's Q13c) and
+it; the CLI itself is held in ``tests/test_torch_cli.py``) and
 ``tests/test_health_mesh.py`` (two agents over one kvstore), each case
 run through both packages and compared: endpoint JSON, IPAM state,
 redirect tables, ``pairs_array`` tables, verdict lanes on both engines

@@ -140,7 +140,10 @@ _EXPECTED = ("cilium_tpu_torch.clustermesh",
              "cilium_tpu_torch.k8s.informer",
              "cilium_tpu_torch.k8s.identity_crd",
              "cilium_tpu_torch.k8s.ces",
-             "cilium_tpu_torch.k8s.agent_bridge")
+             "cilium_tpu_torch.k8s.agent_bridge",
+             "cilium_tpu_torch.daemon",
+             "cilium_tpu_torch.cli",
+             "cilium_tpu_torch.bugtool")
 
 #: the observability and ingest plane's modules
 _OBSERVE = tuple(m for m in _EXPECTED
@@ -389,7 +392,8 @@ _AGENT = tuple(m for m in _EXPECTED if m in (
     "cilium_tpu_torch.proxy_manager", "cilium_tpu_torch.runtime.advertise",
     "cilium_tpu_torch.runtime.api", "cilium_tpu_torch.runtime.controller",
     "cilium_tpu_torch.runtime.profiling",
-    "cilium_tpu_torch.runtime.watcher"))
+    "cilium_tpu_torch.runtime.watcher", "cilium_tpu_torch.daemon",
+    "cilium_tpu_torch.cli", "cilium_tpu_torch.bugtool"))
 
 
 @pytest.mark.parametrize("module", _AGENT)
@@ -474,6 +478,34 @@ def test_control_plane_mains_start_no_jax_and_no_cuda(module):
         f"importlib.import_module({module!r})\n"
         "import cilium_tpu_torch.kvstore_service, "
         "cilium_tpu_torch.runtime.logging\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith(('jax.', 'jaxlib', 'yaml', 'cilium_tpu.')) or "
+        "m == 'cilium_tpu')\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", ["cilium_tpu_torch.daemon",
+                                    "cilium_tpu_torch.cli"])
+def test_daemon_and_cli_mains_help_and_import_no_cuda(module):
+    """``python -m <module> --help`` exits 0; importing the daemon or
+    the CLI, with the service client the CLI uses, loads no JAX, nothing
+    of the JAX package and no ``yaml``, and initialises no CUDA context
+    (a CLI process beside the daemon never holds the card)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-m", module, "--help"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0 and "usage" in r.stdout, r.stderr[-2000:]
+    code = (
+        "import importlib, sys, torch\n"
+        f"importlib.import_module({module!r})\n"
+        "import cilium_tpu_torch.runtime.service, "
+        "cilium_tpu_torch.runtime.api, cilium_tpu_torch.monitor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'yaml', 'cilium_tpu.')) or "
         "m == 'cilium_tpu')\n"
