@@ -476,7 +476,28 @@ but for 15 and 14, which run, in that order, inside phase 10:
    or ``ERROR`` verdicts end the run). Launches in this process are
    noted and held (``daemon_shapes_held``); a ``daemon: {...}`` line
    carries the numbers;
-21. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+21. ctlint on the card's host and against the card: (a) ``python -m
+   cilium_tpu_torch.analysis --format json --out
+   chiprun_out/ctlint_torch.json --wall-budget-ms 40000`` as a process,
+   rc 0 and no finding (its allowlisted count, each rule family's time
+   and the wall printed); (b) the precommit face, ``python -m
+   cilium_tpu_torch.cli lint --rule thread-safety --rule implicit-sync
+   --rule hot-loop-h2d --rule readback-ordering --rule
+   missing-donation`` (no ``--changed-only``: the checkout is an
+   archive), rc 0 — both processes run beside (c) and (d); (c)
+   ``pallas-block-shape``'s Hopper limits (warp, threads per block,
+   opt-in shared memory per block) and KD's ``SMEM_MAX`` against the
+   card's own properties, equal; (d) each of ``implicit-sync``'s named
+   hot roots run once, warm, under ``torch.cuda.set_sync_debug_mode
+   ("warn")`` — the fused step, ``ServeLoop.step`` with the
+   ``VerdictRing.pack``, ``IncrementalSession.serve_ids`` and
+   ``ServedPack.host`` it runs, ``CaptureReplay.verdict_chunk`` and
+   ``DNSProxy.check_batch``: the synchronizing calls torch reports in
+   each, beside the sync sites the rule's walk of that root sees and its
+   findings; a sync at a site the rule does not see is printed as a
+   miss (reported, not gated). A ``lint: {...}`` line carries the
+   numbers;
+22. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -9112,6 +9133,16 @@ def cluster_phase(card):
     return report, launches, variants, noted
 
 
+#: phase 21: the lint's wall budget (CTLINT.json's), the precommit
+#: face's rules, and the records each hot root serves in its run
+LINT_WALL_BUDGET_MS = 40000
+LINT_PRECOMMIT = ("thread-safety", "implicit-sync", "hot-loop-h2d",
+                  "readback-ordering", "missing-donation")
+LINT_RECORDS = 4096
+#: libcuda's attribute ids (cuda.h CUdevice_attribute)
+CU_ATTR = {"max_threads_per_block": 1, "warp_size": 10,
+           "max_shared_memory_per_block_optin": 97}
+
 #: phase 20: timed calls a CLI command against the live daemon, the
 #: capture stream's chunk, the cross-cluster leg's updates (the
 #: reference's 50), the flows of the bulk verdict the observer and the
@@ -9879,6 +9910,270 @@ def kd_variants():
     return dict(_build.KERNELS["KD"].launches_by_variant)
 
 
+def device_attributes():
+    """The card's launch limits: torch's device properties where it has
+    the field, else libcuda's ``cuDeviceGetAttribute``."""
+    import ctypes
+
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    torch_names = {"max_threads_per_block": "max_threads_per_block",
+                   "warp_size": "warp_size",
+                   "max_shared_memory_per_block_optin":
+                       "shared_memory_per_block_optin"}
+    out, source = {}, {}
+    cu = None
+    for key, attr in CU_ATTR.items():
+        v = getattr(props, torch_names[key], None)
+        if v is not None:
+            out[key], source[key] = int(v), "torch"
+            continue
+        if cu is None:
+            cu = ctypes.CDLL("libcuda.so.1")
+            check(cu.cuInit(0) == 0, "cuInit failed")
+        dev, val = ctypes.c_int(), ctypes.c_int()
+        check(cu.cuDeviceGet(ctypes.byref(dev), 0) == 0,
+              "cuDeviceGet failed")
+        check(cu.cuDeviceGetAttribute(ctypes.byref(val), attr, dev) == 0,
+              f"cuDeviceGetAttribute({key}) failed")
+        out[key], source[key] = val.value, "libcuda"
+    return out, source
+
+
+class SyncLog:
+    """Synchronizing calls torch reports (``set_sync_debug_mode("warn")``)
+    while wrapped methods run: each method's calls get the slice of the
+    warnings recorded between its entry and its return (a method that
+    calls another counts the callee's too)."""
+
+    def __init__(self):
+        self.caught = []
+        self.calls = {}
+        self._patched = []
+
+    def wrap(self, owner, name, label):
+        orig = getattr(owner, name)
+        log_ = self
+
+        def wrapped(*a, **kw):
+            i = len(log_.caught)
+            try:
+                return orig(*a, **kw)
+            finally:
+                log_.calls.setdefault(label, []).append(log_.caught[i:])
+
+        setattr(owner, name, wrapped)
+        self._patched.append((owner, name, orig))
+
+    @contextlib.contextmanager
+    def recording(self):
+        import torch
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            self.caught = caught
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield self
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                for owner, name, orig in reversed(self._patched):
+                    setattr(owner, name, orig)
+
+    def syncs(self, label):
+        """(number of calls, the sync sites ``path:line`` of all of
+        them, one per synchronizing call)."""
+        here = os.path.dirname(os.path.abspath(__file__))
+        calls = self.calls.get(label, [])
+        sites = [f"{os.path.relpath(w.filename, here)}:{w.lineno}"
+                 for ws in calls for w in ws
+                 if "synchroniz" in str(w.message)]
+        return len(calls), sites
+
+
+def start_lint():
+    """21a and 21b as processes (they use the host only)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=here)
+    full = subprocess.Popen(
+        [sys.executable, "-m", "cilium_tpu_torch.analysis", "--format",
+         "json", "--out", os.path.join(out, "ctlint_torch.json"),
+         "--wall-budget-ms", str(LINT_WALL_BUDGET_MS)],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    pre = subprocess.Popen(
+        [sys.executable, "-m", "cilium_tpu_torch.cli", "lint"]
+        + [a for r in LINT_PRECOMMIT for a in ("--rule", r)],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return time.perf_counter(), full, pre
+
+
+def seen_covers(seen, site):
+    """Does a rule site ``path:first-last what`` hold ``path:line``?"""
+    where = seen.split(" ")[0]
+    path, _, span = where.rpartition(":")
+    first, _, last = span.partition("-")
+    spath, _, sline = site.rpartition(":")
+    return spath == path and int(first) <= int(sline) <= int(last or first)
+
+
+def lint_hot_roots(setup, caps, cfg, flows, card):
+    """21d: each named hot root once, warm, under the sync debug mode."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.analysis import devicedataflow as dd
+    from cilium_tpu_torch.analysis.core import ProjectIndex
+    from cilium_tpu_torch.engine import attribution, replay, ring, session
+    from cilium_tpu_torch.engine.replay import CaptureReplay
+    from cilium_tpu_torch.fqdn import dnsproxy
+    from cilium_tpu_torch.fqdn.dnsproxy import DNSProxy
+    from cilium_tpu_torch.policy.api import load_cnp_dir
+    from cilium_tpu_torch.runtime import serveloop
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    index, _ = ProjectIndex.from_tree(here, ("cilium_tpu_torch",))
+    rule = dd.named_root_syncs(index)
+    engine = setup["engine"]
+    batch = setup["batches"][0]
+    rec, l7, offsets, blob = caps["low"]["sections"]
+    n = LINT_RECORDS
+    # the roots' inputs, staged before anything is recorded
+    cap = CaptureReplay(engine, l7, offsets, blob, cfg)
+    cap.stage_rows(rec, l7)
+    cap.stage_unique(cfg.stage_unique_drop_ratio)
+    cap.stage_unique_device()
+    cap.stage_verdict_memo()
+    chunks = [chunk_sections(flows[s:s + SERVE_CHUNK])
+              for s in range(0, n, SERVE_CHUNK)]
+    loop, leases = serve_loop(engine, provenance=True)
+    rules = dns_rules_of([r for cnp in load_cnp_dir(corpus_dir())
+                          for r in cnp.rules], {"app": "crawler"})
+    proxy = DNSProxy(use_tpu=True, device=DEVICE)
+    proxy.update_allowed(1, DNS_PORT, rules)
+    qnames = [f"host{i}.example.com" for i in range(n)]
+
+    def serve_pass():
+        for k, sec in enumerate(chunks):
+            loop.submit(leases[k % SERVE_STREAMS], *sec)
+        while loop.step():
+            pass
+
+    passes = {
+        "fused_verdict_step": lambda: engine.verdict_batch_arrays(batch),
+        "ServeLoop.step": serve_pass,
+        "CaptureReplay.verdict_chunk":
+            lambda: cap.verdict_chunk(rec[:n], l7[:n], start=0),
+        "DNSProxy.check_batch":
+            lambda: proxy.check_batch(1, DNS_PORT, qnames),
+    }
+    for fn in passes.values():      # warm: every root once unrecorded
+        fn()
+    torch.cuda.synchronize()
+    log_ = SyncLog()
+    for owner, name, label in (
+            (ring.VerdictRing, "pack", "VerdictRing.pack"),
+            (session.IncrementalSession, "serve_ids",
+             "IncrementalSession.serve_ids"),
+            (attribution.ServedPack, "host", "ServedPack.host"),
+            (serveloop.ServeLoop, "step", "ServeLoop.step"),
+            (replay.CaptureReplay, "verdict_chunk",
+             "CaptureReplay.verdict_chunk"),
+            (dnsproxy.DNSProxy, "check_batch", "DNSProxy.check_batch")):
+        log_.wrap(owner, name, label)
+    log_.wrap(engine, "_step", "fused_verdict_step")
+    with log_.recording():
+        for fn in passes.values():
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    every_seen = [w for r in rule.values() for w in r["seen"]]
+    for label_rule, r in sorted(rule.items()):
+        label = label_rule.rsplit("::", 1)[1]
+        calls, sites = log_.syncs(label)
+        # a sync in a callee that is a root of its own (the pack's
+        # serve_ids and ServedPack.host) is that root's walk's to see
+        elsewhere = sorted({x for x in sites if not any(
+            seen_covers(w, x) for w in r["seen"]) and any(
+            seen_covers(w, x) for w in every_seen)})
+        misses = sorted({x for x in sites if not any(
+            seen_covers(w, x) for w in every_seen)})
+        out[label] = {"calls": calls, "syncs": len(sites),
+                      "sync_sites": sorted(set(sites)),
+                      "rule_seen": r["seen"], "rule_findings": r["findings"],
+                      "seen_by_another_root": elsewhere, "misses": misses}
+        log(f"[lint sync] {label}: {len(sites)} synchronizing calls in "
+            f"its {calls} call(s) on {card} at "
+            f"{sorted(set(sites))}; the rule's walk sees {r['seen']}, its "
+            f"findings {r['findings']}; seen by another root's walk "
+            f"{elsewhere}; not seen by the rule: {misses}")
+    check(all(v["calls"] > 0 for v in out.values()),
+          f"[lint sync] a hot root never ran: "
+          f"{ {k: v['calls'] for k, v in out.items()} }")
+    return out
+
+
+def lint_phase(started, setup, caps, cfg, flows, card):
+    """Phase 21 (see the module docstring): the lint processes started by
+    :func:`start_lint` run while 21c and 21d use the card."""
+    import torch
+
+    from cilium_tpu_torch.analysis import pallas_shapes
+    from cilium_tpu_torch.engine import dfa_dense_cuda
+
+    t0, full, pre = started
+    report = {}
+    # 21c: the Hopper launch limits against the card
+    attrs, source = device_attributes()
+    want = {"warp_size": pallas_shapes.WARP,
+            "max_threads_per_block": pallas_shapes.MAX_THREADS,
+            "max_shared_memory_per_block_optin": pallas_shapes.SMEM_OPTIN}
+    report["device"] = {"card": attrs, "source": source, "rule": want,
+                        "SMEM_MAX": dfa_dense_cuda.SMEM_MAX}
+    log(f"[lint hopper] the card reports {attrs} ({source}); the rule's "
+        f"limits {want}, KD's SMEM_MAX {dfa_dense_cuda.SMEM_MAX} on {card}")
+    check(attrs == want and dfa_dense_cuda.SMEM_MAX ==
+          attrs["max_shared_memory_per_block_optin"],
+          f"[lint hopper] the rule's limits {want} / SMEM_MAX "
+          f"{dfa_dense_cuda.SMEM_MAX} differ from the card's {attrs}")
+    # 21d: the named hot roots under the sync debug mode
+    report["syncs"] = lint_hot_roots(setup, caps, cfg, flows, card)
+    torch.cuda.synchronize()
+    # 21a, 21b: the processes
+    out, err = full.communicate(timeout=600)
+    check(full.returncode == 0,
+          f"[lint] python -m cilium_tpu_torch.analysis rc "
+          f"{full.returncode}: {out[-2000:]} {err[-2000:]}")
+    body = json.loads(out)
+    check(body["count"] == 0 and body["schema_version"] == 4,
+          f"[lint] {body['count']} findings: {body['findings'][:5]}")
+    full_s = time.perf_counter() - t0
+    pout, perr = pre.communicate(timeout=600)
+    check(pre.returncode == 0,
+          f"[lint] the precommit face rc {pre.returncode}: "
+          f"{pout[-2000:]} {perr[-2000:]}")
+    report["lint"] = {"rc": full.returncode, "count": body["count"],
+                      "suppressed": body["suppressed"],
+                      "wall_ms": body["timings_ms"]["wall"],
+                      "timings_ms": body["timings_ms"],
+                      "process_s": full_s}
+    report["precommit"] = {"rc": pre.returncode,
+                           "summary": pout.strip().splitlines()[-1],
+                           "process_s": time.perf_counter() - t0}
+    log(f"[lint] python -m cilium_tpu_torch.analysis: rc 0, "
+        f"{body['count']} findings, {body['suppressed']} allowlisted, wall "
+        f"{body['timings_ms']['wall']:.0f} ms of the "
+        f"{LINT_WALL_BUDGET_MS} ms budget ({full_s:.1f} s as a process, "
+        f"beside 21c/21d); by family {body['timings_ms']}")
+    log(f"[lint precommit] cli lint {' '.join(LINT_PRECOMMIT)}: rc 0, "
+        f"{report['precommit']['summary']}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -9919,7 +10214,7 @@ def main() -> int:
 
 
 def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
-    """Phases 2 (its SASS checks) to 21 (see the module docstring)."""
+    """Phases 2 (its SASS checks) to 22 (see the module docstring)."""
     from cilium_tpu_torch.engine import _build
 
     tensor_ops = sass_tensor_ops()
@@ -10144,6 +10439,14 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     daemon_report["wall_s_with_holds"] = time.perf_counter() - t20
     log(f"phase 20 wall {daemon_report['wall_s']:.1f} s "
         f"({daemon_report['wall_s_with_holds']:.1f} s with the holds)")
+    t21 = time.perf_counter()
+    log("phase 21: ctlint — the port's lint and its precommit face as "
+        "processes on the card's host, the Hopper launch limits against "
+        "the card, the named hot roots under the sync debug mode")
+    lint_report = lint_phase(start_lint(), setups["auto"], caps, cfg,
+                             scenario.flows, card)
+    lint_report["wall_s"] = time.perf_counter() - t21
+    log(f"phase 21 wall {lint_report['wall_s']:.1f} s")
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -10269,6 +10572,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     log("agent: " + json.dumps(agent_report))
     log("cluster: " + json.dumps(cluster_report))
     log("daemon: " + json.dumps(daemon_report))
+    log("lint: " + json.dumps(lint_report))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+# ctlint: disable=unused-import  # re-export: the reference defines AUTH_UNENFORCED in auth.py, and the port's callers (cli.py) import the engine's own object from here
 from cilium_tpu_torch.engine.verdict import AUTH_UNENFORCED  # noqa: F401
 from cilium_tpu_torch.runtime import simclock
 from cilium_tpu_torch.runtime.metrics import METRICS

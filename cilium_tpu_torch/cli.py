@@ -783,17 +783,29 @@ def cmd_bugtool(args) -> int:
     return 0
 
 
-#: the answer of ``lint`` until the analysis package is ported
-LINT_UNPORTED = ("lint: the ctlint analysis package is not ported yet; "
-                 "it arrives with queue 1's Q12b")
-
-
 def cmd_lint(args) -> int:
-    """ctlint (the `make lint` gate as a subcommand): registered with
-    the reference's arguments; until queue 1's Q12b ports the analysis
-    package it prints an error naming Q12b and exits 2."""
-    print(f"error: {LINT_UNPORTED}", file=sys.stderr)
-    return 2
+    """ctlint: the `make lint` gate as a subcommand, over the port's
+    tree by default (exit 1 on any non-allowlisted finding, 2 on an
+    unknown rule)."""
+    from cilium_tpu_torch.analysis import run_cli
+
+    argv: List[str] = list(args.targets or [])
+    argv += ["--format", args.format]
+    if args.root:
+        argv += ["--root", args.root]
+    if args.rules:
+        argv += ["--rules", args.rules]
+    for rule in args.rule or ():
+        argv += ["--rule", rule]
+    if args.changed_only:
+        argv += ["--changed-only"]
+    if args.out:
+        argv += ["--out", args.out]
+    if args.wall_budget_ms is not None:
+        argv += ["--wall-budget-ms", str(args.wall_budget_ms)]
+    if args.list_rules:
+        argv += ["--list-rules"]
+    return run_cli(argv)
 
 
 def cmd_perf_report(args) -> int:

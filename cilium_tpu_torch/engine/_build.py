@@ -139,6 +139,7 @@ class Kernel:
         ``variant`` names which of the kernel's variants the arguments
         launch, for :attr:`launches_by_variant`."""
         if self._fn is None:
+            # ctlint: disable=jit-purity  # the first launch loads the library once (double-checked); later launches never take this branch
             with self._lock:
                 if self._fn is None:
                     self._load()
@@ -147,6 +148,7 @@ class Kernel:
             msg = self._lib.ct_error_string(rc).decode()
             raise KernelError(f"{self.name} kernel launch failed: "
                                f"{msg} (cudaError {rc})")
+        # ctlint: disable=jit-purity  # keeps the launch counts exact across the launching threads; taken after the C call has queued the kernel, never around it
         with self._lock:
             self.launches += 1
             if variant is not None:

@@ -672,6 +672,7 @@ def autotune_cache_adopt(snap: Optional[Dict]) -> None:
         except (ValueError, SyntaxError):
             continue  # foreign snapshot entry: skip, never crash
         if isinstance(key, tuple):
+            # ctlint: disable=unbounded-registry  # keyed by bucketed bank shape x backend (finite)
             _AUTOTUNE_CACHE.setdefault(key, dict(v))
 
 

@@ -278,6 +278,13 @@ def auth_signature(authed_pairs) -> Optional[str]:
     return hashlib.sha1(a.tobytes()).hexdigest()
 
 
+#: every memo invalidation reason (``cilium_tpu_verdict_memo_
+#: invalidations_total{reason=...}``), the reference's tuple: the
+#: canonical registry ctlint's ``obs-doc-parity`` reason-label check
+#: holds docs/OBSERVABILITY.md to
+INVALIDATION_REASONS = ("policy-swap", "auth-change", "session-reset",
+                        "bank-swap", "no-change")
+
 #: column order of the packed [N, 10] int32 memo table — every output
 #: lane of the verdict step (bool lanes stored as 0/1)
 MEMO_COLS = ("verdict", "match_spec", "ruleset", "allowed",

@@ -43,6 +43,7 @@ def nfa_finals_plain(follow, acc_cls, byteclass, start, data, lengths):
                     torch.zeros((), device=dev))
     fol = follow.float()
     for t in range(1, L):
+        # ctlint: disable=pallas-block-shape  # exact under TF32 too: both operands are 0/1 (the live set, the follow relation), which TF32 holds exactly, and the float32 accumulator counts at most P
         pre = torch.bmm(v, fol)
         nxt = (pre > 0).float() * acc_t[nb, cls[:, :, t]]
         v = torch.where(t < lens, nxt, v)

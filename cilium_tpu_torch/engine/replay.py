@@ -33,6 +33,7 @@ from cilium_tpu_torch.engine.compiled import (
 )
 from cilium_tpu_torch.engine.verdict import (
     TorchVerdictEngine,
+    host_lanes,
     stage_capture_tables,
     verdict_step_capture,
 )
@@ -380,7 +381,7 @@ class CaptureReplay:
             nxt = self.row_idx[start + n:start + 2 * n]
             if len(nxt):
                 self.prefetch_idx(nxt, start + n)
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            return host_lanes(out)
         if self.rows_all is not None:
             rows = self.rows_all[start:start + n]
             if len(rows) != n:
@@ -393,4 +394,4 @@ class CaptureReplay:
                         if self.feat.gen_rows is not None else None)
             rows = self.feat.encode_rows(rec, l7, gen_rows=gen_rows)
         out = self.verdict_rows(rows, authed_pairs)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return host_lanes(out)

@@ -539,6 +539,39 @@ def batch_to_device(host: Dict[str, np.ndarray], device
             for k, v in host.items()}
 
 
+#: float lanes travel as their bits: an int of the same width
+_LANE_BITS = {torch.float16: torch.int16, torch.float32: torch.int32,
+              torch.float64: torch.int64}
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def host_lanes(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A step's output lanes as host numpy in ONE device→host copy, the
+    counterpart of the reference's ``jax.device_get(out)``: every lane
+    (float lanes as their bits) widened to int64 and concatenated, read
+    back once, then split and cast back to each lane's dtype, exactly.
+    A per-lane ``.cpu()`` would wait on the card once per lane."""
+    items = list(out.items())
+    if len(items) == 0:
+        return {}
+    words = [v.view(_LANE_BITS[v.dtype]) if v.dtype in _LANE_BITS else v
+             for _, v in items]
+    flat = torch.cat([w.reshape(-1).to(torch.int64)
+                      for w in words]).cpu().numpy()
+    res: Dict[str, np.ndarray] = {}
+    off = 0
+    for (k, v), w in zip(items, words):
+        part = flat[off:off + v.numel()].reshape(tuple(v.shape))
+        off += v.numel()
+        part = part.astype(_np_dtype(w.dtype))
+        res[k] = part.view(_np_dtype(v.dtype)) if v.dtype in _LANE_BITS \
+            else part
+    return res
+
+
 # ------------------------------------------------------------------ engine
 class TorchVerdictEngine:
     """A compiled policy staged on a device, with its verdict step: the
@@ -622,7 +655,7 @@ class TorchVerdictEngine:
         out = self.verdict_batch_arrays(batch)
         if outputs is not None:
             out = {k: out[k] for k in outputs}
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return host_lanes(out)
 
     def verdict_flows(self, flows: Sequence[Flow],
                       cfg: Optional[EngineConfig] = None,

@@ -332,6 +332,7 @@ class CompileQueue:
             next_gate = None
             # wall-clock read is the gate's REAL release valve, by
             # design (see CompileTask.not_before_real)
+            # ctlint: disable=wall-clock  # real release valve for virtual-gated retries
             real_now = time.monotonic()
             for t in self._pending:
                 if t.not_before > now and t.not_before_real > real_now:
@@ -351,6 +352,7 @@ class CompileQueue:
                 floor = min(self._vtime.values(), default=0.0)
                 vt = max(self._vtime.get(best.tenant, floor), floor)
                 weight = max(self.weight_of(best.tenant), 1e-9)
+                # ctlint: disable=unbounded-registry  # keyed by configured tenant set
                 self._vtime[best.tenant] = vt + 1.0 / weight
                 return best
             if self._draining and not self._pending:
@@ -407,6 +409,7 @@ class CompileQueue:
         self._running -= 1
         backoff = self._backoff(task)
         task.not_before = simclock.now() + backoff
+        # ctlint: disable=wall-clock  # real release valve for virtual-gated retries
         task.not_before_real = time.monotonic() + backoff
         self._pending.append(task)
         self.retries += 1

@@ -183,7 +183,9 @@ def register_frontend(fe: ProtocolFrontend) -> ProtocolFrontend:
         raise ValueError(
             f"frontend {spec.name!r}: family {spec.family} already "
             f"claimed by {prev!r}")
+    # ctlint: disable=unbounded-registry  # import-time frontend registrations (one per frontend module)
     _FRONTENDS[spec.name] = fe
+    # ctlint: disable=unbounded-registry  # bounded by MAX_FAMILY (3-bit provenance family field)
     _FAMILY_NAMES[spec.family] = spec.name
     return fe
 
@@ -191,6 +193,7 @@ def register_frontend(fe: ProtocolFrontend) -> ProtocolFrontend:
 def register_proxy_parser(name: str) -> None:
     """Record a proxylib parser name in the unified registry (called by
     ``proxylib.parser.register_parser``)."""
+    # ctlint: disable=unbounded-registry  # import-time parser registrations (one per proxylib module)
     _PROXY_PARSERS.add(name)
 
 

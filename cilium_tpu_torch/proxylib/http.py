@@ -132,4 +132,4 @@ class HTTPParser(Parser):
         return _DENY_RESPONSE
 
 
-register_parser("http", HTTPParser)
+register_parser("http", HTTPParser)  # ctlint: disable=frontend-registry  # engine speaks HTTP natively (dedicated family + field automatons)

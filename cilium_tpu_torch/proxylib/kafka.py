@@ -478,4 +478,4 @@ class KafkaParser(Parser):
         return ops
 
 
-register_parser("kafka", KafkaParser)
+register_parser("kafka", KafkaParser)  # ctlint: disable=frontend-registry  # engine speaks Kafka natively (columnar predicate family)

@@ -184,7 +184,7 @@ class SchedulePlan(faults.FaultPlan):
     def check(self, point: str) -> Optional[Exception]:
         with self._lock:
             idx = self._hits.get(point, 0)
-            # keyed by registered fault points (finite)
+            # ctlint: disable=unbounded-registry  # keyed by registered fault points (finite)
             self._hits[point] = idx + 1
             left = self._budget.get(point, 0)
             if left <= 0:

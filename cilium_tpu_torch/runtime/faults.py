@@ -147,6 +147,7 @@ _POINTS: Dict[str, str] = {}
 def register_point(name: str, doc: str = "") -> str:
     """Declare an injection point (module import time). Returns the
     name so seams can do ``POINT = register_point(...)``."""
+    # ctlint: disable=unbounded-registry  # import-time registration, bounded by module count
     _POINTS.setdefault(name, doc)
     return name
 

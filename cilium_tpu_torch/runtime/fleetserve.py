@@ -660,6 +660,7 @@ class FleetRouter:
                 # dropped for the blocking connect above, the orphaned
                 # re-grant lease expires and the client's own
                 # placement wins on reconnect
+                # ctlint: disable=thread-safety  # lost race is self-healing: if a concurrent connect() placed this stream while the lock was dropped for the blocking connect above, the orphaned re-grant lease expires and the client's own placement wins on reconnect
                 self.placements[s] = target.name
                 self._digest[target.name] = \
                     self._digest.get(target.name, 0) + 1

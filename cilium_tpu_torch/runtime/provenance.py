@@ -94,6 +94,7 @@ def fingerprint(rtt: bool = True,
     trip probe."""
     fp: Dict[str, object] = {
         "schema": BENCH_SCHEMA,
+        # ctlint: disable=wall-clock  # provenance stamps record when the REAL world produced this artifact
         "captured_unix": int(time.time()),
         "host_platform": platform.platform(),
         "python": platform.python_version(),

@@ -111,9 +111,11 @@ KIND_ERROR = 2
 #: client-to-server only: a capture chunk whose payload is prefixed by
 #: a 16-hex-char trace id; the server adopts the id and replies with
 #: plain KIND_CHUNK frames
+# ctlint: disable=frame-kind  # one-directional kind, see above
 KIND_CHUNK_TRACED = 3
 #: server-to-client only: credit grant, a little-endian u32 of
 #: additional chunk credits
+# ctlint: disable=frame-kind  # server-to-client only, see above
 KIND_CREDIT = 4
 
 #: hard cap on one frame's payload — a corrupt length prefix must not

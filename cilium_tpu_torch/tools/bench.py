@@ -62,6 +62,8 @@ import sys
 import tempfile
 import time
 
+from cilium_tpu_torch.runtime.metrics import CAPTURE_STAGE_SECONDS, METRICS
+
 #: exit code a --probe / --inner subprocess uses for "the device is not
 #: usable" (distinct from a bench failure)
 _BACKEND_FAIL_RC = 42
@@ -185,11 +187,6 @@ def _rtt():
 
 
 def _stage_marks():
-    from cilium_tpu_torch.runtime.metrics import (
-        CAPTURE_STAGE_SECONDS,
-        METRICS,
-    )
-
     return {ph: METRICS.histo_sum(CAPTURE_STAGE_SECONDS, {"phase": ph})
             for ph in ("tables", "featurize", "dedup", "table-h2d")}
 
@@ -477,7 +474,6 @@ def _bench_regen(args, log) -> dict:
     from cilium_tpu_torch.core.config import Config
     from cilium_tpu_torch.ingest import synth
     from cilium_tpu_torch.runtime.loader import Loader
-    from cilium_tpu_torch.runtime.metrics import METRICS
 
     n_rules = args.rules if args.rules is not None else 1000
 

@@ -45,7 +45,7 @@ import shutil
 import sys
 import tempfile
 import time
-from typing import Dict, Optional
+from typing import Optional
 
 from cilium_tpu_torch.runtime.fleet import P99GateError
 

@@ -42,6 +42,8 @@ import time
 
 import numpy as np
 
+from cilium_tpu_torch.runtime.metrics import MICROBATCH_SIZE, METRICS
+
 
 def build_engine(n_rules: int, device=None, cache_dir=None,
                  n_flows: int = 2000):
@@ -74,8 +76,6 @@ def _prewarm(service, scenario, batch_max: int) -> None:
 
 def _hist_mark():
     """(count, sum, buckets) of the micro-batch size histogram."""
-    from cilium_tpu_torch.runtime.metrics import MICROBATCH_SIZE, METRICS
-
     return (METRICS.histo_count(MICROBATCH_SIZE),
             METRICS.histo_sum(MICROBATCH_SIZE),
             METRICS.histogram(MICROBATCH_SIZE))

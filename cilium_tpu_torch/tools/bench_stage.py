@@ -29,6 +29,8 @@ import sys
 import tempfile
 import time
 
+from cilium_tpu_torch.runtime.metrics import CAPTURE_STAGE_SECONDS, METRICS
+
 #: the staging split's phases (the memo fill is NOT in it: stage_ms
 #: covers ingest staging only, the fill is reported as memo_fill_ms)
 PHASES = ("tables", "featurize", "dedup", "table-h2d")
@@ -44,10 +46,6 @@ def run(config: str = "http", rules: int = 1000,
     from cilium_tpu_torch.engine.replay import CaptureReplay
     from cilium_tpu_torch.ingest import binary, synth
     from cilium_tpu_torch.runtime.loader import Loader
-    from cilium_tpu_torch.runtime.metrics import (
-        CAPTURE_STAGE_SECONDS,
-        METRICS,
-    )
 
     dev = resolve_device(device)
     cfg = Config.from_env()

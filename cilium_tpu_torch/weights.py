@@ -38,6 +38,7 @@ def stage_array(v, device: torch.device) -> torch.Tensor:
     a = np.ascontiguousarray(np.asarray(v))
     if a.dtype == np.uint32:
         a = a.view(np.int32)
+    # ctlint: disable=hot-loop-h2d  # staging: one upload per array when an automaton or a policy is first staged; the callers cache what it returns (DNSProxy._get_banked)
     return torch.from_numpy(a.copy()).to(device)
 
 

@@ -44,6 +44,7 @@ import pytest
 
 from test_torch_agent import (
     FIXTURES,
+    JAX,
     PKGS,
     PORT,
     REPO,
@@ -1042,13 +1043,20 @@ def test_perf_report_equal_reference(tmp_path):
 
 
 def test_lint_names_q12b():
-    """``lint`` is registered with the reference's arguments and, until
-    queue 1's Q12b ports the analysis package, exits 2 naming it."""
+    """``lint`` takes the reference's arguments and answers an unknown
+    rule as the reference's ``cli.main`` does: exit 2, nothing on
+    standard output, the same unknown-rule error (each package over its
+    own tree; the rule filter is checked before ``--changed-only``
+    asks git anything)."""
+    answers = {}
     with short_dir() as tmp:
-        rc, out, err = run(PORT, tmp, "lint", "cilium_tpu_torch",
-                           "--format", "json", "--rule", "X",
-                           "--changed-only")
-    assert rc == 2 and out == "" and "Q12b" in err
+        for P, target in ((JAX, "cilium_tpu"), (PORT, "cilium_tpu_torch")):
+            answers[target] = run(P, tmp, "lint", target, "--format",
+                                  "json", "--rule", "X", "--changed-only")
+    assert answers["cilium_tpu_torch"] == answers["cilium_tpu"]
+    rc, out, err = answers["cilium_tpu_torch"]
+    assert rc == 2 and out == ""
+    assert err.strip() == "error: unknown rule(s) ['X'] (--list-rules)"
 
 
 def test_replay_without_device_raises_without_cuda(monkeypatch):
