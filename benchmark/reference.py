@@ -1,0 +1,285 @@
+"""The plain reference: Cilium's verdict for every record of a capture,
+worked out again from the deployment's rules, identity map and records
+alone, in Python (``re``) and NumPy.
+
+Semantics, for a record with endpoint ``ep`` (the destination of an
+ingress record, the source of an egress one) and peer ``peer``:
+
+- a policy applies when its endpoint selector picks ``ep``, its peer
+  selector picks ``peer`` (``matchLabels``), and its direction, port
+  (0 = any) and protocol are the record's;
+- deny before allow: an applying deny drops the record;
+- an applying allow without L7 rules forwards it (FORWARDED);
+- an applying allow with HTTP rules redirects it to the proxy: allowed
+  (REDIRECTED) when an applying allow has no L7 rules, or when the
+  record is HTTP and some HTTP rule of the applying allows matches
+  all its parts: regex full match of method, path and host (host
+  without case), and each required header present with its value
+  (any value when none is given); otherwise dropped;
+- no applying policy: dropped when some policy of the record's direction
+  selects ``ep`` (default deny), forwarded otherwise (default allow).
+
+The control breaks one of these guarantees on request (``control=``):
+``prefix_match`` matches regexes at the start only, ``deny_ignored``
+drops deny policies, ``default_allow`` forwards what no policy covers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from benchmark.deployment import Deployment, HTTPRule, label_index, selected
+from benchmark.traffic import HTTP, Records
+
+FORWARDED, DROPPED, REDIRECTED = 1, 2, 5
+CONTROLS = ("prefix_match", "deny_ignored", "default_allow")
+_META = set(".^$*+?{}[]\\|()")
+
+
+@dataclasses.dataclass
+class Expected:
+    verdict: np.ndarray          # [N] int32
+    l3l4_allowed: np.ndarray     # [N] bool
+    redirect: np.ndarray         # [N] bool
+    #: not compared; what the step's byte count reads: some policy
+    #: applies ([N] bool), and the first applying allow with HTTP
+    #: rules ([N] int64 policy position, -1 for none)
+    covered: np.ndarray
+    http_policy: np.ndarray
+
+    def lanes(self) -> Dict[str, np.ndarray]:
+        return {"verdict": self.verdict, "l3l4_allowed": self.l3l4_allowed,
+                "redirect": self.redirect}
+
+
+def literal_prefix(pattern: str) -> str:
+    """The longest literal text every full match of ``pattern`` starts
+    with ('' when unsure: an alternation, an escape, a class first)."""
+    if "|" in pattern:
+        return ""
+    out = []
+    for k, ch in enumerate(pattern):
+        if ch in _META:
+            if ch in "*?{" and out:
+                out.pop()         # the last literal is optional
+            break
+        out.append(ch)
+    return "".join(out)
+
+
+class _RuleMatcher:
+    """One HTTP rule over a record's string indices, with the verdicts
+    of method, host and header block kept per distinct string."""
+
+    def __init__(self, rule: HTTPRule, rec: Records, prefix_only: bool):
+        def rx(pat: str, flags: int = 0) -> Optional[Callable]:
+            if not pat:
+                return None
+            c = re.compile(pat.encode(), flags)
+            return c.match if prefix_only else c.fullmatch
+
+        self.path = rx(rule.path)
+        self.method = rx(rule.method)
+        self.host = rx(rule.host, re.IGNORECASE)
+        self.headers = tuple((k.strip().lower().encode(), v.strip().encode())
+                             for k, v in rule.headers)
+        self.tables = {f: rec.strings[f][0] for f in
+                       ("method", "host", "headers")}
+        self._memo: Dict[Tuple[str, int], bool] = {}
+
+    def _field_ok(self, field: str, i: int) -> bool:
+        key = (field, i)
+        ok = self._memo.get(key)
+        if ok is None:
+            value = self.tables[field][i]
+            if field == "headers":
+                ok = _headers_ok(self.headers, value)
+            else:
+                m = getattr(self, field)
+                ok = m is None or m(value) is not None
+            self._memo[key] = ok
+        return ok
+
+    def matches(self, path: bytes, method: int, host: int,
+                headers: int) -> bool:
+        if self.path is not None and self.path(path) is None:
+            return False
+        return (self._field_ok("method", method)
+                and self._field_ok("host", host)
+                and self._field_ok("headers", headers))
+
+
+def _headers_ok(required, block: bytes) -> bool:
+    have = []
+    for line in block.split(b"\n"):
+        if line:
+            k, _, v = line.partition(b":")
+            have.append((k.strip().lower(), v.strip()))
+    for name, value in required:
+        if not any(k == name and (not value or v == value)
+                   for k, v in have):
+            return False
+    return True
+
+
+def _http_allowed(rules: Tuple[HTTPRule, ...], rows: np.ndarray,
+                  rec: Records, prefix_only: bool) -> np.ndarray:
+    """[len(rows)] bool: some rule matches the record. Candidate rules
+    of a record are those whose literal path prefix its path starts
+    with; each candidate is then matched in full."""
+    out = np.zeros(len(rows), dtype=bool)
+    if len(rows) == 0 or not rules:
+        return out
+    ptable, pidx = rec.strings["path"]
+    paths = [ptable[i] for i in pidx[rows].tolist()]
+    midx = rec.strings["method"][1][rows].tolist()
+    hidx = rec.strings["host"][1][rows].tolist()
+    xidx = rec.strings["headers"][1][rows].tolist()
+    matchers = [_RuleMatcher(r, rec, prefix_only) for r in rules]
+    by_len: Dict[int, Dict[bytes, List[int]]] = {}
+    for k, r in enumerate(rules):
+        lp = literal_prefix(r.path).encode()
+        by_len.setdefault(len(lp), {}).setdefault(lp, []).append(k)
+    width = max(1, max(len(p) for p in paths))
+    arr = np.array(paths, dtype=f"S{width}")
+    plen = np.fromiter((len(p) for p in paths), dtype=np.int64,
+                       count=len(paths))
+    for length, table in sorted(by_len.items()):
+        keys = sorted(table)
+        karr = np.array(keys, dtype=f"S{max(1, length)}")
+        trunc = arr.astype(f"S{length}") if length else \
+            np.full(len(arr), b"", dtype="S1")
+        pos = np.searchsorted(karr, trunc)
+        pos_c = np.minimum(pos, len(keys) - 1)
+        found = (pos < len(keys)) & (karr[pos_c] == trunc) & (plen >= length)
+        for k in np.nonzero(found & ~out)[0].tolist():
+            for ri in table[keys[pos_c[k]]]:
+                if matchers[ri].matches(paths[k], midx[k], hidx[k], xidx[k]):
+                    out[k] = True
+                    break
+    return out
+
+
+def decide(dep: Deployment, rec: Records,
+           control: Optional[str] = None) -> Expected:
+    """The expected verdict lanes of every record (see the module's
+    docstring); ``control`` names the guarantee to break."""
+    if control is not None and control not in CONTROLS:
+        raise ValueError(f"unknown control {control!r}")
+    n = len(rec)
+    E = len(dep.ids)
+    order = np.argsort(dep.ids)
+    sorted_ids = dep.ids[order]
+
+    def position(x: np.ndarray) -> np.ndarray:
+        p = np.searchsorted(sorted_ids, x.astype(np.int64))
+        p_c = np.minimum(p, E - 1)
+        return np.where(sorted_ids[p_c] == x, order[p_c], -1)
+
+    ingress = rec.direction == 1
+    ep = position(np.where(ingress, rec.dst, rec.src))
+    peer = position(np.where(ingress, rec.src, rec.dst))
+
+    policies = [p for p in dep.policies
+                if not (control == "deny_ignored" and p.deny)]
+    index = label_index(dep)
+    P = len(policies)
+    pair_pol: List[np.ndarray] = []
+    pair_ep: List[np.ndarray] = []
+    peer_codes: List[np.ndarray] = []
+    enforced = np.zeros((2, E + 1), dtype=bool)   # column E: not an endpoint
+    wildcard_peer = np.zeros(max(P, 1), dtype=bool)
+    for k, p in enumerate(policies):
+        eps = selected(p.select, dep, index)
+        pair_pol.append(np.full(len(eps), k, dtype=np.int64))
+        pair_ep.append(eps)
+        enforced[p.direction, eps] = True
+        peers = selected(p.peer, dep, index)
+        peer_codes.append(k * (E + 1) + peers)
+        wildcard_peer[k] = not p.peer
+    pol = np.concatenate(pair_pol) if pair_pol else np.zeros(0, np.int64)
+    pep = np.concatenate(pair_ep) if pair_ep else np.zeros(0, np.int64)
+    codes = np.sort(np.concatenate(peer_codes)) if peer_codes else \
+        np.zeros(0, np.int64)
+    p_dir = np.array([p.direction for p in policies], dtype=np.int64)
+    p_port = np.array([p.port for p in policies], dtype=np.int64)
+    p_proto = np.array([p.proto for p in policies], dtype=np.int64)
+    p_deny = np.array([p.deny for p in policies], dtype=bool)
+    p_http = np.array([bool(p.http) for p in policies], dtype=bool)
+
+    # (endpoint, direction, port) → the policies on it, sorted
+    def key(e, d, port):
+        return (e.astype(np.int64) << 20) | (d.astype(np.int64) << 17) \
+            | port.astype(np.int64)
+
+    pkeys = key(pep, p_dir[pol], p_port[pol]) if len(pol) else pol
+    korder = np.argsort(pkeys, kind="stable")
+    pkeys, pol = pkeys[korder], pol[korder]
+
+    any_deny = np.zeros(n, dtype=bool)
+    allow_plain = np.zeros(n, dtype=bool)
+    allow_http = np.zeros(n, dtype=bool)
+    http_pairs: List[Tuple[np.ndarray, np.ndarray]] = []
+    http_policy = np.full(n, -1, dtype=np.int64)
+    direction = rec.direction.astype(np.int64)
+    ep_ok = ep >= 0
+    for port in (rec.dport.astype(np.int64), np.zeros(n, dtype=np.int64)):
+        kk = key(np.where(ep_ok, ep, 0), direction, port)
+        lo = np.searchsorted(pkeys, kk, side="left")
+        hi = np.searchsorted(pkeys, kk, side="right")
+        hi = np.where(ep_ok, hi, lo)
+        width = int((hi - lo).max()) if n else 0
+        for off in range(width):
+            rows = np.nonzero(lo + off < hi)[0]
+            k = pol[lo[rows] + off]
+            member = wildcard_peer[k].copy()
+            known = peer[rows] >= 0
+            if len(codes):
+                c = k[known] * (E + 1) + peer[rows][known]
+                at = np.minimum(np.searchsorted(codes, c), len(codes) - 1)
+                member[known] |= codes[at] == c
+            ok = member & (p_proto[k] == rec.proto[rows])
+            any_deny[rows] |= ok & p_deny[k]
+            allow_plain[rows] |= ok & ~p_deny[k] & ~p_http[k]
+            h = ok & ~p_deny[k] & p_http[k]
+            allow_http[rows] |= h
+            if h.any():
+                http_pairs.append((rows[h], k[h]))
+                first = http_policy[rows[h]] < 0
+                http_policy[rows[h][first]] = k[h][first]
+
+    allowed_l4 = (allow_plain | allow_http) & ~any_deny
+    redirect = allow_http & ~any_deny
+    l7_ok = allow_plain.copy()
+    prefix_only = control == "prefix_match"
+    if http_pairs:
+        rows_all = np.concatenate([r for r, _ in http_pairs])
+        pol_all = np.concatenate([k for _, k in http_pairs])
+        need = redirect[rows_all] & ~allow_plain[rows_all] \
+            & (rec.l7[rows_all] == HTTP)
+        rows_all, pol_all = rows_all[need], pol_all[need]
+        for k in np.unique(pol_all).tolist():
+            rows = rows_all[pol_all == k]
+            rows = rows[~l7_ok[rows]]
+            l7_ok[rows] |= _http_allowed(policies[k].http, rows, rec,
+                                         prefix_only)
+
+    ep_col = np.where(ep_ok, ep, E)
+    default_drop = enforced[direction, ep_col]
+    if control == "default_allow":
+        default_drop = np.zeros(n, dtype=bool)
+    covered = allow_plain | allow_http | any_deny
+    verdict = np.where(
+        any_deny, DROPPED,
+        np.where(redirect, np.where(l7_ok, REDIRECTED, DROPPED),
+                 np.where(allowed_l4, FORWARDED,
+                          np.where(default_drop, DROPPED, FORWARDED))))
+    l3l4 = np.where(covered, allowed_l4, ~default_drop)
+    return Expected(verdict=verdict.astype(np.int32),
+                    l3l4_allowed=l3l4.astype(bool),
+                    redirect=redirect.astype(bool), covered=covered,
+                    http_policy=np.where(redirect, http_policy, -1))
