@@ -313,9 +313,11 @@ def _replay(args, cfg, agent, replay_log) -> int:
                         PHASE_DEVICE as _PHD,
                     )
 
-                    # CaptureReplay is device-engine-only; its chunk
-                    # step is dominated by the staged-table gather +
-                    # readback — one device span at the call site
+                    # CaptureReplay is device-engine-only: one span
+                    # at the call site, over the session's own spans
+                    # (replay.upload, replay.step with the step's
+                    # gather / lookup / resolve / assemble,
+                    # replay.readback)
                     with TRACER.span("replay.dispatch", phase=_PHD,
                                      records=len(chunk)):
                         out = replay_session.verdict_chunk(

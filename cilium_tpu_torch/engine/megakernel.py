@@ -33,6 +33,7 @@ from cilium_tpu_torch.runtime.metrics import (
     KERNEL_AUTOTUNE_SECONDS,
     METRICS,
 )
+from cilium_tpu_torch.runtime.tracing import PHASE_DEVICE, TRACER
 
 #: scan implementations the plan picks between
 IMPL_DENSE = "dfa-dense"
@@ -489,7 +490,8 @@ def fused_verdict_core(arrays, ms, l7t, words, gwords, kafka_cols,
     assembly (``verdict._assemble_verdict``). Kafka/generic/frontend
     use their deduped predicate groups when the plan staged them, else
     the per-rule helpers — bit-equal either way. ``words[5]``, when
-    present, is the l7g field's match words."""
+    present, is the l7g field's match words. The resolve is span
+    ``step.resolve``, the assembly ``step.assemble``."""
     from cilium_tpu_torch.engine.verdict import (
         _assemble_verdict,
         _combine_l7_match,
@@ -498,40 +500,42 @@ def fused_verdict_core(arrays, ms, l7t, words, gwords, kafka_cols,
         _l7_kafka,
     )
 
-    # ms["ruleset"] is -1 where no entry won: clip before gathering
-    # (JAX clamps out-of-range gathers, torch faults on them)
-    ruleset = ms["ruleset"].clamp(
-        0, arrays["rs_http_mask"].shape[0] - 1).long()
-    http_ok, l7_log_http, http_win = _fused_l7_http(
-        arrays, ruleset, words, gwords, l7t)
-    if "rp_rs_kmask" in arrays:
-        kafka_ok, kafka_win = _fused_l7_kafka(arrays, ruleset,
-                                              kafka_cols, l7t)
-    else:
-        kafka_ok, kafka_win = _l7_kafka(arrays, ruleset, kafka_cols, l7t)
-    dns_ok, dns_win = _fused_l7_dns(arrays, ruleset, words[4], l7t)
-    l7_ok = http_ok | kafka_ok | dns_ok
-    gen_ok = gen_win = None
-    if gen_cols is not None:
-        if "rp_rs_genmask" in arrays:
-            gen_ok, gen_win = _fused_l7_generic(arrays, ruleset,
-                                                gen_cols, l7t)
+    # ctlint: disable=jit-purity  # a span: no-op when disarmed; reads no tensor, never waits on the card
+    with TRACER.span("step.resolve", PHASE_DEVICE):
+        # ms["ruleset"] is -1 where no entry won: clip before gathering
+        # (JAX clamps out-of-range gathers, torch faults on them)
+        ruleset = ms["ruleset"].clamp(
+            0, arrays["rs_http_mask"].shape[0] - 1).long()
+        http_ok, l7_log_http, http_win = _fused_l7_http(
+            arrays, ruleset, words, gwords, l7t)
+        if "rp_rs_kmask" in arrays:
+            kafka_ok, kafka_win = _fused_l7_kafka(arrays, ruleset,
+                                                  kafka_cols, l7t)
         else:
-            gen_ok, gen_win = _l7_generic(arrays, ruleset, gen_cols, l7t)
-        l7_ok = l7_ok | gen_ok
-    fe_ok = fe_win = None
-    if len(words) > 5 and gen_cols is not None and "fe_lane" in arrays:
-        if "rp_rs_femask" in arrays:
-            fe_ok, fe_win = _fused_l7_frontend(arrays, ruleset, words[5],
-                                               gen_cols[1], l7t)
-        else:
-            fe_ok, fe_win = _l7_frontend(arrays, ruleset, words[5],
-                                         gen_cols[1], l7t)
-        l7_ok = l7_ok | fe_ok
-    l7_match = _combine_l7_match(
-        (http_ok, http_win), (kafka_ok, kafka_win), (dns_ok, dns_win),
-        (gen_ok, gen_win) if gen_ok is not None else None,
-        fe=(fe_ok, fe_win) if fe_ok is not None else None)
+            kafka_ok, kafka_win = _l7_kafka(arrays, ruleset, kafka_cols, l7t)
+        dns_ok, dns_win = _fused_l7_dns(arrays, ruleset, words[4], l7t)
+        l7_ok = http_ok | kafka_ok | dns_ok
+        gen_ok = gen_win = None
+        if gen_cols is not None:
+            if "rp_rs_genmask" in arrays:
+                gen_ok, gen_win = _fused_l7_generic(arrays, ruleset,
+                                                    gen_cols, l7t)
+            else:
+                gen_ok, gen_win = _l7_generic(arrays, ruleset, gen_cols, l7t)
+            l7_ok = l7_ok | gen_ok
+        fe_ok = fe_win = None
+        if len(words) > 5 and gen_cols is not None and "fe_lane" in arrays:
+            if "rp_rs_femask" in arrays:
+                fe_ok, fe_win = _fused_l7_frontend(arrays, ruleset, words[5],
+                                                   gen_cols[1], l7t)
+            else:
+                fe_ok, fe_win = _l7_frontend(arrays, ruleset, words[5],
+                                             gen_cols[1], l7t)
+            l7_ok = l7_ok | fe_ok
+        l7_match = _combine_l7_match(
+            (http_ok, http_win), (kafka_ok, kafka_win), (dns_ok, dns_win),
+            (gen_ok, gen_win) if gen_ok is not None else None,
+            fe=(fe_ok, fe_win) if fe_ok is not None else None)
     return _assemble_verdict(arrays, ms, l7_ok, l7_log_http,
                              auth_src_dst, batch, l7_match=l7_match)
 

@@ -14,6 +14,17 @@ device memo (:meth:`stage_verdict_memo`), and each chunk is then one
 id copy to the device and one gather (:meth:`verdict_idx`). Without
 the memo the chunk runs the capture step over the gathered rows;
 without the dedup it streams row blocks (:meth:`verdict_rows`).
+
+A chunk's layers are flight-recorder spans (``runtime/tracing.py``),
+which a collecting ``torch.profiler`` also shows beside the kernels:
+``replay.upload`` (the chunk's rows or ids to the device, auth
+staging), ``replay.step`` (the host's enqueue of the step, split by
+``verdict_step_capture`` into ``step.gather``, ``step.lookup``,
+``step.resolve`` and ``step.assemble``) and ``replay.readback``
+(``host_lanes``: ``readback.copy``, ``readback.split``). Each blocking
+copy counts under ``cilium_tpu_engine_host_syncs_total{site=...}``:
+``replay-upload`` for a pageable rows or ids copy, ``host-lanes`` for
+the readback.
 """
 
 from __future__ import annotations
@@ -37,7 +48,12 @@ from cilium_tpu_torch.engine.verdict import (
     stage_capture_tables,
     verdict_step_capture,
 )
-from cilium_tpu_torch.runtime.metrics import CAPTURE_STAGE_SECONDS, METRICS
+from cilium_tpu_torch.runtime.metrics import (
+    CAPTURE_STAGE_SECONDS,
+    ENGINE_HOST_SYNCS,
+    METRICS,
+)
+from cilium_tpu_torch.runtime.tracing import PHASE_DEVICE, PHASE_HOST, TRACER
 
 
 class _StagePhase:
@@ -333,6 +349,7 @@ class CaptureReplay:
             dev = self._prefetched.pop((start, len(idx)), None)
             if dev is not None:
                 return dev
+        METRICS.inc(ENGINE_HOST_SYNCS, labels={"site": "replay-upload"})
         return _ids_to_device(idx, self.engine.device)
 
     # -- replay -----------------------------------------------------------
@@ -346,20 +363,30 @@ class CaptureReplay:
         keys on the auth signature."""
         self._ensure_current()
         m = self.stage_verdict_memo(authed_pairs)
-        idx_dev = self._idx_device(idx, start)
-        if m is not None:
-            return m.gather(idx_dev)
-        batch = {"rows": self.stage_unique_device(), "idx": idx_dev}
-        self.engine._stage_auth(batch, authed_pairs)
-        return self._step(self.engine._arrays, self.table_words, batch)
+        with TRACER.span("replay.upload", PHASE_HOST):
+            idx_dev = self._idx_device(idx, start)
+            if m is None:
+                batch = {"rows": self.stage_unique_device(),
+                         "idx": idx_dev}
+                self.engine._stage_auth(batch, authed_pairs)
+        with TRACER.span("replay.step", PHASE_DEVICE):
+            if m is not None:
+                return m.gather(idx_dev)
+            return self._step(self.engine._arrays, self.table_words,
+                              batch)
 
     def verdict_rows(self, rows: np.ndarray, authed_pairs=None
                      ) -> Dict[str, torch.Tensor]:
         self._ensure_current()
-        batch = {"rows": torch.from_numpy(
-            np.ascontiguousarray(rows)).to(self.engine.device)}
-        self.engine._stage_auth(batch, authed_pairs)
-        return self._step(self.engine._arrays, self.table_words, batch)
+        with TRACER.span("replay.upload", PHASE_HOST):
+            METRICS.inc(ENGINE_HOST_SYNCS,
+                        labels={"site": "replay-upload"})
+            batch = {"rows": torch.from_numpy(
+                np.ascontiguousarray(rows)).to(self.engine.device)}
+            self.engine._stage_auth(batch, authed_pairs)
+        with TRACER.span("replay.step", PHASE_DEVICE):
+            return self._step(self.engine._arrays, self.table_words,
+                              batch)
 
     def verdict_chunk(self, rec, l7, authed_pairs=None, start: int = 0
                       ) -> Dict[str, np.ndarray]:
@@ -381,7 +408,8 @@ class CaptureReplay:
             nxt = self.row_idx[start + n:start + 2 * n]
             if len(nxt):
                 self.prefetch_idx(nxt, start + n)
-            return host_lanes(out)
+            with TRACER.span("replay.readback", PHASE_DEVICE):
+                return host_lanes(out)
         if self.rows_all is not None:
             rows = self.rows_all[start:start + n]
             if len(rows) != n:
@@ -394,4 +422,5 @@ class CaptureReplay:
                         if self.feat.gen_rows is not None else None)
             rows = self.feat.encode_rows(rec, l7, gen_rows=gen_rows)
         out = self.verdict_rows(rows, authed_pairs)
-        return host_lanes(out)
+        with TRACER.span("replay.readback", PHASE_DEVICE):
+            return host_lanes(out)

@@ -43,6 +43,8 @@ from cilium_tpu_torch.engine.compiled import (
 )
 from cilium_tpu_torch.engine.search import lower_bound
 from cilium_tpu_torch.runtime import faults as _faults
+from cilium_tpu_torch.runtime.metrics import ENGINE_HOST_SYNCS, METRICS
+from cilium_tpu_torch.runtime.tracing import PHASE_DEVICE, PHASE_HOST, TRACER
 
 #: the ten output lanes of a verdict batch
 OUTPUT_LANES = ("verdict", "allowed", "l3l4_allowed", "redirect", "l7_ok",
@@ -243,40 +245,46 @@ def _l7_frontend(arrays, ruleset, l7g_w, gen_pairs, l7t):
 
 def _assemble_verdict(arrays, ms, l7_ok, l7_log_http, auth_src_dst,
                       batch, l7_match=None):
-    """Precedence + auth + audit assembly → the ten output lanes."""
-    allowed = ms["allowed"] & (l7_ok | ~ms["redirect"])
-    auth_required = ms["auth_required"]
-    if "auth_pairs" in batch:
-        # drop-until-authed: a winning allow that demands auth forwards
-        # only if (src, dst) is in the lex-sorted [P, 2] authed table
-        src, dst = auth_src_dst
-        pairs = batch["auth_pairs"]
-        _, authed = lower_bound((pairs[:, 0], pairs[:, 1]), (src, dst))
-        allowed = allowed & (~auth_required | authed)
-    audit = ms.get("audit", torch.zeros_like(ms["allowed"]))
-    if "audit_mode" in arrays:
-        audit = audit | arrays["audit_mode"]
-    deny_code = torch.where(audit, int(Verdict.AUDIT), int(Verdict.DROPPED))
-    verdict = torch.where(
-        allowed,
-        torch.where(ms["redirect"], int(Verdict.REDIRECTED),
-                    int(Verdict.FORWARDED)),
-        deny_code).to(torch.int32)
-    if l7_match is None:
-        l7_match = torch.full(l7_ok.shape, -1, dtype=torch.int32,
-                              device=allowed.device)
-    return {
-        "verdict": verdict,
-        "allowed": allowed,
-        "l3l4_allowed": ms["allowed"],
-        "redirect": ms["redirect"],
-        "l7_ok": l7_ok,
-        "l7_log": l7_log_http & allowed & ms["redirect"],
-        "match_spec": ms["match_spec"],
-        "ruleset": ms["ruleset"],
-        "auth_required": ms["auth_required"],
-        "l7_match": l7_match.to(torch.int32),
-    }
+    """Precedence + auth + audit assembly → the ten output lanes
+    (span ``step.assemble``)."""
+    # ctlint: disable=jit-purity  # a span: no-op when disarmed; reads no tensor, never waits on the card
+    with TRACER.span("step.assemble", PHASE_DEVICE):
+        allowed = ms["allowed"] & (l7_ok | ~ms["redirect"])
+        auth_required = ms["auth_required"]
+        if "auth_pairs" in batch:
+            # drop-until-authed: a winning allow that demands auth
+            # forwards only if (src, dst) is in the lex-sorted [P, 2]
+            # authed table
+            src, dst = auth_src_dst
+            pairs = batch["auth_pairs"]
+            _, authed = lower_bound((pairs[:, 0], pairs[:, 1]),
+                                    (src, dst))
+            allowed = allowed & (~auth_required | authed)
+        audit = ms.get("audit", torch.zeros_like(ms["allowed"]))
+        if "audit_mode" in arrays:
+            audit = audit | arrays["audit_mode"]
+        deny_code = torch.where(audit, int(Verdict.AUDIT),
+                                int(Verdict.DROPPED))
+        verdict = torch.where(
+            allowed,
+            torch.where(ms["redirect"], int(Verdict.REDIRECTED),
+                        int(Verdict.FORWARDED)),
+            deny_code).to(torch.int32)
+        if l7_match is None:
+            l7_match = torch.full(l7_ok.shape, -1, dtype=torch.int32,
+                                  device=allowed.device)
+        return {
+            "verdict": verdict,
+            "allowed": allowed,
+            "l3l4_allowed": ms["allowed"],
+            "redirect": ms["redirect"],
+            "l7_ok": l7_ok,
+            "l7_log": l7_log_http & allowed & ms["redirect"],
+            "match_spec": ms["match_spec"],
+            "ruleset": ms["ruleset"],
+            "auth_required": ms["auth_required"],
+            "l7_match": l7_match.to(torch.int32),
+        }
 
 
 def _verdict_core(arrays, ms, l7t, words, kafka_cols, auth_src_dst,
@@ -293,73 +301,76 @@ def _verdict_core(arrays, ms, l7t, words, kafka_cols, auth_src_dst,
     format carries no generic records (v2 captures). A sixth entry in
     ``words`` is the l7g (protocol-frontend) match words: present
     exactly when the policy staged an l7g automaton and the caller's
-    format carries frontend records."""
-    ruleset = ms["ruleset"].clamp(
-        0, arrays["rs_http_mask"].shape[0] - 1).long()
-    path_w, method_w, host_w, hdr_w, dns_w = words[:5]
-    l7g_w = words[5] if len(words) > 5 else None
+    format carries frontend records. The resolve is span
+    ``step.resolve``, the assembly ``step.assemble``."""
+    # ctlint: disable=jit-purity  # a span: no-op when disarmed; reads no tensor, never waits on the card
+    with TRACER.span("step.resolve", PHASE_DEVICE):
+        ruleset = ms["ruleset"].clamp(
+            0, arrays["rs_http_mask"].shape[0] - 1).long()
+        path_w, method_w, host_w, hdr_w, dns_w = words[:5]
+        l7g_w = words[5] if len(words) > 5 else None
 
-    # HTTP: conjunction of per-field pattern bits per rule; the header
-    # lanes [R, H] broadcast through _rule_bit to [B, R, H]
-    rule_ok = (_rule_bit(path_w, arrays["http_path_lane"])
-               & _rule_bit(method_w, arrays["http_method_lane"])
-               & _rule_bit(host_w, arrays["http_host_lane"]))
-    rule_ok = rule_ok & _rule_bit(hdr_w, arrays["http_header_lanes"]) \
-        .all(dim=2)
-    # a FAIL header match whose secret is unresolvable kills the rule
-    if "http_rule_dead" in arrays:
-        rule_ok = rule_ok & ~arrays["http_rule_dead"][None, :]
-    http_mask = arrays["rs_http_mask"][ruleset]            # [B, Wh]
-    rule_words = _bools_to_words(rule_ok, http_mask.shape[1])
-    http_ok = (((rule_words & http_mask) != 0).any(dim=1)
-               & (l7t == int(L7Type.HTTP)))
-    r_idx = torch.arange(rule_ok.shape[1], device=rule_ok.device)
-    in_set = _words_bit(http_mask, r_idx)
-    # attribution winner: group space when the plan staged the
-    # rule → group map, else the lowest matched rule index
-    http_win = _masked_min(
-        rule_ok & in_set,
-        arrays["rp_rule_group"] if "rp_rule_group" in arrays
-        else r_idx.to(torch.int32))
+        # HTTP: conjunction of per-field pattern bits per rule; the header
+        # lanes [R, H] broadcast through _rule_bit to [B, R, H]
+        rule_ok = (_rule_bit(path_w, arrays["http_path_lane"])
+                   & _rule_bit(method_w, arrays["http_method_lane"])
+                   & _rule_bit(host_w, arrays["http_host_lane"]))
+        rule_ok = rule_ok & _rule_bit(hdr_w, arrays["http_header_lanes"]) \
+            .all(dim=2)
+        # a FAIL header match whose secret is unresolvable kills the rule
+        if "http_rule_dead" in arrays:
+            rule_ok = rule_ok & ~arrays["http_rule_dead"][None, :]
+        http_mask = arrays["rs_http_mask"][ruleset]            # [B, Wh]
+        rule_words = _bools_to_words(rule_ok, http_mask.shape[1])
+        http_ok = (((rule_words & http_mask) != 0).any(dim=1)
+                   & (l7t == int(L7Type.HTTP)))
+        r_idx = torch.arange(rule_ok.shape[1], device=rule_ok.device)
+        in_set = _words_bit(http_mask, r_idx)
+        # attribution winner: group space when the plan staged the
+        # rule → group map, else the lowest matched rule index
+        http_win = _masked_min(
+            rule_ok & in_set,
+            arrays["rp_rule_group"] if "rp_rule_group" in arrays
+            else r_idx.to(torch.int32))
 
-    # LOG-action header matches raise l7_log (padding lanes read True
-    # through _rule_bit, so ~bits masks them)
-    if "http_log_lanes" in arrays:
-        log_bits = _rule_bit(hdr_w, arrays["http_log_lanes"])
-        log_fail = (~log_bits).any(dim=2)                  # [B, R]
-        l7_log_http = (rule_ok & in_set & log_fail).any(dim=1) & http_ok
-    else:
-        l7_log_http = torch.zeros_like(http_ok)
+        # LOG-action header matches raise l7_log (padding lanes read True
+        # through _rule_bit, so ~bits masks them)
+        if "http_log_lanes" in arrays:
+            log_bits = _rule_bit(hdr_w, arrays["http_log_lanes"])
+            log_fail = (~log_bits).any(dim=2)                  # [B, R]
+            l7_log_http = (rule_ok & in_set & log_fail).any(dim=1) & http_ok
+        else:
+            l7_log_http = torch.zeros_like(http_ok)
 
-    kafka_ok, kafka_win = _l7_kafka(arrays, ruleset, kafka_cols, l7t)
+        kafka_ok, kafka_win = _l7_kafka(arrays, ruleset, kafka_cols, l7t)
 
-    # DNS: one qname-automaton lane per rule; attribution in lane space
-    dns_lane = arrays["dns_lane"]
-    d_ok = _rule_bit(dns_w, dns_lane) & (dns_lane >= 0)[None, :]
-    dns_mask = arrays["rs_dns_mask"][ruleset]
-    d_words = _bools_to_words(d_ok, dns_mask.shape[1])
-    dns_ok = (((d_words & dns_mask) != 0).any(dim=1)
-              & (l7t == int(L7Type.DNS)))
-    dr_idx = torch.arange(d_ok.shape[1], device=d_ok.device)
-    dns_win = _masked_min(d_ok & _words_bit(dns_mask, dr_idx), dns_lane)
+        # DNS: one qname-automaton lane per rule; attribution in lane space
+        dns_lane = arrays["dns_lane"]
+        d_ok = _rule_bit(dns_w, dns_lane) & (dns_lane >= 0)[None, :]
+        dns_mask = arrays["rs_dns_mask"][ruleset]
+        d_words = _bools_to_words(d_ok, dns_mask.shape[1])
+        dns_ok = (((d_words & dns_mask) != 0).any(dim=1)
+                  & (l7t == int(L7Type.DNS)))
+        dr_idx = torch.arange(d_ok.shape[1], device=d_ok.device)
+        dns_win = _masked_min(d_ok & _words_bit(dns_mask, dr_idx), dns_lane)
 
-    l7_ok = http_ok | kafka_ok | dns_ok
-    gen_pair = None
-    if gen_cols is not None:
-        gen_ok, gen_win = _l7_generic(arrays, ruleset, gen_cols, l7t)
-        l7_ok = l7_ok | gen_ok
-        gen_pair = (gen_ok, gen_win)
-    fe_pair = None
-    if l7g_w is not None and gen_cols is not None and "fe_lane" in arrays:
-        # protocol-frontend records: scan-field lane + enum pair subset
-        # + family equality
-        fe_ok, fe_win = _l7_frontend(arrays, ruleset, l7g_w, gen_cols[1],
-                                     l7t)
-        l7_ok = l7_ok | fe_ok
-        fe_pair = (fe_ok, fe_win)
-    l7_match = _combine_l7_match((http_ok, http_win),
-                                 (kafka_ok, kafka_win),
-                                 (dns_ok, dns_win), gen_pair, fe=fe_pair)
+        l7_ok = http_ok | kafka_ok | dns_ok
+        gen_pair = None
+        if gen_cols is not None:
+            gen_ok, gen_win = _l7_generic(arrays, ruleset, gen_cols, l7t)
+            l7_ok = l7_ok | gen_ok
+            gen_pair = (gen_ok, gen_win)
+        fe_pair = None
+        if l7g_w is not None and gen_cols is not None and "fe_lane" in arrays:
+            # protocol-frontend records: scan-field lane + enum pair subset
+            # + family equality
+            fe_ok, fe_win = _l7_frontend(arrays, ruleset, l7g_w, gen_cols[1],
+                                         l7t)
+            l7_ok = l7_ok | fe_ok
+            fe_pair = (fe_ok, fe_win)
+        l7_match = _combine_l7_match((http_ok, http_win),
+                                     (kafka_ok, kafka_win),
+                                     (dns_ok, dns_win), gen_pair, fe=fe_pair)
     return _assemble_verdict(arrays, ms, l7_ok, l7_log_http,
                              auth_src_dst, batch, l7_match=l7_match)
 
@@ -489,44 +500,56 @@ def verdict_step_capture(arrays: Dict[str, torch.Tensor],
     [B, 18 + gen_fmax] with a v3 capture's or a session's generic block
     (proto id, frontend family, l7g table row, pair ids); with
     ``batch["idx"]`` it is the UNIQUE-row table and ``idx`` the
-    per-flow row ids, expanded here by a device gather."""
+    per-flow row ids, expanded here by a device gather.
+
+    Spans: ``step.lookup`` (the mapstate lookup), ``step.gather`` (the
+    id expand, before the lookup, and every match-word gather after
+    it), then the resolve's ``step.resolve`` and ``step.assemble``."""
     from cilium_tpu_torch.engine import megakernel as _mk
     from cilium_tpu_torch.engine.memo import as_index
 
+    col = {c: i for i, c in enumerate(_ROW_COLS)}
+    n = len(_ROW_COLS)
+    fused = "rp_g_method" in arrays and "path_groups" in table_words
     rows = batch["rows"]
     idx = batch.get("idx")
     if idx is not None:
-        rows = rows.index_select(0, as_index(idx))
-    col = {c: i for i, c in enumerate(_ROW_COLS)}
+        # ctlint: disable=jit-purity  # a span: no-op when disarmed; reads no tensor, never waits on the card
+        with TRACER.span("step.gather", PHASE_DEVICE):
+            rows = rows.index_select(0, as_index(idx))
 
     def c(name):
         return rows[:, col[name]]
 
-    ms, auth_src_dst = _mk.policy_lookup(
-        arrays, c("ep_ids"), c("peer_ids"), c("dports"), c("protos"),
-        c("directions"))
+    # ctlint: disable=jit-purity  # a span: no-op when disarmed; reads no tensor, never waits on the card
+    with TRACER.span("step.lookup", PHASE_DEVICE):
+        ms, auth_src_dst = _mk.policy_lookup(
+            arrays, c("ep_ids"), c("peer_ids"), c("dports"), c("protos"),
+            c("directions"))
 
     def words_of(table, name):
         return table_words[table].index_select(0, c(name).long())
 
-    words = (words_of("path", "path_row"), words_of("method", "method_row"),
-             words_of("host", "host_row"),
-             words_of("headers", "headers_row"),
-             words_of("qname", "qname_row"))
-    n = len(_ROW_COLS)
-    gen_cols = None
-    if rows.shape[1] > n:
-        # gen block: [proto id, frontend family, l7g table row, pairs]
-        gen_cols = (rows[:, n], rows[:, n + 3:])
-        if "l7g_trans" in arrays and "l7g" in table_words:
-            words = words + (table_words["l7g"].index_select(
-                0, rows[:, n + 2].long()),)
+    # ctlint: disable=jit-purity  # a span: no-op when disarmed; reads no tensor, never waits on the card
+    with TRACER.span("step.gather", PHASE_DEVICE):
+        words = (words_of("path", "path_row"),
+                 words_of("method", "method_row"),
+                 words_of("host", "host_row"),
+                 words_of("headers", "headers_row"),
+                 words_of("qname", "qname_row"))
+        gen_cols = None
+        if rows.shape[1] > n:
+            # gen block: [proto id, frontend family, l7g table row, pairs]
+            gen_cols = (rows[:, n], rows[:, n + 3:])
+            if "l7g_trans" in arrays and "l7g" in table_words:
+                words = words + (table_words["l7g"].index_select(
+                    0, rows[:, n + 2].long()),)
+        gwords = words_of("path_groups", "path_row") if fused else None
     kafka_cols = (c("kafka_api_key"), c("kafka_api_version"),
                   c("kafka_client"), c("kafka_topic"))
-    if "rp_g_method" in arrays and "path_groups" in table_words:
+    if fused:
         return _mk.fused_verdict_core(
-            arrays, ms, c("l7_types"), words,
-            words_of("path_groups", "path_row"), kafka_cols,
+            arrays, ms, c("l7_types"), words, gwords, kafka_cols,
             auth_src_dst, batch, gen_cols=gen_cols)
     return _verdict_core(arrays, ms, c("l7_types"), words, kafka_cols,
                          auth_src_dst, batch, gen_cols=gen_cols)
@@ -553,22 +576,29 @@ def host_lanes(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     counterpart of the reference's ``jax.device_get(out)``: every lane
     (float lanes as their bits) widened to int64 and concatenated, read
     back once, then split and cast back to each lane's dtype, exactly.
-    A per-lane ``.cpu()`` would wait on the card once per lane."""
+    A per-lane ``.cpu()`` would wait on the card once per lane.
+
+    Spans ``readback.copy`` (the widen, the concatenation and the one
+    copy, which waits for the step's kernels: a host sync counted at
+    site ``host-lanes``) and ``readback.split``."""
     items = list(out.items())
     if len(items) == 0:
         return {}
-    words = [v.view(_LANE_BITS[v.dtype]) if v.dtype in _LANE_BITS else v
-             for _, v in items]
-    flat = torch.cat([w.reshape(-1).to(torch.int64)
-                      for w in words]).cpu().numpy()
-    res: Dict[str, np.ndarray] = {}
-    off = 0
-    for (k, v), w in zip(items, words):
-        part = flat[off:off + v.numel()].reshape(tuple(v.shape))
-        off += v.numel()
-        part = part.astype(_np_dtype(w.dtype))
-        res[k] = part.view(_np_dtype(v.dtype)) if v.dtype in _LANE_BITS \
-            else part
+    with TRACER.span("readback.copy", PHASE_DEVICE):
+        words = [v.view(_LANE_BITS[v.dtype]) if v.dtype in _LANE_BITS
+                 else v for _, v in items]
+        METRICS.inc(ENGINE_HOST_SYNCS, labels={"site": "host-lanes"})
+        flat = torch.cat([w.reshape(-1).to(torch.int64)
+                          for w in words]).cpu().numpy()
+    with TRACER.span("readback.split", PHASE_HOST):
+        res: Dict[str, np.ndarray] = {}
+        off = 0
+        for (k, v), w in zip(items, words):
+            part = flat[off:off + v.numel()].reshape(tuple(v.shape))
+            off += v.numel()
+            part = part.astype(_np_dtype(w.dtype))
+            res[k] = part.view(_np_dtype(v.dtype)) \
+                if v.dtype in _LANE_BITS else part
     return res
 
 
@@ -643,6 +673,7 @@ class TorchVerdictEngine:
         if authed_pairs is None:
             # sentinel row that never matches (identities are >= 0)
             authed_pairs = np.full((1, 2), -1, dtype=np.int32)
+        METRICS.inc(ENGINE_HOST_SYNCS, labels={"site": "auth-stage"})
         batch["auth_pairs"] = torch.from_numpy(
             np.ascontiguousarray(authed_pairs, dtype=np.int32)
         ).to(self.device)

@@ -8,13 +8,22 @@ into a bounded ring buffer. The serve loop's pack thread holds no
 contextvar for the streams it serves, so it appends the chunk's span BY
 trace id (:meth:`Tracer.record_remote`, :meth:`Tracer.event_remote`).
 
-Disarmed cost: ``TRACER.span(...)`` with no active context returns a
-shared no-op context manager.
+A span has a second sink: while a ``torch.profiler`` collects on the
+calling thread, ``TRACER.span(...)`` also opens
+``torch.profiler.record_function(name)``, so the span lands in the
+profiler's Chrome trace beside the kernels and copies it launched, on
+the profiler's clock (the capture replay's spans, ``engine/replay.py``,
+are read that way).
+
+Disarmed cost: ``TRACER.span(...)`` with no active context and no
+profiler collecting returns a shared no-op context manager, after one
+contextvar read and one read of the profiler's flag.
 """
 
 from __future__ import annotations
 
 import contextvars
+import sys
 import threading
 import uuid
 from collections import deque
@@ -128,6 +137,52 @@ class _SpanCM:
         return False
 
 
+class _ProfiledSpan:
+    """A span under a collecting ``torch.profiler``: the profiler's
+    ``record_function`` range, around the flight recorder's span when
+    a trace is active (``inner``, else None)."""
+
+    __slots__ = ("name", "inner", "_range")
+
+    def __init__(self, name, inner):
+        self.name = name
+        self.inner = inner
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        self._range = record_function(self.name)
+        self._range.__enter__()
+        if self.inner is not None:
+            self.inner.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        try:
+            if self.inner is not None:
+                self.inner.__exit__(exc_type, exc, tb)
+        finally:
+            self._range.__exit__(exc_type, exc, tb)
+        return False
+
+
+#: ``torch.autograd._profiler_enabled``, bound at the first span after
+#: torch was imported
+_PROFILER_FLAG = None
+
+
+def _profiling() -> bool:
+    """Is a ``torch.profiler`` collecting on this thread? False, and
+    torch not imported, while nothing else has imported it."""
+    global _PROFILER_FLAG
+    if _PROFILER_FLAG is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return False
+        _PROFILER_FLAG = torch.autograd._profiler_enabled
+    return _PROFILER_FLAG()
+
+
 class Tracer:
     """The flight recorder. One process-global instance
     (:data:`TRACER`); tests build their own."""
@@ -218,12 +273,15 @@ class Tracer:
 
     # -- recording --------------------------------------------------------
     def span(self, name: str, phase: str = "", ctx=None, **attrs):
-        """Measured span context manager; no-op when no trace is
-        active."""
+        """Measured span context manager: into the ring when a trace is
+        active, and a ``record_function`` range while a
+        ``torch.profiler`` collects; no-op when neither."""
         ctx = ctx if ctx is not None else _CURRENT.get()
-        if ctx is None or not self.enabled:
-            return _NOOP
-        return _SpanCM(self, ctx, name, phase, attrs)
+        inner = None if ctx is None or not self.enabled \
+            else _SpanCM(self, ctx, name, phase, attrs)
+        if _profiling():
+            return _ProfiledSpan(name, inner)
+        return _NOOP if inner is None else inner
 
     def add_span(self, ctx, name: str, phase: str,
                  t0: float, dur: float, **attrs) -> None:
