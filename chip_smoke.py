@@ -497,7 +497,14 @@ but for 15 and 14, which run, in that order, inside phase 10:
    findings; a sync at a site the rule does not see is printed as a
    miss (reported, not gated). A ``lint: {...}`` line carries the
    numbers;
-22. one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+22. KR, the group-space resolve, held exactly against its plain version
+   at every launch shape the phases 3 to 21 staged in this process (the
+   inputs of its first launch at each shape, kept while they ran; the
+   spawned ranks' and the daemon's launches are in their own
+   processes), then timed at the largest of them (device, call and
+   plain ms, and its byte bound);
+23. one JSON line ``{"kernels": [...]}`` (KR's launches counted by phase
+   beside KD's, K1's and K2's), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The kernel phase (3) also holds KD and K2 at the capture tables'
@@ -546,12 +553,17 @@ BOUND_BYTES = {
           "the scan reads and the accept rows of its final states, once",
     "K1": "the live flow bytes and every table, once",
     "K2": "the live flow bytes and every table, once",
+    "KR": "each row's rule set, l7 type and the columns of the family "
+          "its l7 type selects, the tables of the families the rows "
+          "select and the three output lanes, once",
 }
 BOUND_OPS = {
     "KD": "2 per live byte and bank (one transition), non-tensor peak",
     "K1": "2*NB*B*(L-1)*P*P (D . Follow), int8 tensor-core peak",
     "K2": "2*NB*B*L*S*(K+1) (onehot(state) . table), int8 tensor-core "
           "peak",
+    "KR": "none counted: a bitwise walk over the row's rule-set groups, "
+          "bound by bytes",
 }
 #: phase 5: capture size and replay chunk (the reference benchmark's
 #: ``--capture-flows`` and ``--replay-chunk`` defaults)
@@ -7449,6 +7461,148 @@ def hold_noted(errs, noted, tag):
     return held
 
 
+@contextlib.contextmanager
+def kr_launches_noted(noted):
+    """While open, keep the inputs of KR's first launch at each distinct
+    launch shape (``noted[key]``: the batch's rows, the groups, header
+    and LOG lanes and mask words of each family, the words' widths, the
+    per-row columns' strides, and which families the call carries); the
+    launcher is wrapped and runs unchanged. The key is a few shape reads
+    a call, so the phases' timed calls pay next to nothing for it."""
+    from cilium_tpu_torch.engine import resolve_cuda
+
+    kr = resolve_cuda.resolve_groups_cuda
+
+    def kr_noted(arrays, ruleset, l7t, words, gwords, kafka_cols,
+                 gen_cols=None):
+        fe = "fe_lane" in arrays and "rp_fe_pairs" in arrays
+        key = (ruleset.shape[0], ruleset.stride(0), l7t.stride(0),
+               kafka_cols[0].stride(0), tuple(arrays["rp_g_hdr"].shape),
+               arrays["rp_g_log"].shape[1],
+               tuple(arrays["rp_rs_gmask"].shape),
+               tuple(arrays["rp_dns_rsmask"].shape),
+               arrays["rp_k_apikey_mask"].shape[0],
+               tuple(arrays["rp_rs_kmask"].shape),
+               tuple(arrays["rp_gen_pairs"].shape),
+               tuple(arrays["rp_fe_pairs"].shape) if fe else None,
+               tuple((w.shape[1], w.stride(0)) for w in (*words, gwords)),
+               None if gen_cols is None else
+               (gen_cols[0].stride(0), tuple(gen_cols[1].shape)))
+        if key not in noted:
+            # only what the resolve reads of the plan is kept: the staged
+            # scan tables of every noted policy would stay on the card
+            plan = {k: v for k, v in arrays.items()
+                    if k in ("rs_http_mask", "fe_lane")
+                    or (k.startswith("rp_") and k != "rp_path_gaccept")}
+            noted[key] = ((plan, ruleset, l7t, words, gwords, kafka_cols),
+                          {"gen_cols": gen_cols})
+        return kr(arrays, ruleset, l7t, words, gwords, kafka_cols,
+                  gen_cols=gen_cols)
+
+    resolve_cuda.resolve_groups_cuda = kr_noted
+    try:
+        yield
+    finally:
+        resolve_cuda.resolve_groups_cuda = kr
+
+
+def kr_needed_bytes(args, gen_cols) -> int:
+    """Bytes KR must move at these arguments, each once: every row's rule
+    set and l7 type; the columns of the family its l7 type selects (HTTP:
+    the method, host, header and path-group words; DNS: the qname words;
+    kafka: the four columns; generic, with a generic block: the proto and
+    the pair ids; frontend, where staged: the l7g words and the pair ids,
+    for a row of a family some frontend group names); the tables of each
+    family some row selects (not the ``*_rule_group`` maps, which KR
+    does not read); and the three output lanes."""
+    import torch
+
+    from cilium_tpu_torch.core.flow import L7Type
+
+    arrays, ruleset, l7t, words, gwords, kafka = args
+    t = l7t.cpu()
+
+    def rows_of(mask):
+        return int(mask.sum())
+
+    def row(w):
+        return w.shape[1] * w.element_size()
+
+    def tables(*prefixes):
+        return sum(v.numel() * v.element_size() for k, v in arrays.items()
+                   if k.startswith(prefixes) and "rule_group" not in k)
+
+    total = ruleset.shape[0] * (ruleset.element_size() + l7t.element_size()
+                                + 1 + 1 + 4)
+    n = rows_of(t == int(L7Type.HTTP))
+    if n:
+        total += n * (row(words[1]) + row(words[2]) + row(words[3])
+                      + row(gwords)) + tables("rp_g_", "rp_rs_gmask")
+    n = rows_of(t == int(L7Type.DNS))
+    if n:
+        total += n * row(words[4]) + tables("rp_dns_rsmask")
+    n = rows_of(t == int(L7Type.KAFKA))
+    if n:
+        total += n * sum(c.element_size() for c in kafka) + tables(
+            "rp_k_", "rp_rs_kmask")
+    if gen_cols is None:
+        return total
+    gen = t == int(L7Type.GENERIC)
+    fe = torch.zeros_like(gen)
+    if len(words) > 5 and "fe_lane" in arrays and "rp_fe_family" in arrays:
+        fam = arrays["rp_fe_family"].cpu()
+        fe = torch.isin(t, fam[fam >= 0])
+        if fe.any():
+            total += rows_of(fe) * row(words[5]) + tables("rp_fe_",
+                                                          "rp_rs_femask")
+    if gen.any():
+        total += rows_of(gen) * gen_cols[0].element_size() + tables(
+            "rp_gen_", "rp_rs_genmask")
+    return total + rows_of(gen | fe) * row(gen_cols[1])
+
+
+def kr_hold(errs, rows, noted, card):
+    """Phase 22: KR exactly against its plain version at every launch
+    shape kept by :func:`kr_launches_noted`, then its device, call and
+    plain times and its byte bound (:func:`kr_needed_bytes`) at the
+    largest (a ``largest`` row in ``rows["KR"]``). Returns the count of
+    shapes held, and the largest."""
+    from cilium_tpu_torch.engine import resolve_cuda
+
+    held = 0
+    largest = None
+    for _, (args, kw) in sorted(noted.items(), key=str):
+        arrays, ruleset = args[0], args[1]
+        G, Hm = arrays["rp_g_hdr"].shape
+        B = ruleset.shape[0]
+        what = (f"G={G} Hm={Hm} Lm={arrays['rp_g_log'].shape[1]} B={B}"
+                f"{' gen' if kw['gen_cols'] is not None else ''}"
+                f"{' fe' if len(args[3]) > 5 else ''}")
+        hold(errs, "KR", what, resolve_cuda.resolve_groups_cuda(*args, **kw),
+             resolve_cuda.resolve_groups_plain(*args, **kw))
+        held += 1
+        if largest is None or B > largest[1][1].shape[0]:
+            largest = (what, args, kw)
+    check(largest is not None, "[kr] no KR launch was noted in phases 3-21")
+    what, args, kw = largest
+    G = args[0]["rp_g_hdr"].shape[0]
+    B = args[1].shape[0]
+
+    def kr():
+        return resolve_cuda.resolve_groups_cuda(*args, **kw)
+
+    row = ("largest", (G, args[0]["rp_rs_gmask"].shape[1], B),
+           kernel_device_ms(kr, "resolve_groups_kernel"), time_launch(kr),
+           time_launch(lambda: resolve_cuda.resolve_groups_plain(
+               *args, **kw), reps=3),
+           *bound(kr_needed_bytes(args, kw["gen_cols"]), 0))
+    rows["KR"] = [row]
+    log(f"  KR largest {what}: device {row[2]:.5f} ms, call {row[3]:.5f} "
+        f"ms, plain {row[4]:.3f} ms, bound {row[5]:.6f} ms ({row[6]}); "
+        f"shapes held {held}; {card}")
+    return {"held": held, "largest": what}
+
+
 def bench_hold(errs, noted, card):
     """Phase 16's kernels held exactly against their plain versions: KD,
     K2 and K1 at every launch shape the tools staged in this process,
@@ -9148,6 +9302,8 @@ CU_ATTR = {"max_threads_per_block": 1, "warp_size": 10,
 #: reference's 50), the flows of the bulk verdict the observer and the
 #: monitor must see, and the restart's held chunk
 DAEMON_CLI_REPS, DAEMON_STREAM_CHUNK, DAEMON_XC_UPDATES = 5, 8192, 50
+#: phase 20: the daemon's device profile window, s (several bulk calls)
+DAEMON_PROFILE_S = 3
 DAEMON_FANOUT_FLOWS = 64
 #: the sections of the reference's bugtool bundle
 BUGTOOL_FILES = ["config.json", "endpoints.json", "engine.json",
@@ -9591,70 +9747,102 @@ def daemon_phase(card, base_p99_ms):
                                  "observed": len(seen)}
             # the device profile while a stream runs, beside bulk
             # verdicts: the stream's session scans its string tables with
-            # KD, the bulk op's fused step runs K1 under nfa-bitset
+            # KD, the bulk op's fused step runs K1 under nfa-bitset. The
+            # two run in threads of their own, so the bulk op's device
+            # work (a burst at the end of each call, after its host-side
+            # decode) recurs one bulk call apart; the window is several
+            # calls long, so a burst falls in it whatever the phase of
+            # the calls when it opens (paced one call after the other
+            # behind the stream, a round could outlast a 1 s window)
             stop_stream = threading.Event()
             streamed = [0, 0]
+            bulk_spans = []  # (start, end) of each bulk call, host clock
             bulk = [dict(flow_to_dict(f)) for f in flows_sc.flows[:BATCH]]
             want_bulk = plain_bulk(bulk)
             want_chunk = want[:DAEMON_STREAM_CHUNK]
-
-            warm = threading.Event()
+            warm = [threading.Event(), threading.Event()]
 
             def keep_streaming():
-                # a bulk batch and a chunk at a time, paced: the trace's
-                # size (its export is the profile's cost) stays bounded;
-                # each is held against the plain engine. The profile
-                # starts after the first round, whose first calls at
-                # these shapes are cold and could fill its window
+                # a chunk at a time, paced: the trace's size (its export
+                # is the profile's cost) stays bounded; each is held
+                # against the plain engine. The profile starts after the
+                # first chunk and bulk call, which are cold at these
+                # shapes and could fill its window
+                try:
+                    while not stop_stream.is_set():
+                        got = stream_capture(
+                            socks["svc"], rec, l7, offsets, blob,
+                            DAEMON_STREAM_CHUNK, limit=DAEMON_STREAM_CHUNK)
+                        check(np.array_equal(got, want_chunk),
+                              f"[daemon] profiled stream differs from "
+                              f"the plain engine in "
+                              f"{int((got != want_chunk).sum())} records")
+                        streamed[0] += len(got)
+                        warm[0].set()
+                        stop_stream.wait(0.1)
+                except BaseException as e:  # noqa: BLE001 — re-raised below
+                    thread_errors.append(e)
+                finally:
+                    warm[0].set()
+
+            def keep_bulk():
                 try:
                     c = VerdictClient(socks["svc"])
                     try:
                         while not stop_stream.is_set():
+                            t_bulk = time.perf_counter()
                             r = c.call({"op": "verdict", "flows": bulk})
+                            bulk_spans.append((t_bulk, time.perf_counter()))
                             hold_bulk(r, want_bulk, "profiled bulk verdict")
                             streamed[1] += len(r["verdicts"])
-                            got = stream_capture(
-                                socks["svc"], rec, l7, offsets, blob,
-                                DAEMON_STREAM_CHUNK,
-                                limit=DAEMON_STREAM_CHUNK)
-                            check(np.array_equal(got, want_chunk),
-                                  f"[daemon] profiled stream differs from "
-                                  f"the plain engine in "
-                                  f"{int((got != want_chunk).sum())} records")
-                            streamed[0] += len(got)
-                            warm.set()
-                            stop_stream.wait(0.1)
+                            warm[1].set()
+                            stop_stream.wait(0.05)
                     finally:
                         c.close()
                 except BaseException as e:  # noqa: BLE001 — re-raised below
                     thread_errors.append(e)
                 finally:
-                    warm.set()
+                    warm[1].set()
 
             step("cli_stream_fanout")
-            th = threading.Thread(target=keep_streaming, daemon=True)
-            th.start()
+            ths = [threading.Thread(target=fn, daemon=True)
+                   for fn in (keep_streaming, keep_bulk)]
+            for th in ths:
+                th.start()
             try:
-                check(warm.wait(timeout=120),
-                      "[daemon] the stream's first round hung")
+                check(all(w.wait(timeout=120) for w in warm),
+                      "[daemon] the stream's or the bulk op's first call "
+                      "hung")
                 if thread_errors:
                     raise thread_errors[0]
                 t_warm = time.perf_counter() - t_phase
                 before = list(streamed)
+                t_prof = time.perf_counter()
                 prof = cli_json(["profile", "--socket", socks["svc"],
                                  "--mode", "device" if DEVICE == "cuda"
-                                 else "host", "--seconds", "1", "--out",
+                                 else "host", "--seconds",
+                                 str(DAEMON_PROFILE_S), "--out",
                                  paths["prof"]], "profile")
                 during = [a - b for a, b in zip(streamed, before)]
+                t_prof = (t_prof, time.perf_counter())
             finally:
                 stop_stream.set()
-                th.join(timeout=120)
-            check(not th.is_alive(), "[daemon] the profiled stream hung")
+                for th in ths:
+                    th.join(timeout=120)
+            check(not any(th.is_alive() for th in ths),
+                  "[daemon] the profiled stream or bulk op hung")
             if thread_errors:
                 raise thread_errors[0]
-            check(during[1] >= len(bulk),
-                  f"[daemon] no bulk batch ran beside the profile: "
-                  f"{streamed}, {during} during it")
+            # the calls that ran whole inside the profile call (which
+            # holds the daemon's window), and the longest stretch between
+            # two of their ends (each end follows a device burst)
+            inside = [(a, b) for a, b in bulk_spans
+                      if t_prof[0] <= a and b <= t_prof[1]]
+            gap = max((b2 - b1 for (_, b1), (_, b2) in
+                       zip(inside, inside[1:])), default=None)
+            check(inside and during[0] > 0,
+                  f"[daemon] no bulk batch or stream chunk ran beside the "
+                  f"profile: {streamed}, {during} during it")
             step("profile")
             if DEVICE == "cuda":
                 with open(prof["path"]) as f:
@@ -9662,7 +9850,14 @@ def daemon_phase(card, base_p99_ms):
                 k1_named = ("nfa_scan" in ptrace and any(
                     "nfa_scan" in k for k in prof["device_events"]))
                 check(k1_named, f"[daemon] the daemon's device profile names "
-                      f"no K1 kernel: {prof['device_events'][:12]}")
+                      f"no K1 kernel: {prof['device_events']}; the profile "
+                      f"call {[round(t - t_phase, 3) for t in t_prof]} s, "
+                      f"the bulk calls "
+                      f"{[(round(a - t_phase, 3), round(b - t_phase, 3)) for a, b in bulk_spans]}"
+                      f" s into the phase; during it {during}; "
+                      f"fallback verdicts: "
+                      f"{[ln for ln in metrics_text().splitlines() if 'fallback' in ln and not ln.startswith('#')]}"
+                      f"; the daemon's stderr: {daemon_err()}")
                 report["profile"] = {"device_events": prof["device_events"],
                                      "k1_named": k1_named,
                                      "kd_named": any(
@@ -9671,6 +9866,8 @@ def daemon_phase(card, base_p99_ms):
                                      "streamed_records": streamed[0],
                                      "bulk_flows": streamed[1],
                                      "during_profile": during,
+                                     "bulk_calls_inside": len(inside),
+                                     "bulk_end_gap_max_s": gap,
                                      "warm_at_s": t_warm}
             # bugtool
             rc, out, _ = cli_call(["bugtool", "--socket", socks["svc"],
@@ -10232,6 +10429,9 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     capture_inputs = capture_inputs_of(auto_engine._arrays, caps)
     session_inputs = session_inputs_of(auto_engine._arrays)
 
+    kr_noted = {}
+    kr_watch = contextlib.ExitStack()
+    kr_watch.enter_context(kr_launches_noted(kr_noted))
     log("phase 3: kernels against their plain versions (exact)")
     errs = {}
     dense_fields = field_inputs_of(auto_engine, setups["auto"]["full"])
@@ -10447,6 +10647,10 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
                              scenario.flows, card)
     lint_report["wall_s"] = time.perf_counter() - t21
     log(f"phase 21 wall {lint_report['wall_s']:.1f} s")
+    kr_watch.close()
+    log(f"phase 22: KR at the {len(kr_noted)} launch shapes phases 3-21 "
+        f"staged, against its plain version")
+    kr_report = kr_hold(errs, rows, kr_noted, card)
     phase_launches = {n: r["launches"] for n, r in reports.items()}
     phase_launches.update({f"capture-{arm}": r["launches"]
                            for arm, r in captures.items()})
@@ -10485,7 +10689,7 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
     phase_variants["cluster"] = cluster_variants
     phase_variants["daemon"] = daemon_variants
     # the JSON line reports each kernel at its largest main-path shape
-    pick = {"KD": "path", "K1": "host", "K2": "host"}
+    pick = {"KD": "path", "K1": "host", "K2": "host", "KR": "largest"}
     kernels = []
     for kid, k in _build.KERNELS.items():
         row = next(r for r in rows[kid] if r[0] == pick[kid])
@@ -10493,9 +10697,10 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
             "name": f"{kid}:{k.name}", "route": "cuda",
             "source": f"cilium_tpu_torch/engine/csrc/{k.source}",
             "replaces": k.replaces,
-            "launches": sum(ln[kid] for ln in phase_launches.values()),
+            "launches": sum(ln.get(kid, 0)
+                            for ln in phase_launches.values()),
             "phases": {n: ln[kid] for n, ln in phase_launches.items()
-                       if ln[kid]},
+                       if ln.get(kid)},
             "max_abs_err": errs[kid],
             # ms: device time of one launch (profiler); call_ms: wall
             # time per call from Python, wrapper included
@@ -10529,7 +10734,8 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
             "bench_shapes_held": bench_report["held"]["noted"].get(kid, 0),
             "bench_sweep_banks": {n: v["nfa" if kid == "K1" else "dense"]
                                   for n, v in
-                                  bench_report["held"]["sweep"].items()},
+                                  bench_report["held"]["sweep"].items()
+                                  if kid != "KR"},
             # phase 17: the launch shapes of the observability plane
             "observe_shapes_held": observe_report["held"].get(kid, 0),
             # phase 18: the launch shapes of the agent plane
@@ -10541,6 +10747,10 @@ def run_phases(torch, smi, card, oracle_jobs, lb_job, dst_jobs) -> int:
             # cross-cluster leg in this process (the daemon's own
             # launches are in its process: its device profile names them)
             "daemon_shapes_held": daemon_report["held"].get(kid, 0),
+            # phase 22: KR's launch shapes of phases 3-21
+            **({"shapes_held": kr_report["held"],
+                "largest_shape": kr_report["largest"]}
+               if kid == "KR" else {}),
             "timing_ratio": oblivious[kid][2] if kid in oblivious else None,
             # (NB, S or P, K, B, L) of the launch the times are from
             "shape": f"{pick[kid]} {row[1]}",

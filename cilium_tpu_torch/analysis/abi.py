@@ -5,9 +5,9 @@ shim (``shim/cilium_shim.cpp`` → ``cshim_*``) and the capture codec
 (``native/capture/capture.cpp`` → ``ct_capture_*``). The port crosses
 it at its hand-written CUDA kernels: each ``<package>/engine/csrc/*.cu``
 exports one ``extern "C"`` launcher (``ct_dfa_dense``,
-``ct_nfa_scan``, ``ct_dfa_oblivious``) and ``ct_error_string``; its
-tests bind the reference's shim too. All are loaded
-with raw ``ctypes.CDLL`` — there is no header parser, no stub
+``ct_nfa_scan``, ``ct_dfa_oblivious``, ``ct_resolve_groups``) and
+``ct_error_string``; its tests bind the reference's shim too. All are
+loaded with raw ``ctypes.CDLL`` — there is no header parser, no stub
 generator, nothing that fails at import time when a C signature gains
 an argument or changes a width. The failure mode of drift is a
 segfault (wrong arity / wrong pointer marshaling) or silent value
@@ -64,7 +64,7 @@ RULE = "abi-surface"
 CPP_SOURCES = ("shim/cilium_shim.cpp", "native/capture/capture.cpp")
 
 #: the package's own CUDA kernels: every ``*.cu`` under
-#: ``<package>/engine/csrc`` (the port's K1, K2 and KD)
+#: ``<package>/engine/csrc`` (the port's K1, K2, KD and KR)
 KERNEL_SOURCES = "engine/csrc"
 
 #: C sources a package does not bind, by package, with the reason
@@ -82,7 +82,7 @@ EXTRA_PY = ("tests", "bench_service.py")
 
 #: symbol prefixes that mark our ABI (anything else is ignored)
 SYMBOL_PREFIXES = ("cshim_", "ct_capture_", "ct_dfa_", "ct_nfa_",
-                   "ct_error_string")
+                   "ct_resolve_", "ct_error_string")
 
 # -- C side -----------------------------------------------------------------
 

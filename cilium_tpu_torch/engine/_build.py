@@ -208,6 +208,11 @@ KERNELS: Dict[str, Kernel] = {
         "dfa_oblivious", "dfa_oblivious.cu", "ct_dfa_oblivious",
         [_P] * 6 + [_I] * 5 + [_P],
         replaces="cilium_tpu/engine/pallas_dfa.py:82"),
+    "KR": Kernel(
+        "resolve_groups", "resolve_groups.cu", "ct_resolve_groups",
+        [_P],                   # one int64 array of its arguments
+        # fused_verdict_core's resolve, which XLA fuses; not Pallas
+        replaces="cilium_tpu/engine/megakernel.py:542"),
 }
 
 

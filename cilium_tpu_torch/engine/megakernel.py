@@ -8,7 +8,8 @@ space. The host half — ``build_resolve_plan`` and its dedup helpers,
 ``plan_for_engine``'s per-field arm pick, ``_nfa_group_plane`` — is the
 reference's code, copied, so the staged arrays are byte-equal. The
 device half is PyTorch; the scans run on the hand-written kernels (KD,
-K1, K2) for CUDA tensors and on their plain versions for CPU tensors.
+K1, K2) and the group-space resolve on KR (``resolve_cuda``) for CUDA
+tensors, and on their plain versions for CPU tensors.
 
 A policy whose plan degenerated (no ``rp_*`` arrays) resolves per
 rule through the shared ``verdict._verdict_core``, as the reference's
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from cilium_tpu_torch.core.flow import L7Type
-from cilium_tpu_torch.engine import nfa_kernel
+from cilium_tpu_torch.engine import nfa_kernel, resolve_cuda
 from cilium_tpu_torch.runtime.metrics import (
     KERNEL_AUTOTUNE_PICKS,
     KERNEL_AUTOTUNE_SECONDS,
@@ -487,55 +488,19 @@ def _fused_l7_frontend(arrays, ruleset, l7g_w, gen_pairs, l7t):
 def fused_verdict_core(arrays, ms, l7t, words, gwords, kafka_cols,
                        auth_src_dst, batch, gen_cols=None):
     """The factored-resolve back half; shares the precedence/auth/audit
-    assembly (``verdict._assemble_verdict``). Kafka/generic/frontend
-    use their deduped predicate groups when the plan staged them, else
-    the per-rule helpers — bit-equal either way. ``words[5]``, when
-    present, is the l7g field's match words. The resolve is span
+    assembly (``verdict._assemble_verdict``). The resolve is
+    :func:`resolve_cuda.resolve_groups`: kernel KR on CUDA tensors, its
+    plain version on CPU tensors; every family in its deduped predicate
+    groups, as the plan always stages them. ``words[5]``, when present,
+    is the l7g field's match words. The resolve is span
     ``step.resolve``, the assembly ``step.assemble``."""
-    from cilium_tpu_torch.engine.verdict import (
-        _assemble_verdict,
-        _combine_l7_match,
-        _l7_frontend,
-        _l7_generic,
-        _l7_kafka,
-    )
+    from cilium_tpu_torch.engine.verdict import _assemble_verdict
 
     # ctlint: disable=jit-purity  # a span: no-op when disarmed; reads no tensor, never waits on the card
     with TRACER.span("step.resolve", PHASE_DEVICE):
-        # ms["ruleset"] is -1 where no entry won: clip before gathering
-        # (JAX clamps out-of-range gathers, torch faults on them)
-        ruleset = ms["ruleset"].clamp(
-            0, arrays["rs_http_mask"].shape[0] - 1).long()
-        http_ok, l7_log_http, http_win = _fused_l7_http(
-            arrays, ruleset, words, gwords, l7t)
-        if "rp_rs_kmask" in arrays:
-            kafka_ok, kafka_win = _fused_l7_kafka(arrays, ruleset,
-                                                  kafka_cols, l7t)
-        else:
-            kafka_ok, kafka_win = _l7_kafka(arrays, ruleset, kafka_cols, l7t)
-        dns_ok, dns_win = _fused_l7_dns(arrays, ruleset, words[4], l7t)
-        l7_ok = http_ok | kafka_ok | dns_ok
-        gen_ok = gen_win = None
-        if gen_cols is not None:
-            if "rp_rs_genmask" in arrays:
-                gen_ok, gen_win = _fused_l7_generic(arrays, ruleset,
-                                                    gen_cols, l7t)
-            else:
-                gen_ok, gen_win = _l7_generic(arrays, ruleset, gen_cols, l7t)
-            l7_ok = l7_ok | gen_ok
-        fe_ok = fe_win = None
-        if len(words) > 5 and gen_cols is not None and "fe_lane" in arrays:
-            if "rp_rs_femask" in arrays:
-                fe_ok, fe_win = _fused_l7_frontend(arrays, ruleset, words[5],
-                                                   gen_cols[1], l7t)
-            else:
-                fe_ok, fe_win = _l7_frontend(arrays, ruleset, words[5],
-                                             gen_cols[1], l7t)
-            l7_ok = l7_ok | fe_ok
-        l7_match = _combine_l7_match(
-            (http_ok, http_win), (kafka_ok, kafka_win), (dns_ok, dns_win),
-            (gen_ok, gen_win) if gen_ok is not None else None,
-            fe=(fe_ok, fe_win) if fe_ok is not None else None)
+        l7_ok, l7_log_http, l7_match = resolve_cuda.resolve_groups(
+            arrays, ms["ruleset"], l7t, words, gwords, kafka_cols,
+            gen_cols=gen_cols)
     return _assemble_verdict(arrays, ms, l7_ok, l7_log_http,
                              auth_src_dst, batch, l7_match=l7_match)
 

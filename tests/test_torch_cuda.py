@@ -8,7 +8,9 @@ machine with the card has no JAX; this file imports none.)
 
 Each kernel is held exactly against its plain version on the same CUDA
 tensors (random, all-zero and all-full lengths; the tile edges of the
-tensor-core kernels), and the fused step, capture replay (memo route)
+tensor-core kernels; KR, the group-space resolve, at random plans of 1
+to 2047 groups a family over 1 to 262144 rows, and at the benchmark's
+http-1k plan on one 262144-record replay chunk), and the fused step, capture replay (memo route)
 and the legacy step on the card against the same paths on the CPU (the
 plain versions), at a small size. The protocol frontends' ``l7g``
 stacks: KD, and K2 and K1 wherever they take the stack, at each lane
@@ -47,11 +49,13 @@ from cilium_tpu_torch.engine import (
     dfa_dense_cuda,
     dfa_oblivious_cuda,
     nfa_cuda,
+    resolve_cuda,
 )
 from cilium_tpu_torch.engine.compiled import CompiledPolicy, encode_strings
 from cilium_tpu_torch.engine.verdict import OUTPUT_LANES, TorchVerdictEngine
 from cilium_tpu_torch.ingest import synth
 from cilium_tpu_torch.weights import arrays_from_reference
+from resolve_cases import GROUPS, ROWS, random_case, torch_args
 
 pytestmark = pytest.mark.gpu
 
@@ -231,6 +235,62 @@ def test_capture_replay_on_card_equals_plain(cuda, dfa_impl, kernel,
                          sections, cfg)
     for lane in OUTPUT_LANES:
         np.testing.assert_array_equal(got[lane], want[lane], lane)
+
+
+@pytest.mark.parametrize("B", ROWS)
+@pytest.mark.parametrize("G", GROUPS)
+def test_kr_equals_plain_on_random_plans(cuda, G, B):
+    """KR against its plain version, every output bit, with the generic
+    block and the frontend groups and without them; each case launches
+    once."""
+    for gen in (True, False):
+        args = torch_args(*random_case(G + B, G, B, gen=gen), cuda)
+        _build.reset_launches()
+        got = resolve_cuda.resolve_groups_cuda(*args)
+        torch.cuda.synchronize()
+        assert resolve_cuda.KERNEL.launches == 1
+        want = resolve_cuda.resolve_groups_plain(*args)
+        for lane, g, w in zip(("l7_ok", "l7_log_http", "l7_match"), got,
+                              want):
+            assert g.dtype == w.dtype and torch.equal(g, w), (lane, gen)
+
+
+def test_kr_at_the_http_1k_plan_equals_plain(cuda, tmp_path, monkeypatch):
+    """KR at the benchmark's http-1k deployment: its staged plan, and one
+    chunk of 262144 distinct records of its replay traffic through
+    ``CaptureReplay.verdict_chunk``, which launches KR once; that
+    launch's inputs held against the plain version."""
+    from benchmark import capture, deployment, registry, traffic
+    from benchmark.system import System
+
+    bench = registry.load_benchmark()
+    dep = deployment.load(registry.config_path(bench, "http-1k"))
+    tr = dict(traffic.load_traffic(registry.traffic_path("replay-unique")),
+              records=262144, chunk=262144)
+    cap = str(tmp_path / "capture.bin")
+    capture.write(cap, traffic.generate(dep, tr, 3100000123))
+    system = System(dep, str(tmp_path / "cache"), "cuda")
+    try:
+        system.stage(cap)
+        noted = []
+        real = resolve_cuda.resolve_groups_cuda
+
+        def noting(*a, **k):
+            noted.append((a, k))
+            return real(*a, **k)
+
+        monkeypatch.setattr(resolve_cuda, "resolve_groups_cuda", noting)
+        _build.reset_launches()
+        system.verdict_chunk(0, 262144)
+        assert len(noted) == 1 and resolve_cuda.KERNEL.launches == 1
+        a, k = noted[0]
+        assert a[1].shape == (262144,)
+        got, want = real(*a, **k), resolve_cuda.resolve_groups_plain(*a, **k)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert got[0].any() and not got[0].all()
+    finally:
+        system.close()
 
 
 def test_legacy_step_on_card_equals_plain(cuda):

@@ -1,5 +1,5 @@
-"""The plain PyTorch versions of the port's three kernels against the
-JAX package's functions, on the CPU, exactly.
+"""The plain PyTorch versions of the port's kernels against the JAX
+package's functions, on the CPU, exactly.
 
 * KD (dense-gather DFA scan + accept reads) ≡ ``dfa_scan_banked``
   with ``impl="gather"``;
@@ -32,13 +32,20 @@ from cilium_tpu.engine.dfa_kernel import dfa_finals_banked as \
 from cilium_tpu.engine.dfa_kernel import dfa_scan_banked as jax_dfa_scan
 from cilium_tpu.policy.compiler.dfa import compile_patterns
 
-from cilium_tpu_torch.engine import dfa_kernel, nfa_cuda, nfa_kernel
+from cilium_tpu_torch.engine import (
+    _build,
+    dfa_kernel,
+    nfa_cuda,
+    nfa_kernel,
+    resolve_cuda,
+)
 from cilium_tpu_torch.engine import verdict as tv
 from cilium_tpu_torch.engine.dfa_dense_cuda import dense_scan_plain
 from cilium_tpu_torch.engine.dfa_oblivious_cuda import (
     dfa_finals_oblivious_plain,
 )
 from cilium_tpu_torch.weights import stage_array
+from resolve_cases import BLOCK_COLS, GROUPS, random_case, torch_args
 
 
 def T(a):
@@ -466,3 +473,63 @@ def test_kafka_generic_helpers_equal_reference(helper, with_groups):
     np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
     np.testing.assert_array_equal(got_win.numpy(), np.asarray(want_win))
     assert np.asarray(want_ok).any() or helper.endswith("generic")
+
+
+# ------------------------------------------------ KR: the group-space resolve
+@pytest.mark.parametrize("gen", [True, False])
+@pytest.mark.parametrize("G", GROUPS)
+def test_resolve_groups_plain_equals_reference(G, gen):
+    """KR's plain version against the JAX package's ``fused_verdict_core``
+    lanes: with ``allowed`` and ``redirect`` set on every row, its
+    ``l7_log`` is the resolve's ``l7_log_http``."""
+    from cilium_tpu.engine import megakernel as jax_mk
+
+    arrays, inputs = random_case(G, G, 200, gen=gen)
+    block, B = inputs["block"], 200
+    ms = {"allowed": jnp.ones(B, bool), "redirect": jnp.ones(B, bool),
+          "auth_required": jnp.zeros(B, bool),
+          "match_spec": jnp.zeros(B, jnp.int32),
+          "ruleset": jnp.asarray(inputs["ruleset"])}
+    gen_cols = ((jnp.asarray(block[:, 5]), jnp.asarray(block[:, BLOCK_COLS:]))
+                if gen else None)
+    want = jax_mk.fused_verdict_core(
+        {k: jnp.asarray(v) for k, v in arrays.items()}, ms,
+        jnp.asarray(block[:, 0]), tuple(jnp.asarray(w) for w in inputs["words"]),
+        jnp.asarray(inputs["gwords"]),
+        tuple(jnp.asarray(block[:, c]) for c in range(1, 5)), None, {},
+        gen_cols=gen_cols)
+    got = resolve_cuda.resolve_groups_plain(
+        *torch_args(arrays, inputs, torch.device("cpu")))
+    for lane, g in zip(("l7_ok", "l7_log", "l7_match"), got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want[lane]), lane)
+    assert got[0].any() and (got[2] >= 0).any()
+
+
+def test_resolve_groups_cuda_raises_on_cpu_tensors():
+    args = torch_args(*random_case(0, 15, 8), torch.device("cpu"))
+    with pytest.raises(_build.KernelArgumentError):
+        resolve_cuda.resolve_groups_cuda(*args)
+
+
+def test_fused_verdict_core_on_cpu_takes_the_plain_version(monkeypatch):
+    from cilium_tpu_torch.engine import megakernel as mk
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU tensor reached KR")
+
+    monkeypatch.setattr(resolve_cuda, "resolve_groups_cuda", refuse)
+    arrays, ruleset, l7t, words, gwords, kafka, gen = torch_args(
+        *random_case(1, 15, 64), torch.device("cpu"))
+    B = ruleset.shape[0]
+    ms = {"allowed": torch.ones(B, dtype=torch.bool),
+          "redirect": torch.ones(B, dtype=torch.bool),
+          "auth_required": torch.zeros(B, dtype=torch.bool),
+          "match_spec": torch.zeros(B, dtype=torch.int32), "ruleset": ruleset}
+    _build.reset_launches()
+    out = mk.fused_verdict_core(arrays, ms, l7t, words, gwords, kafka, None,
+                                {}, gen_cols=gen)
+    want = resolve_cuda.resolve_groups_plain(arrays, ruleset, l7t, words,
+                                             gwords, kafka, gen_cols=gen)
+    for lane, w in zip(("l7_ok", "l7_log", "l7_match"), want):
+        assert torch.equal(out[lane], w), lane
+    assert resolve_cuda.KERNEL.launches == 0
