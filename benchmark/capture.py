@@ -6,7 +6,9 @@ A 16-byte header (magic ``CTCAP1``, version, count); one 32-byte record
 a flow (source and destination identity, ports, protocol, direction,
 L7 type, verdict, time); a 16-byte L7 header (string count, 0, blob
 bytes); the shared string table (``count + 1`` u32 offsets and one
-blob, string 0 empty); one 32-byte L7 record a flow of string indices.
+blob, string 0 empty: the HTTP fields' strings, then the Kafka client
+ids' and topics'); one 32-byte L7 record a flow of string indices and
+the Kafka API key and version.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ def sections(rec: Records):
         strings.extend(table[1:])
         col = np.where(idx > 0, idx + base, 0)
         l7[field] = col.astype(np.uint32)
+    l7["kafka_api_key"] = rec.kafka_api_key
+    l7["kafka_api_version"] = rec.kafka_api_version
     lens = np.fromiter((len(s) for s in strings), dtype=np.uint64,
                        count=len(strings))
     offsets = np.zeros(len(strings) + 1, dtype=np.uint32)

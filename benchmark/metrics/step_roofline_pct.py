@@ -15,6 +15,11 @@ and each output byte written once:
   protocol, direction) key of the chunk that some policy covers;
 - four 32-bit rule words (path, method, host, headers) for each rule of
   each distinct HTTP rule set the chunk's redirected HTTP records need;
+- four 32-bit rule words (API-key mask, version, client, topic) for each
+  rule of each distinct Kafka rule set the chunk's redirected Kafka
+  records need. A Kafka record's client id and topic are exact ids,
+  interned on the host once a file, so no match words are counted for
+  them: they are in the row;
 - every output lane the replay returns, at its dtype.
 """
 
@@ -25,6 +30,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from benchmark.peaks import H100_HBM_BYTES_PER_S
+from benchmark.traffic import HTTP, KAFKA
 
 ENTRY_BYTES = 16
 RULE_FIELDS = 4
@@ -56,7 +62,7 @@ def pattern_words(dep) -> Dict[str, int]:
 def chunk_bytes(dep, rec, expected, start: int, n: int, row_bytes: int,
                 lane_bytes: int, words: Dict[str, int]) -> int:
     sl = slice(start, start + n)
-    http = rec.l7[sl] == 1
+    http = rec.l7[sl] == HTTP
     field_words = {}
     for f, w in words.items():
         idx = rec.strings[f][1][sl][http]
@@ -65,8 +71,13 @@ def chunk_bytes(dep, rec, expected, start: int, n: int, row_bytes: int,
     keys = np.stack([rec.src[sl], rec.dst[sl], rec.dport[sl],
                      rec.proto[sl], rec.direction[sl]], axis=1)[cov]
     entries = int(len(np.unique(keys, axis=0))) if len(keys) else 0
-    need = expected.http_policy[sl][http]
-    rules = sum(len(dep.policies[k].http) for k in np.unique(need[need >= 0]))
+    rules = 0
+    for fam, of_fam, need in (
+            ("http", http, expected.http_policy[sl]),
+            ("kafka", rec.l7[sl] == KAFKA, expected.kafka_policy[sl])):
+        need = need[of_fam]
+        rules += sum(len(getattr(dep.policies[k], fam))
+                     for k in np.unique(need[need >= 0]))
     return step_bytes(n, row_bytes, field_words, entries, rules, lane_bytes)
 
 

@@ -10,18 +10,28 @@ ingress record, the source of an egress one) and peer ``peer``:
   (0 = any) and protocol are the record's;
 - deny before allow: an applying deny drops the record;
 - an applying allow without L7 rules forwards it (FORWARDED);
-- an applying allow with HTTP rules redirects it to the proxy: allowed
-  (REDIRECTED) when an applying allow has no L7 rules, or when the
-  record is HTTP and some HTTP rule of the applying allows matches
-  all its parts: regex full match of method, path and host (host
-  without case), and each required header present with its value
-  (any value when none is given); otherwise dropped;
+- an applying allow with L7 rules (HTTP or Kafka, one family a policy)
+  redirects it to the proxy: allowed (REDIRECTED) when an applying
+  allow has no L7 rules, or when some rule of the record's own family
+  in the applying allows matches it; otherwise dropped;
+- an HTTP rule matches an HTTP record in all its parts: regex full
+  match of method, path and host (host without case), and each
+  required header present with its value (any value when none is
+  given);
+- a Kafka rule matches a Kafka record (one topic at most) as upstream
+  ``proxylib/kafka`` ``MatchesRule`` decides: the API key is in the
+  rule's set (its role's keys, :data:`KAFKA_ROLE_API_KEYS`, its one
+  named key, or any), the API version and the client id are the rule's
+  where it gives them, and the topic is the rule's where both the rule
+  and the record give one: a record without a topic is judged on the
+  rule's other parts;
 - no applying policy: dropped when some policy of the record's direction
   selects ``ep`` (default deny), forwarded otherwise (default allow).
 
 The control breaks one of these guarantees on request (``control=``):
 ``prefix_match`` matches regexes at the start only, ``deny_ignored``
-drops deny policies, ``default_allow`` forwards what no policy covers.
+drops deny policies, ``default_allow`` forwards what no policy covers,
+``kafka_key_ignored`` matches Kafka rules whatever the API key.
 """
 
 from __future__ import annotations
@@ -32,11 +42,25 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from benchmark.deployment import Deployment, HTTPRule, label_index, selected
-from benchmark.traffic import HTTP, Records
+from benchmark.deployment import (
+    KAFKA_API_KEYS,
+    Deployment,
+    HTTPRule,
+    KafkaRule,
+    label_index,
+    selected,
+)
+from benchmark.traffic import HTTP, KAFKA, Records
 
 FORWARDED, DROPPED, REDIRECTED = 1, 2, 5
-CONTROLS = ("prefix_match", "deny_ignored", "default_allow")
+CONTROLS = ("prefix_match", "deny_ignored", "default_allow",
+            "kafka_key_ignored")
+#: the API keys each Kafka role allows (upstream ``pkg/policy/api``
+#: ``kafka.go`` ``MapRoleToAPIKey``)
+KAFKA_ROLE_API_KEYS = {
+    "produce": (0, 3, 18),
+    "consume": (1, 2, 3, 8, 9, 10, 11, 12, 13, 14, 18),
+}
 _META = set(".^$*+?{}[]\\|()")
 
 
@@ -47,9 +71,11 @@ class Expected:
     redirect: np.ndarray         # [N] bool
     #: not compared; what the step's byte count reads: some policy
     #: applies ([N] bool), and the first applying allow with HTTP
-    #: rules ([N] int64 policy position, -1 for none)
+    #: rules, and with Kafka rules, of a redirected record ([N] int64
+    #: policy position, -1 for none)
     covered: np.ndarray
     http_policy: np.ndarray
+    kafka_policy: np.ndarray
 
     def lanes(self) -> Dict[str, np.ndarray]:
         return {"verdict": self.verdict, "l3l4_allowed": self.l3l4_allowed,
@@ -164,6 +190,54 @@ def _http_allowed(rules: Tuple[HTTPRule, ...], rows: np.ndarray,
     return out
 
 
+def _kafka_match(rule: KafkaRule, key_ignored: bool) -> Callable:
+    """(API key, API version, client id, topic) → the rule matches, the
+    topic given only where both carry one."""
+    keys = (KAFKA_ROLE_API_KEYS[rule.role] if rule.role
+            else (KAFKA_API_KEYS[rule.api_key],) if rule.api_key else ())
+    keys = frozenset(() if key_ignored else keys)
+    version = int(rule.api_version) if rule.api_version else None
+    client = rule.client_id.encode()
+    topic = rule.topic.encode()
+
+    def match(key: int, ver: int, cli: bytes, top: bytes) -> bool:
+        return ((not keys or key in keys)
+                and (version is None or ver == version)
+                and (not client or cli == client)
+                and (not topic or not top or top == topic))
+    return match
+
+
+def _kafka_allowed(rules: Tuple[KafkaRule, ...], rows: np.ndarray,
+                   rec: Records, key_ignored: bool) -> np.ndarray:
+    """[len(rows)] bool: some rule matches the record. Each distinct
+    (key, version, client, topic) is judged once, against the rules
+    without a topic and those of its own topic (all rules where the
+    record has no topic)."""
+    out = np.zeros(len(rows), dtype=bool)
+    if len(rows) == 0 or not rules:
+        return out
+    ctable, cidx = rec.strings["kafka_client"]
+    ttable, tidx = rec.strings["kafka_topic"]
+    cols = np.stack([rec.kafka_api_key[rows].astype(np.int64),
+                     rec.kafka_api_version[rows].astype(np.int64),
+                     cidx[rows], tidx[rows]], axis=1)
+    uniq, inv = np.unique(cols, axis=0, return_inverse=True)
+    by_topic: Dict[bytes, List[Callable]] = {}
+    for r in rules:
+        by_topic.setdefault(r.topic.encode(), []).append(
+            _kafka_match(r, key_ignored))
+    every = [m for ms in by_topic.values() for m in ms]
+    ok = np.zeros(len(uniq), dtype=bool)
+    for u, (key, ver, c, t) in enumerate(uniq.tolist()):
+        top = ttable[t]
+        cands = by_topic.get(b"", []) + by_topic.get(top, []) if top \
+            else every
+        cli = ctable[c]
+        ok[u] = any(m(key, ver, cli, top) for m in cands)
+    return ok[inv.reshape(-1)]
+
+
 def decide(dep: Deployment, rec: Records,
            control: Optional[str] = None) -> Expected:
     """The expected verdict lanes of every record (see the module's
@@ -209,6 +283,8 @@ def decide(dep: Deployment, rec: Records,
     p_port = np.array([p.port for p in policies], dtype=np.int64)
     p_proto = np.array([p.proto for p in policies], dtype=np.int64)
     p_deny = np.array([p.deny for p in policies], dtype=bool)
+    p_l7 = np.array([bool(p.http or p.kafka) for p in policies],
+                    dtype=bool)
     p_http = np.array([bool(p.http) for p in policies], dtype=bool)
 
     # (endpoint, direction, port) → the policies on it, sorted
@@ -222,9 +298,10 @@ def decide(dep: Deployment, rec: Records,
 
     any_deny = np.zeros(n, dtype=bool)
     allow_plain = np.zeros(n, dtype=bool)
-    allow_http = np.zeros(n, dtype=bool)
-    http_pairs: List[Tuple[np.ndarray, np.ndarray]] = []
-    http_policy = np.full(n, -1, dtype=np.int64)
+    allow_l7 = np.zeros(n, dtype=bool)
+    l7_pairs: List[Tuple[np.ndarray, np.ndarray]] = []
+    first_l7 = {fam: np.full(n, -1, dtype=np.int64)
+                for fam in ("http", "kafka")}
     direction = rec.direction.astype(np.int64)
     ep_ok = ep >= 0
     for port in (rec.dport.astype(np.int64), np.zeros(n, dtype=np.int64)):
@@ -244,35 +321,44 @@ def decide(dep: Deployment, rec: Records,
                 member[known] |= codes[at] == c
             ok = member & (p_proto[k] == rec.proto[rows])
             any_deny[rows] |= ok & p_deny[k]
-            allow_plain[rows] |= ok & ~p_deny[k] & ~p_http[k]
-            h = ok & ~p_deny[k] & p_http[k]
-            allow_http[rows] |= h
+            allow_plain[rows] |= ok & ~p_deny[k] & ~p_l7[k]
+            h = ok & ~p_deny[k] & p_l7[k]
+            allow_l7[rows] |= h
             if h.any():
-                http_pairs.append((rows[h], k[h]))
-                first = http_policy[rows[h]] < 0
-                http_policy[rows[h][first]] = k[h][first]
+                l7_pairs.append((rows[h], k[h]))
+                for fam, is_fam in (("http", p_http[k]),
+                                    ("kafka", ~p_http[k])):
+                    r, kf = rows[h & is_fam], k[h & is_fam]
+                    first = first_l7[fam][r] < 0
+                    first_l7[fam][r[first]] = kf[first]
 
-    allowed_l4 = (allow_plain | allow_http) & ~any_deny
-    redirect = allow_http & ~any_deny
+    allowed_l4 = (allow_plain | allow_l7) & ~any_deny
+    redirect = allow_l7 & ~any_deny
     l7_ok = allow_plain.copy()
     prefix_only = control == "prefix_match"
-    if http_pairs:
-        rows_all = np.concatenate([r for r, _ in http_pairs])
-        pol_all = np.concatenate([k for _, k in http_pairs])
+    key_ignored = control == "kafka_key_ignored"
+    if l7_pairs:
+        rows_all = np.concatenate([r for r, _ in l7_pairs])
+        pol_all = np.concatenate([k for _, k in l7_pairs])
         need = redirect[rows_all] & ~allow_plain[rows_all] \
-            & (rec.l7[rows_all] == HTTP)
+            & np.where(p_http[pol_all], rec.l7[rows_all] == HTTP,
+                       rec.l7[rows_all] == KAFKA)
         rows_all, pol_all = rows_all[need], pol_all[need]
         for k in np.unique(pol_all).tolist():
             rows = rows_all[pol_all == k]
             rows = rows[~l7_ok[rows]]
-            l7_ok[rows] |= _http_allowed(policies[k].http, rows, rec,
-                                         prefix_only)
+            if p_http[k]:
+                l7_ok[rows] |= _http_allowed(policies[k].http, rows, rec,
+                                             prefix_only)
+            else:
+                l7_ok[rows] |= _kafka_allowed(policies[k].kafka, rows, rec,
+                                              key_ignored)
 
     ep_col = np.where(ep_ok, ep, E)
     default_drop = enforced[direction, ep_col]
     if control == "default_allow":
         default_drop = np.zeros(n, dtype=bool)
-    covered = allow_plain | allow_http | any_deny
+    covered = allow_plain | allow_l7 | any_deny
     verdict = np.where(
         any_deny, DROPPED,
         np.where(redirect, np.where(l7_ok, REDIRECTED, DROPPED),
@@ -282,4 +368,5 @@ def decide(dep: Deployment, rec: Records,
     return Expected(verdict=verdict.astype(np.int32),
                     l3l4_allowed=l3l4.astype(bool),
                     redirect=redirect.astype(bool), covered=covered,
-                    http_policy=np.where(redirect, http_policy, -1))
+                    http_policy=np.where(redirect, first_l7["http"], -1),
+                    kafka_policy=np.where(redirect, first_l7["kafka"], -1))

@@ -22,6 +22,7 @@ def _rule(p: Policy):
         PortProtocol,
         PortRule,
         PortRuleHTTP,
+        PortRuleKafka,
         Rule,
     )
 
@@ -32,6 +33,12 @@ def _rule(p: Policy):
                          headers=tuple(f"{k}: {v}" if v else k
                                        for k, v in h.headers))
             for h in p.http))
+    elif p.kafka:
+        l7 = L7Rules(kafka=tuple(
+            PortRuleKafka(role=k.role, api_key=k.api_key,
+                          api_version=k.api_version, client_id=k.client_id,
+                          topic=k.topic)
+            for k in p.kafka))
     ports = (PortRule(ports=(PortProtocol(p.port, Protocol(p.proto)),),
                       rules=l7),)
     peer = (EndpointSelector(match_labels=p.peer),)

@@ -53,3 +53,24 @@ def test_roofline_share_reads_bytes_over_device_time():
     # 3.35e9 bytes take 1 ms at 3.35 TB/s; the step took 1 ms a chunk
     assert np.isclose(got, 100.0)
     assert srp.read({"trace": r, "step_bytes": []}) is None
+
+
+def test_the_http_capture_and_its_byte_count_are_pinned(tmp_path):
+    """The small HTTP cell's capture and step bytes, as written before
+    the harness took Kafka: the same file to the byte, the same count."""
+    import hashlib
+
+    from benchmark import capture, traffic
+    from benchmark.tests import small
+
+    dep = deployment.from_dict(small.config("http-1k"))
+    mix = small.traffic()
+    rec = traffic.generate(dep, mix, 2 ** 31 + 17)
+    path = tmp_path / "capture.bin"
+    capture.write(str(path), rec)
+    assert hashlib.sha256(path.read_bytes()).hexdigest() == \
+        "b91fb3f783ae05a079921b71a67f4964fe350855b0ba7b88fce7fec05afdb1a3"
+    exp = reference.decide(dep, rec)
+    words = srp.pattern_words(dep)
+    assert [srp.chunk_bytes(dep, rec, exp, s, mix["chunk"], 60, 22, words)
+            for s in range(0, mix["records"], mix["chunk"])] == [178168] * 4

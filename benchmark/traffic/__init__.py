@@ -11,7 +11,11 @@ of draw is one module beside it; nothing here changes.
 Strings are kept as one table a field (``[S] bytes``, string 0 empty)
 and an index a record, as the capture stores them; header blocks are
 written as the capture carries them: ``name:value`` lines, names lower
-case, sorted, each ending in a newline.
+case, sorted, each ending in a newline. A Kafka record carries its API
+key and version as numbers and its client id and topic as strings
+(string 0: none). A record carries zeros and string 0 in the columns
+of the other family, and a generator may leave out the columns of a
+family it does not draw.
 """
 
 from __future__ import annotations
@@ -19,15 +23,18 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from benchmark.deployment import _OP, _TEMPLATE, Deployment, expand
 from benchmark.registry import BenchmarkError, check_name, module_name
 
-HTTP = 1           # Hubble's L7 type of an HTTP record
-STRING_FIELDS = ("method", "path", "host", "headers")
+HTTP = 1           # Hubble's L7 types: an HTTP record,
+KAFKA = 2          # a Kafka record
+HTTP_FIELDS = ("method", "path", "host", "headers")
+KAFKA_FIELDS = ("kafka_client", "kafka_topic")
+STRING_FIELDS = HTTP_FIELDS + KAFKA_FIELDS
 
 
 @dataclasses.dataclass
@@ -37,9 +44,19 @@ class Records:
     dport: np.ndarray        # [N] uint16
     proto: np.ndarray        # [N] uint8
     direction: np.ndarray    # [N] uint8 (0 egress, 1 ingress)
-    l7: np.ndarray           # [N] uint8 (0 none, 1 HTTP)
+    l7: np.ndarray           # [N] uint8 (0 none, 1 HTTP, 2 Kafka)
     #: field → (table [S] of bytes with table[0] == b"", index [N] int64)
     strings: Dict[str, Tuple[List[bytes], np.ndarray]]
+    kafka_api_key: Optional[np.ndarray] = None      # [N] int16
+    kafka_api_version: Optional[np.ndarray] = None  # [N] int16
+
+    def __post_init__(self):
+        n = len(self.src)
+        for col in ("kafka_api_key", "kafka_api_version"):
+            if getattr(self, col) is None:
+                setattr(self, col, np.zeros(n, dtype=np.int16))
+        for f in STRING_FIELDS:
+            self.strings.setdefault(f, ([b""], np.zeros(n, dtype=np.int64)))
 
     def __len__(self) -> int:
         return len(self.src)

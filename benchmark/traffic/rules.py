@@ -23,7 +23,7 @@ import numpy as np
 from benchmark.deployment import Deployment, label_index, selected
 from benchmark.traffic import (
     HTTP,
-    STRING_FIELDS,
+    HTTP_FIELDS,
     Records,
     add_header,
     intern,
@@ -54,7 +54,7 @@ def generate(dep: Deployment, mix: Dict[str, object],
     else:
         src, dst = dst_b[pick], src_b[pick]
     strings = {}
-    for f, col in zip(STRING_FIELDS, zip(*reqs)):
+    for f, col in zip(HTTP_FIELDS, zip(*reqs)):
         table, idx = intern(list(col))
         strings[f] = (table, idx[pick])
     extra = mix.get("distinct_header")
